@@ -1,0 +1,100 @@
+"""Counter-hash pairwise mask streams (eq. 23): plain torch version and the
+CUDA check kernel.
+
+Mirrors the device functions of ``repro/kernels/secure_agg.py``
+(``_hash_u32``, ``pair_stream``, ``net_mask_stream``); their CUDA
+counterparts live in ``csrc/hash.cuh`` and run inside ``fold_apply``'s mask
+mode.  The streams are uint32 integer math and match the reference bit for
+bit.
+
+torch's uint32 dtype supports few operations, so the plain version holds
+uint32 values in int64 and masks with ``& 0xFFFFFFFF``.  A product of two
+32-bit values overflows int64, so each multiply by a 32-bit constant is
+split into its 16-bit halves: ``x*c = x*c_lo + ((x*c_hi) mod 2^16) << 16``
+(mod 2^32), each partial product below 2^48.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import kernels as _k
+from repro_torch.kernels import _build
+from repro_torch.kernels.common import on_cuda, stream_handle
+
+MASK32 = 0xFFFFFFFF
+
+
+def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x * c mod 2^32 for int64 x in [0, 2^32) and a 32-bit constant c."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & MASK32
+
+
+def hash_u32(x: torch.Tensor) -> torch.Tensor:
+    """xorshift-multiply mix (Murmur3 finalizer) on uint32 held in int64."""
+    x = x.to(torch.int64) & MASK32
+    x = x ^ (x >> 16)
+    x = _mul_u32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul_u32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x
+
+
+def pair_stream(pair_id, idx: torch.Tensor, seed, scale) -> torch.Tensor:
+    """Uniform(-scale, scale) stream of one client pair at feature ``idx``
+    (``pair_id`` broadcasts against ``idx``)."""
+    pid = torch.as_tensor(pair_id, dtype=torch.int64, device=idx.device)
+    sd = torch.as_tensor(seed, dtype=torch.int64, device=idx.device) & MASK32
+    key = hash_u32((_mul_u32(pid & MASK32, 0x9E3779B9) + sd) & MASK32)
+    h = hash_u32(idx.to(torch.int64) ^ key)
+    u = (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    s = torch.as_tensor(scale, dtype=torch.float32, device=idx.device)
+    return (2.0 * u - 1.0) * s
+
+
+def pair_ids(k: int, L: int, device=None) -> torch.Tensor:
+    """[L, 1] pair id of (k, j) for every peer j (row-major a < b order)."""
+    j = torch.arange(L, device=device)[:, None]
+    a = torch.minimum(j, torch.tensor(k, device=device))
+    b = torch.maximum(j, torch.tensor(k, device=device))
+    return (a * (2 * L - a - 1)) // 2 + (b - a - 1)
+
+
+def net_mask_stream(k: int, idx: torch.Tensor, seed, scale, L: int,
+                    alive: torch.Tensor | None = None) -> torch.Tensor:
+    """Client k's NET pairwise mask at features ``idx`` ([D]):
+    ``sum_{j>k} +PRG(pair(k,j)) + sum_{j<k} -PRG(pair(j,k))``, over alive
+    peers only when ``alive`` [L] bool is given."""
+    j = torch.arange(L, device=idx.device)[:, None]
+    s = pair_stream(pair_ids(k, L, idx.device), idx[None, :], seed, scale)
+    sgn = torch.where(j > k, 1.0, -1.0)
+    m = torch.where(j == k, 0.0, sgn) * s
+    if alive is not None:
+        m = torch.where(alive[:, None], m, 0.0)
+    return m.sum(dim=0)
+
+
+def pair_streams_plain(seed: int, L: int, D: int, scale,
+                       device=None) -> torch.Tensor:
+    """[L(L-1)/2, D] every pair's stream, pair ids in order."""
+    npairs = L * (L - 1) // 2
+    idx = torch.arange(D, device=device)
+    pid = torch.arange(npairs, device=device)[:, None]
+    return pair_stream(pid, idx[None, :], seed, scale)
+
+
+def pair_streams(seed: int, L: int, D: int, scale,
+                 device) -> torch.Tensor:
+    """The CUDA version of :func:`pair_streams_plain` on ``device`` (the
+    plain version for the CPU)."""
+    probe = torch.empty(0, device=device)
+    if not on_cuda(probe):
+        return pair_streams_plain(seed, L, D, scale, device)
+    npairs = L * (L - 1) // 2
+    out = torch.empty((npairs, D), dtype=torch.float32, device=device)
+    fn = _build.function("secure_agg")
+    _build.check(fn(int(seed) & MASK32, float(scale), out.data_ptr(), npairs,
+                    D, stream_handle(out)), "pair_streams")
+    _k.LAUNCHES["pair_streams"] += 1
+    return out

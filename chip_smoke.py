@@ -24,12 +24,38 @@ Phases, each printing JSON lines:
              checks finite MSD, on/off agreement, hybrid below iid_dp.
 5. profile — torch.profiler over 50 hybrid rounds, kernels on and off:
              wall and device-busy time per round, idle share, device ops.
+6. swa     — K8 swa_decode against its plain version at the serving shapes
+             (B, H, KV, C, Dh) = (4, 32, 32, 2047, 96) bf16,
+             (4, 32, 32, 1064, 96) bf16, (4, 9, 3, 1064, 64) bf16 and f32,
+             (2, 8, 4, 1000, 64) f32 and (32, 32, 32, 2047, 96) bf16 (805 MB
+             of K/V), each with nvalid = C and a partial nvalid; run twice,
+             bitwise equal; kernel, plain and scaled_dot_product_attention
+             times with the HBM bound, cycling through copies of K/V that
+             exceed the 50 MB L2, as decode finds them cold.
+7. serve   — phi3-mini-3.8b at full width (32 layers, d 3072, bf16, random
+             weights from seed 0) through repro_torch.launch.serve.generate:
+             request A, 4 x 4096-token prompts + 32 greedy tokens (ring of
+             2047 slots, wrapped); request B, 4 x 1000 + 32 (1064 slots,
+             nvalid partial).  Gates finite logits, 32 x 32 K8 launches per
+             request, and K8 against its plain version on the live q, cache
+             and nvalid of layers 0 and 31 at decode steps 0 and 31;
+             prints prefill ms, decode ms per step and tok/s against the
+             step's byte bound, peak memory, and a torch.profiler view of
+             decode steps (device busy and idle share, K8's share; no
+             softmax or scaled_dot_product_attention may run there).
 
 Tolerances: f32 outputs within atol 1e-5 of the plain version (the
 reference's parity contract, docs/kernels.md); fold_norms' f32 sums within
 rtol 1e-5 (a sum over up to 2^22 squares, taken in another order); bf16
 outputs, compared in f32, within atol = rtol = 3e-2 (about two bf16 ulps at
-|psi| < 4, as tests/test_round_fold.py); hash streams exactly equal.
+|psi| < 4, as tests/test_round_fold.py); hash streams exactly equal.  K8
+in f32 within atol 1e-5; K8 in bf16, whose outputs are attention averages
+far smaller than psi, within rtol 1e-2 and atol 2^-8 max|plain| (one bf16
+ulp of each value, half an ulp at the top of the range: the kernel and the
+plain version differ only in the f32 summation order before the one cast).
+The swa phase shows that limit is tight enough: the plain version with one
+64-slot tile, or the ragged tail tile, left out (what a kernel that skipped
+it would return) must fall outside it at every shape.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failed check exits non-zero.
@@ -48,6 +74,8 @@ F32_OPS_PER_S = 67e12            # H100 SXM non-tensor fp32 (data sheet)
 ATOL_F32 = 1e-5
 RTOL_NORMS = 1e-5
 TOL_BF16 = 3e-2
+SWA_RTOL_BF16 = 1e-2
+SWA_TILE = 64                    # slots per tile in csrc/swa_decode.cu
 MAIN_SHAPE = (10, 50, 2)
 SHAPES = [MAIN_SHAPE, (10, 8, 2048), (10, 13, 509), (10, 8, 1 << 22)]
 ITERS = 500
@@ -55,6 +83,16 @@ ITERS = 500
 # masks (hash vs Gaussian) that cancel only to f32 rounding, each round
 PARAMS_ATOL = 1e-4
 MSD_RTOL, MSD_ATOL = 1e-3, 1e-6
+SWA_SERVE_SHAPE = (4, 32, 32, 2047, 96)
+SWA_SHAPES = [(SWA_SERVE_SHAPE, "bfloat16"), ((4, 32, 32, 1064, 96), "bfloat16"),
+              ((4, 9, 3, 1064, 64), "bfloat16"), ((4, 9, 3, 1064, 64), "float32"),
+              ((2, 8, 4, 1000, 64), "float32"),
+              ((32, 32, 32, 2047, 96), "bfloat16")]
+L2_BYTES = 50 * 2 ** 20          # H100 L2 (data sheet)
+SERVE_ARCH = "phi3-mini-3.8b"
+SERVE_REQUESTS = (("A", 4, 4096), ("B", 4, 1000))   # name, batch, prompt
+SERVE_NEW_TOKENS = 32
+SERVE_PROFILE_STEPS = 3
 
 
 def emit(obj) -> None:
@@ -131,9 +169,19 @@ def max_err(torch, a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
-def check_close(torch, name, got, want, dtype, *, norms=False):
+def swa_tol(torch, want):
+    """(atol, rtol) for K8's output against its plain version."""
+    if want.dtype != torch.bfloat16:
+        return ATOL_F32, 0.0
+    return float(want.float().abs().max()) * 2.0 ** -8, SWA_RTOL_BF16
+
+
+def check_close(torch, name, got, want, dtype, *, norms=False, tol=None):
     err = max_err(torch, got, want)
-    if dtype == torch.bfloat16:
+    if tol is not None:
+        ok = torch.allclose(got.float(), want.float(), atol=tol[0],
+                            rtol=tol[1])
+    elif dtype == torch.bfloat16:
         ok = torch.allclose(got.float(), want.float(), atol=TOL_BF16,
                             rtol=TOL_BF16)
     elif norms:
@@ -451,6 +499,280 @@ def phase_profile(torch, prob, rounds=50):
               "top_host_ops": host})
 
 
+# ------------------------------------------------------------ K8 (swa)
+
+
+def cycling(fns):
+    """One callable that runs fns[0], fns[1], ... in turn."""
+    state = {"i": 0}
+
+    def run():
+        out = fns[state["i"] % len(fns)]()
+        state["i"] += 1
+        return out
+    return run
+
+
+def swa_bound(B, H, KV, n_live, Dh, esize):
+    """Least time of one K8 call: each live K/V row, q and out moved once
+    (bytes), or 4 B H n Dh flops on the CUDA cores (f32 FMAs)."""
+    nbytes = 2 * B * n_live * KV * Dh * esize + 2 * B * H * Dh * esize + 4
+    ops = 4 * B * H * n_live * Dh
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), \
+        nbytes
+
+
+def planted_faults(torch, swa, q, k, v, nv, want, tol):
+    """Max abs error of what a kernel that left slots out would return: the
+    plain version over the live slots less a middle tile, the ragged tail
+    tile, or one slot.  A tile left out must fall outside ``tol``."""
+    n = min(nv, k.shape[1])
+    mid = (n // SWA_TILE) // 2 * SWA_TILE
+    tail = n - (n % SWA_TILE or SWA_TILE)
+    out = {}
+    for label, lo, hi in (("tile", mid, mid + SWA_TILE),
+                          ("tail", tail, n), ("slot", n // 2, n // 2 + 1)):
+        keep = torch.cat([torch.arange(lo, device=k.device),
+                          torch.arange(hi, n, device=k.device)])
+        fault = swa.swa_decode_attention_plain(
+            q, k[:, keep], v[:, keep],
+            torch.tensor([keep.numel()], dtype=torch.int32, device=k.device))
+        caught = not torch.allclose(fault.float(), want.float(), atol=tol[0],
+                                    rtol=tol[1])
+        require(caught or label == "slot", f"swa_decode tolerance {tol} "
+                f"misses a kernel that leaves out the {label} [{lo}, {hi})")
+        out[label] = {"slots": hi - lo, "max_abs_err": max_err(
+            torch, fault, want), "caught": caught}
+    return out
+
+
+def phase_swa(torch):
+    import torch.nn.functional as F
+    from repro_torch.kernels import swa_decode as swa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(812)
+    serve_row = None
+    for (B, H, KV, C, Dh), dname in SWA_SHAPES:
+        dtype = getattr(torch, dname)
+        esize = torch.tensor([], dtype=dtype).element_size()
+        kv_bytes = 2 * B * C * KV * Dh * esize
+        copies = max(1, min(64, -(-2 * L2_BYTES // kv_bytes)))
+        q = torch.randn((B, H, Dh), generator=gen, device="cuda").to(dtype)
+        kvs = [(torch.randn((B, C, KV, Dh), generator=gen,
+                            device="cuda").to(dtype),
+                torch.randn((B, C, KV, Dh), generator=gen,
+                            device="cuda").to(dtype))
+               for _ in range(copies)]
+        k, v = kvs[0]
+        for nv in (C, (2 * C) // 3):
+            nvalid = torch.tensor([nv], dtype=torch.int32, device="cuda")
+            got = twice_equal(torch, "swa_decode",
+                              lambda: swa.swa_decode(q, k, v, nvalid))
+            want = swa.swa_decode_attention_plain(q, k, v, nvalid)
+            tol = swa_tol(torch, want)
+            err = check_close(torch, f"swa_decode {(B, H, KV, C, Dh)} "
+                              f"{dname} nvalid={nv}", got, want, dtype,
+                              tol=tol)
+            faults = planted_faults(torch, swa, q, k, v, nv, want, tol)
+            mask = (torch.arange(C, device="cuda") < nv)[None, None, None]
+
+            def library(k_, v_):
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=KV != H)[:, :, 0]
+            lib_err = max_err(torch, library(k, v), want)
+            rec = {
+                "ms": time_ms(torch, cycling(
+                    [lambda k_=k_, v_=v_: swa.swa_decode(q, k_, v_, nvalid)
+                     for k_, v_ in kvs])),
+                "plain_ms": time_ms(torch, cycling(
+                    [lambda k_=k_, v_=v_: swa.swa_decode_attention_plain(
+                        q, k_, v_, nvalid) for k_, v_ in kvs]),
+                    budget_s=0.5, max_reps=50),
+                "library_ms": time_ms(torch, cycling(
+                    [lambda k_=k_, v_=v_: library(k_, v_)
+                     for k_, v_ in kvs]), budget_s=0.5, max_reps=100)}
+            rec["bound_ms"], rec["bound_by"], nbytes = swa_bound(
+                B, H, KV, min(nv, C), Dh, esize)
+            emit({"phase": "swa", "kernel": "swa_decode",
+                  "shape": [B, H, KV, C, Dh], "dtype": dname, "nvalid": nv,
+                  "max_abs_err": err, "atol": tol[0], "rtol": tol[1],
+                  "planted_faults": faults, "library_max_abs_err": lib_err,
+                  "kv_copies_cycled": copies, "bytes": nbytes,
+                  "hbm_share": rec["bound_ms"] / rec["ms"], **rec})
+            if ((B, H, KV, C, Dh) == SWA_SERVE_SHAPE and nv == C
+                    and serve_row is None):
+                serve_row = dict(rec, max_abs_err=err)
+        del kvs, k, v
+        torch.cuda.empty_cache()
+    return serve_row
+
+
+# ---------------------------------------------------------------- serve
+
+
+class DecodeTap:
+    """Stands in for ops.swa_decode_attention during a request: passes
+    every call through and keeps copies of the inputs and output of the
+    (layer, step) calls it is asked for."""
+
+    def __init__(self, ops, n_layers, keep):
+        self.ops, self.n_layers, self.keep = ops, n_layers, set(keep)
+        self.orig = ops.swa_decode_attention
+        self.calls, self.captured, self.nvalid = 0, {}, []
+
+    def __enter__(self):
+        self.ops.swa_decode_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.swa_decode_attention = self.orig
+
+    def __call__(self, q, k, v, nvalid):
+        step, layer = divmod(self.calls, self.n_layers)
+        self.calls += 1
+        out = self.orig(q, k, v, nvalid)
+        if layer == 0:
+            self.nvalid.append(nvalid)
+        if (layer, step) in self.keep:
+            self.captured[(layer, step)] = tuple(
+                t.clone() for t in (q, k, v, nvalid.reshape(1), out))
+        return out
+
+
+def decode_profile(torch, model, toks, cache, steps):
+    """torch.profiler over ``steps`` decode steps (already warm)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = model.decode_step(toks, cache)
+            toks = logits.argmax(-1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, k8, k8_n, count, by_name = 0.0, 0.0, 0, 0, {}
+    for evt in prof.events():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            us = evt.time_range.elapsed_us()
+            busy += us
+            count += 1
+            tot = by_name.setdefault(evt.name[:60], [0.0, 0])
+            tot[0] += us
+            tot[1] += 1
+            if "swa_decode" in evt.name:
+                k8 += us
+                k8_n += 1
+    host_ops = {e.key for e in prof.key_averages()}
+    banned = sorted(n for n in host_ops | set(by_name)
+                    if "softmax" in n.lower() or "scaled_dot_product" in n)
+    require(not banned, f"decode step runs {banned}: the attention core "
+            "must go through K8 alone")
+    require(k8_n == steps * model.cfg.num_layers,
+            f"profiled {steps} decode steps saw {k8_n} K8 launches")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+            "device_busy_ms_per_step": busy / 1e3 / steps,
+            "device_idle_share": 1.0 - busy / 1e6 / wall,
+            "device_ops_per_step": count / steps,
+            "k8_ms_per_step": k8 / 1e3 / steps,
+            "k8_share_of_device_time": k8 / busy if busy else None,
+            "k8_launches": k8_n,
+            "top_device_ops": [{"name": n, "ms_per_step": t / 1e3 / steps,
+                                "per_step": c / steps}
+                               for n, (t, c) in top],
+            "top_host_ops": [{"name": e.key[:60], "ms_per_step":
+                              e.self_cpu_time_total / 1e3 / steps,
+                              "per_step": e.count / steps}
+                             for e in host[:8]]}
+
+
+def phase_serve(torch):
+    from repro_torch import kernels as K, rng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import swa_decode_attention_plain
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import Model
+
+    cfg = get_config(SERVE_ARCH)
+    gen = rng(0, "cuda")
+    t0 = time.perf_counter()
+    model = Model.init(cfg, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    table_bytes = model.embed["table"].numel() * 2
+    L, Dh = cfg.num_layers, cfg.resolved_head_dim
+    require(L == 32 and cfg.d_model == 3072 and cfg.param_dtype == "bfloat16"
+            and model.embed["table"].dtype == torch.bfloat16,
+            f"{SERVE_ARCH} is not at full width")
+    emit({"phase": "serve", "arch": SERVE_ARCH, "params": n_params,
+          "weight_bytes": weight_bytes, "init_s": init_s})
+    keep = [(layer, step) for layer in (0, L - 1)
+            for step in (0, SERVE_NEW_TOKENS - 1)]
+    launches = 0
+    for name, B, S in SERVE_REQUESTS:
+        prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        with DecodeTap(ops, L, keep) as tap:
+            out = generate(model, prompt, SERVE_NEW_TOKENS)
+        counts = dict(K.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        cache = out["cache"]
+        C = cache["k"].shape[2]
+        nvalid = [int(n) for n in tap.nvalid]
+        launches += counts["swa_decode"]
+        require(bool(torch.isfinite(out["logits"].float()).all()),
+                f"request {name}: non-finite logits")
+        require(counts["swa_decode"] == L * SERVE_NEW_TOKENS,
+                f"request {name}: {counts['swa_decode']} K8 launches, "
+                f"expected {L * SERVE_NEW_TOKENS}")
+        require(nvalid == [min(S + 1 + t, C) for t in range(SERVE_NEW_TOKENS)],
+                f"request {name}: nvalid {nvalid[:3]}...")
+        live = {}
+        for (layer, step), (q, k, v, nv, got) in sorted(tap.captured.items()):
+            want = swa_decode_attention_plain(q, k, v, nv)
+            err = check_close(torch, f"serve {name} layer {layer} step "
+                              f"{step}", got, want, torch.bfloat16,
+                              tol=swa_tol(torch, want))
+            require(torch.equal(got, ops.swa_decode_attention(q, k, v, nv)),
+                    f"serve {name} layer {layer} step {step}: rerun differs")
+            live[f"layer{layer}_step{step}"] = {"nvalid": int(nv),
+                                                "max_abs_err": err}
+        del tap
+        mean_nv = sum(nvalid) / len(nvalid)
+        kv_step = 2 * L * B * mean_nv * cfg.num_kv_heads * Dh * 2
+        step_bytes = weight_bytes - table_bytes + kv_step
+        decode_ms = out["decode_s"] * 1e3 / SERVE_NEW_TOKENS
+        toks = out["tokens"][:, -1]
+        prof = decode_profile(torch, model, toks, cache, SERVE_PROFILE_STEPS)
+        emit({"phase": "serve", "request": name, "batch": B, "prompt": S,
+              "new_tokens": SERVE_NEW_TOKENS, "cache_slots": C,
+              "nvalid_first_last": [nvalid[0], nvalid[-1]],
+              "ring_wrapped": S > C, "launches": counts,
+              "prefill_ms": out["prefill_s"] * 1e3,
+              "decode_ms_per_step": decode_ms,
+              "decode_tok_per_s": B * SERVE_NEW_TOKENS / out["decode_s"],
+              "step_bytes": step_bytes, "step_kv_bytes": kv_step,
+              "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+              "k8_bound_ms_per_step": kv_step / HBM_BYTES_PER_S * 1e3,
+              "peak_memory_bytes": peak, "live_checks": live,
+              "profile": prof})
+        del out, cache, prompt
+        torch.cuda.empty_cache()
+    return launches
+
+
 # ----------------------------------------------------------------- main
 
 
@@ -462,6 +784,8 @@ KERNELS = {
     "graph_combine": ("src/repro_torch/csrc/graph_combine.cu",
                       "src/repro/kernels/graph_combine.py:63",
                       "graph_combine[g]"),
+    "swa_decode": ("src/repro_torch/csrc/swa_decode.cu",
+                   "src/repro/kernels/swa_decode.py:57", None),
 }
 
 
@@ -482,16 +806,20 @@ def main() -> int:
         errs, timings = phase_kernels(torch)
         launches, prob = phase_main(torch)
         phase_profile(torch, prob)
+        del prob
+        swa_row = phase_swa(torch)
+        launches["swa_decode"] = phase_serve(torch)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     table = []
     main_t = timings[MAIN_SHAPE]
     for name, (source, replaces, key) in KERNELS.items():
-        rec = main_t[key]
+        rec = main_t[key] if key is not None else swa_row
+        err = errs[name] if key is not None else swa_row["max_abs_err"]
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": launches[name],
-                      "max_abs_err": errs[name], "ms": rec["ms"],
+                      "max_abs_err": err, "ms": rec["ms"],
                       "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                       "bound_by": rec["bound_by"],
                       "library_ms": rec["library_ms"]})

@@ -1,3 +1,3 @@
-from repro_torch.configs.base import GFLConfig
+from repro_torch.configs.base import GFLConfig, ModelConfig
 
-__all__ = ["GFLConfig"]
+__all__ = ["GFLConfig", "ModelConfig"]

@@ -24,7 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fold_norms", "fold_apply", "graph_combine", "secure_agg")
+SOURCES = ("fold_norms", "fold_apply", "graph_combine", "secure_agg",
+           "swa_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +43,9 @@ SIGNATURES = {
     "graph_combine": ("gfl_graph_combine",
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I64, _P]),
     "secure_agg": ("gfl_pair_streams", [_U32, _F, _P, _I, _I64, _P]),
+    "swa_decode": ("gfl_swa_decode",
+                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64, _I64,
+                    _F, _P]),
 }
 
 _FUNCS: dict = {}

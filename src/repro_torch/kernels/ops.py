@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels.graph_combine import graph_combine as _combine
 from repro_torch.kernels.round_fold import fold_apply, fold_norms
+from repro_torch.kernels.swa_decode import swa_decode
 
 
 def apply_gate(psi: torch.Tensor, gate: torch.Tensor | None,
@@ -72,3 +73,14 @@ def graph_combine(A: torch.Tensor, psi: torch.Tensor,
                     None if g is None else g.contiguous(),
                     cache=None if cache is None else cache.contiguous(),
                     gate=gate_f)
+
+
+def swa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         nvalid) -> torch.Tensor:
+    """Flash-style decode attention vs a (ring) KV cache.
+
+    q: [B, H, Dh]; k, v: [B, C, KV, Dh] with KV <= H dividing H (the kernel
+    indexes the KV head; nothing is repeated); nvalid: the valid-slot count,
+    an int32 tensor (kept on the device) or an int."""
+    nvalid = torch.as_tensor(nvalid, device=q.device).reshape(1)
+    return swa_decode(q, k, v, nvalid.to(torch.int32))

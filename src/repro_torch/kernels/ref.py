@@ -81,3 +81,24 @@ def round_fold_ref(w: torch.Tensor, grads: torch.Tensor, *, mu: float,
     elif mode != "none":
         raise ValueError(f"unknown fold mode {mode!r}")
     return psi.to(w.dtype), sq
+
+
+def swa_decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor,
+                               nvalid: torch.Tensor) -> torch.Tensor:
+    """Naive masked decode attention (``ref.swa_decode_attention_ref``), with
+    GQA by head index: query head h reads KV head ``h // G``.
+
+    q: [B, H, Dh]; k, v: [B, C, KV, Dh] with KV dividing H; nvalid: [1]
+    int32, slots ``>= nvalid`` masked.  Scores, softmax and the weighted sum
+    in f32 (never TF32), cast once to q's dtype."""
+    B, H, Dh = q.shape
+    C, KV = k.shape[1], k.shape[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qg = q.to(torch.float32).reshape(B, KV, H // KV, Dh)    # h = kv * G + g
+    s = torch.einsum("bkgd,bckd->bkgc", qg, k.to(torch.float32)) / (Dh ** 0.5)
+    valid = torch.arange(C, device=k.device) < nvalid.reshape(-1)[0]
+    s = s.masked_fill(~valid, -1e30)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgc,bckd->bkgd", w, v.to(torch.float32))
+    return out.reshape(B, H, Dh).to(q.dtype)

@@ -36,10 +36,22 @@ def test_no_jax_or_reference_import(path):
         assert top not in ("jax", "jaxlib", "repro"), (path, mod)
 
 
-def test_importing_the_port_leaves_jax_out():
-    mods = sorted(
+def _port_modules():
+    return sorted(
         "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py")
+
+
+def test_import_check_covers_the_serving_slice():
+    serving = {"repro_torch.models.layers", "repro_torch.models.attention",
+               "repro_torch.models.model", "repro_torch.launch.serve",
+               "repro_torch.kernels.swa_decode",
+               "repro_torch.configs.registry"}
+    assert serving <= set(_port_modules())
+
+
+def test_importing_the_port_leaves_jax_out():
+    mods = _port_modules()
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -12,19 +12,35 @@ Phases, each printing JSON lines:
              prints ptxas' registers and spills.
 3. kernels — holds each kernel against its plain torch version on the card
              at the main-path shape (P=10, L=50, D=2), the BENCH shape
-             (P=10, L=8, D=2048), a ragged one (P=10, L=13, D=509) and one
-             past L2 (P=10, L=8, D=2^22): every fold mode, w as [P, D] and
+             (P=10, L=8, D=2048), the kernel bench's micro rows (P=16, L=8,
+             D=8192), a ragged one (P=10, L=13, D=509) and one past L2
+             (P=10, L=8, D=2^22): every fold mode, w as [P, D] and
              [P, L, D], f32 and bf16, graph_combine with g / None / gate;
              hash streams bit-exact; every kernel run twice, bitwise equal.
-             Times each (CUDA events), its HBM bound, its plain version and,
+             Times each (CUDA events), its bound, its plain version and,
              where one torch call computes the same thing, that call.
-4. main    — run_gfl on the gfl-logreg problem at full size (P=10, K=50,
+4. kernel_bench — K5 secure_agg_mean, K6 clip_accum and K7
+             laplace_transform against their plain versions, f32 and bf16,
+             run twice and bitwise equal: K5 at (L, D) = (8, 8192), (5,
+             1000), (64, 256), (8, 2^22); K6 at (8, 8192), (6, 509),
+             (8, 2^22); K7 at (P, D) = (16, 8192), (10, 1000), (1, 4096),
+             (16, 2^22).  Planted checks: K5 at scale 2^20 must differ from
+             the plain mean (masks applied) yet hold its limit; K6's limit
+             must catch the plain version with the clip left out.  One
+             round as the bench's fused side runs it (K1 + K2 + K3, mask
+             and laplace) against the plain chain on the same inputs, at
+             D = 16384 and 2^20.  Times each of K5-K7 at the micro shape
+             and the wide one beside its bound, its plain version and the
+             library call (K5: the unmasked mean).  Then drives `python -m repro_torch.launch.kernel_bench` (micro
+             rows, round rows at D = 16384) and the round rows at D = 2^20,
+             with the launch counts read.
+5. main    — run_gfl on the gfl-logreg problem at full size (P=10, K=50,
              N=100, M=2, L=50, B=10, 500 rounds) for every mechanism, with
              use_kernels on (launch counts read) and off (same seeds);
              checks finite MSD, on/off agreement, hybrid below iid_dp.
-5. profile — torch.profiler over 50 hybrid rounds, kernels on and off:
+6. profile — torch.profiler over 50 hybrid rounds, kernels on and off:
              wall and device-busy time per round, idle share, device ops.
-6. swa     — K8 swa_decode against its plain version at the serving shapes
+7. swa     — K8 swa_decode against its plain version at the serving shapes
              (B, H, KV, C, Dh) = (4, 32, 32, 2047, 96) bf16,
              (4, 32, 32, 1064, 96) bf16, (4, 9, 3, 1064, 64) bf16 and f32,
              (2, 8, 4, 1000, 64) f32 and (32, 32, 32, 2047, 96) bf16 (805 MB
@@ -32,7 +48,7 @@ Phases, each printing JSON lines:
              bitwise equal; kernel, plain and scaled_dot_product_attention
              times with the HBM bound, cycling through copies of K/V that
              exceed the 50 MB L2, as decode finds them cold.
-7. serve   — phi3-mini-3.8b at full width (32 layers, d 3072, bf16, random
+8. serve   — phi3-mini-3.8b at full width (32 layers, d 3072, bf16, random
              weights from seed 0) through repro_torch.launch.serve.generate:
              request A, 4 x 4096-token prompts + 32 greedy tokens (ring of
              2047 slots, wrapped); request B, 4 x 1000 + 32 (1064 slots,
@@ -49,13 +65,22 @@ reference's parity contract, docs/kernels.md); fold_norms' f32 sums within
 rtol 1e-5 (a sum over up to 2^22 squares, taken in another order); bf16
 outputs, compared in f32, within atol = rtol = 3e-2 (about two bf16 ulps at
 |psi| < 4, as tests/test_round_fold.py); hash streams exactly equal.  K8
-in f32 within atol 1e-5; K8 in bf16, whose outputs are attention averages
-far smaller than psi, within rtol 1e-2 and atol 2^-8 max|plain| (one bf16
-ulp of each value, half an ulp at the top of the range: the kernel and the
-plain version differ only in the f32 summation order before the one cast).
+in f32 within atol 1e-5; K5-K8 in bf16, whose outputs (attention averages,
+masked and clipped means) can lie far below 1, within rtol 1e-2 and atol
+2^-8 max|plain| (one bf16 ulp of each value, half an ulp at the top of the
+range: kernel and plain version differ only in the f32 summation order
+before the one cast), so a zero or misplaced result fails at every shape.
 The swa phase shows that limit is tight enough: the plain version with one
 64-slot tile, or the ragged tail tile, left out (what a kernel that skipped
-it would return) must fall outside it at every shape.
+it would return) must fall outside it at every shape.  K5 in f32 within
+atol max(1e-5, L scale 2^-22) (the masks cancel in another order than the
+plain version's add-and-take-away; each f32 add rounds by at most 2^-24 of
+its magnitude, which is below L scale); K6 in f32 within atol = rtol =
+1e-5 and K7 within atol 1e-6, the reference's own limits
+(tests/test_kernels.py).
+Bounds: bytes over 3.35 TB/s, fp32 operations over 67 TFLOP/s, and the
+hash's integer and conversion instructions over the INT32 rate derived in
+src/repro_torch/launch/roofline.py, the largest of the three.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.  Any failed check exits non-zero.
@@ -69,15 +94,18 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
-F32_OPS_PER_S = 67e12            # H100 SXM non-tensor fp32 (data sheet)
+# the card's roofs (HBM, fp32, INT32 rates, L2 size) live in
+# src/repro_torch/launch/roofline.py and are imported where used
 ATOL_F32 = 1e-5
 RTOL_NORMS = 1e-5
 TOL_BF16 = 3e-2
-SWA_RTOL_BF16 = 1e-2
+RTOL_BF16_SCALED = 1e-2
 SWA_TILE = 64                    # slots per tile in csrc/swa_decode.cu
 MAIN_SHAPE = (10, 50, 2)
-SHAPES = [MAIN_SHAPE, (10, 8, 2048), (10, 13, 509), (10, 8, 1 << 22)]
+# the main path's, the reference's BENCH shape, the kernel bench's micro
+# rows (K3 at P = 16), a ragged one, one past the 50 MB L2
+SHAPES = [MAIN_SHAPE, (10, 8, 2048), (16, 8, 8192), (10, 13, 509),
+          (10, 8, 1 << 22)]
 ITERS = 500
 # kernels on vs off after 500 rounds: the two client levels draw different
 # masks (hash vs Gaussian) that cancel only to f32 rounding, each round
@@ -88,7 +116,6 @@ SWA_SHAPES = [(SWA_SERVE_SHAPE, "bfloat16"), ((4, 32, 32, 1064, 96), "bfloat16")
               ((4, 9, 3, 1064, 64), "bfloat16"), ((4, 9, 3, 1064, 64), "float32"),
               ((2, 8, 4, 1000, 64), "float32"),
               ((32, 32, 32, 2047, 96), "bfloat16")]
-L2_BYTES = 50 * 2 ** 20          # H100 L2 (data sheet)
 SERVE_ARCH = "phi3-mini-3.8b"
 SERVE_REQUESTS = (("A", 4, 4096), ("B", 4, 1000))   # name, batch, prompt
 SERVE_NEW_TOKENS = 32
@@ -146,34 +173,34 @@ def phase_build():
 # -------------------------------------------------------------- kernels
 
 
-def time_ms(torch, fn, *, budget_s=0.2, max_reps=200):
-    """Mean ms per call over many launches, CUDA events, after warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    once = max(time.perf_counter() - t0, 1e-6)
-    reps = int(max(3, min(max_reps, budget_s / once)))
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+# Instructions of one counter-hash stream value (csrc/hash.cuh pair_value):
+# the Murmur3 finalizer (three shift-xor pairs, two multiplies), the
+# idx ^ key xor, the >> 8 and the int-to-float conversion on the INT32
+# lanes; the 2^-24 scale, 2u, -1 and * scale on the fp32 lanes.
+HASH_INT_OPS = 11
+HASH_FLOPS = 4
+
+
+def bound(rec) -> dict:
+    """Adds the least time of a timed record (its "bytes", "flops" and
+    "int_ops") and what bounds it."""
+    from repro_torch.launch.roofline import kernel_bound_ms
+    rec["bound_ms"], rec["bound_by"] = kernel_bound_ms(
+        rec["bytes"], rec.get("flops", 0), rec.get("int_ops", 0))
+    return rec
 
 
 def max_err(torch, a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
-def swa_tol(torch, want):
-    """(atol, rtol) for K8's output against its plain version."""
+def bf16_tol(torch, want):
+    """(atol, rtol) of a K5-K8 output against its plain version: f32's
+    atol 1e-5, or in bf16 one ulp of each value (rtol 1e-2) and half an
+    ulp at the top of the data's range (atol 2^-8 max|plain|)."""
     if want.dtype != torch.bfloat16:
         return ATOL_F32, 0.0
-    return float(want.float().abs().max()) * 2.0 ** -8, SWA_RTOL_BF16
+    return float(want.float().abs().max()) * 2.0 ** -8, RTOL_BF16_SCALED
 
 
 def check_close(torch, name, got, want, dtype, *, norms=False, tol=None):
@@ -317,6 +344,7 @@ def time_shape(torch, P, L, D, gen):
     """f32 kernel, plain and library times at one shape, with the bounds."""
     from repro_torch.kernels import round_fold as rf
     from repro_torch.kernels import graph_combine as gc
+    from repro_torch.launch.kernel_bench import time_ms
 
     f32 = torch.float32
     w, g, noise, ss, fw, _, seeds = fold_inputs(torch, P, L, D, f32, False,
@@ -326,11 +354,11 @@ def time_shape(torch, P, L, D, gen):
     # K1: reads g once, writes [P, L]
     bytes_k1 = P * L * D * 4 + P * L * 4
     out["fold_norms"] = {
-        "ms": time_ms(torch, lambda: rf.fold_norms(g)),
-        "plain_ms": time_ms(torch, lambda: rf.fold_norms_plain(g)),
+        "ms": time_ms(lambda: rf.fold_norms(g)),
+        "plain_ms": time_ms(lambda: rf.fold_norms_plain(g)),
         "library_ms": time_ms(
-            torch, lambda: torch.linalg.vector_norm(g, dim=-1) ** 2),
-        "bytes": bytes_k1, "ops": 2 * P * L * D}
+            lambda: torch.linalg.vector_norm(g, dim=-1) ** 2),
+        "bytes": bytes_k1, "flops": 2 * P * L * D}
     # K2 per mode: reads w, g (+ noise), weights; writes psi
     base = P * D * 4 + P * L * D * 4 + 3 * P * L * 4 + P * D * 4
     npairs = L * (L - 1) // 2
@@ -341,15 +369,19 @@ def time_shape(torch, P, L, D, gen):
         nbytes = base + (P * L * D * 4 if mode == "laplace" else 0) + \
             (P * 4 if mode == "mask" else 0)
         # 3 flops per client (sub, mul, fma); laplace adds an fma per
-        # client; mask ~14 integer/float ops per alive pair and feature
-        ops = P * D * (3 * L + (2 * L if mode == "laplace" else 0)
-                       + (14 * npairs if mode == "mask" else 0))
+        # client; mask hashes each alive pair once per feature (one stream)
+        # and folds it with an fma
+        flops = P * D * (3 * L + (2 * L if mode == "laplace" else 0)
+                         + ((HASH_FLOPS + 2) * npairs if mode == "mask"
+                            else 0))
+        int_ops = P * D * npairs * HASH_INT_OPS if mode == "mask" else 0
         out[f"fold_apply[{mode}]"] = {
-            "ms": time_ms(torch, lambda: rf.fold_apply(w, g, ss, fw, nw,
+            "ms": time_ms(lambda: rf.fold_apply(w, g, ss, fw, nw,
                                                        **kw)),
-            "plain_ms": time_ms(torch, lambda: rf.fold_apply_plain(
+            "plain_ms": time_ms(lambda: rf.fold_apply_plain(
                 w, g, ss, fw, nw, **kw), budget_s=0.5, max_reps=50),
-            "library_ms": None, "bytes": nbytes, "ops": ops}
+            "library_ms": None, "bytes": nbytes, "flops": flops,
+            "int_ops": int_ops}
     del noise, g, w
     # K3: reads a_t, psi, g; writes out
     psi = torch.randn((P, D), generator=gen, device="cuda")
@@ -362,17 +394,307 @@ def time_shape(torch, P, L, D, gen):
         lib = ((lambda: torch.addmm(neg_g, a_t, x)) if g_ is not None
                else (lambda: torch.mm(a_t, psi)))
         out[f"graph_combine[{variant}]"] = {
-            "ms": time_ms(torch, lambda: gc.graph_combine(a_t, psi, g_)),
-            "plain_ms": time_ms(torch, lambda: gc.graph_combine_plain(
+            "ms": time_ms(lambda: gc.graph_combine(a_t, psi, g_)),
+            "plain_ms": time_ms(lambda: gc.graph_combine_plain(
                 a_t, psi, g_)),
-            "library_ms": time_ms(torch, lib), "bytes": nbytes,
-            "ops": 2 * P * P * D + (2 * P * D if g_ is not None else 0)}
+            "library_ms": time_ms(lib), "bytes": nbytes,
+            "flops": 2 * P * P * D + (2 * P * D if g_ is not None else 0)}
     for rec in out.values():
-        rec["bound_ms"] = max(rec["bytes"] / HBM_BYTES_PER_S,
-                              rec["ops"] / F32_OPS_PER_S) * 1e3
-        rec["bound_by"] = ("bytes" if rec["bytes"] / HBM_BYTES_PER_S
-                           >= rec["ops"] / F32_OPS_PER_S else "operations")
+        bound(rec)
     return out
+
+
+# --------------------------------------------------------- kernel bench
+
+
+# (L, D) for K5 and K6, (P, D) for K7: the micro rows' shape first, ragged
+# shapes, then one past the 50 MB L2 (K5, K6: 134 MB; K7: 268 MB in, out)
+K5_SHAPES = [(8, 8192), (5, 1000), (64, 256), (8, 1 << 22)]
+K6_SHAPES = [(8, 8192), (6, 509), (8, 1 << 22)]
+K7_SHAPES = [(16, 8192), (10, 1000), (1, 4096), (16, 1 << 22)]
+K5_SCALES = (1.0, 0.7)            # the micro row's scale, the tests'
+K5_PLANT_SCALE = 2.0 ** 20
+K6_BOUNDS = (1.0, 0.5, 100.0)     # the micro row's bound, then the tests'
+K7_SIGMAS = (0.5, 1.0)            # the micro row's sigma, then the tests'
+ATOL_LAPLACE = 1e-6               # tests/test_kernels.py's laplace limit
+TOL_CLIP = 1e-5                   # tests/test_kernels.py's clip_accum limit
+ROUND_DS = (16384, 1 << 20)       # round rows: the reference's D, 335 MB
+NO_LIBRARY = {
+    "clip_accum": "no single torch call clips each row to a norm and "
+                  "averages",
+    "laplace_transform": "no single torch call computes the Laplace "
+                         "inverse CDF"}
+
+
+def k5_atol(L, scale):
+    """K5's f32 limit against its plain version.  The kernel adds each
+    client's net mask (magnitude < L * scale) and the plain version adds
+    and takes away each pair's stream; every f32 add there rounds by at
+    most 2^-24 of its magnitude, so the two differ by less than
+    L * scale * 2^-22 after the division by L.  Never below 1e-5, the
+    reference's parity limit."""
+    return max(ATOL_F32, L * scale * 2.0 ** -22)
+
+
+def k5_plant(torch, sa, ref, upd, seed):
+    """K5's planted check at scale 2^20.  Exact arithmetic cancels the
+    masks, so a kernel that skipped them would return the plain mean and
+    pass every tolerance.  At 2^20 the cancelled masks leave f32 rounding
+    of about 2^-4 an add: require the kernel to differ from the mean by far
+    more than summation order alone can (L max|upd| 2^-24), and to stay
+    within the plain version's limit at that scale."""
+    L = upd.shape[0]
+    got = sa.secure_agg_mean(upd, seed, K5_PLANT_SCALE)
+    mean_diff = max_err(torch, got, upd.mean(dim=0))
+    order_noise = L * float(upd.abs().max()) * 2.0 ** -24
+    require(mean_diff > 10 * order_noise,
+            f"secure_agg_mean {tuple(upd.shape)}: at scale 2^20 the output "
+            f"is the plain mean (max diff {mean_diff}): masks not applied")
+    want = ref.secure_agg_mean_plain(upd, seed, K5_PLANT_SCALE)
+    err = check_close(torch, f"secure_agg_mean planted {tuple(upd.shape)}",
+                      got, want, torch.float32,
+                      tol=(k5_atol(L, K5_PLANT_SCALE), 0.0))
+    return {"scale": K5_PLANT_SCALE, "max_diff_from_mean": mean_diff,
+            "summation_order_noise": order_noise, "max_abs_err": err,
+            "atol": k5_atol(L, K5_PLANT_SCALE)}
+
+
+def single_server_checks(torch, gen):
+    """K5, K6 and K7 against their plain versions at every shape, f32 and
+    bf16, each kernel run twice and bitwise equal, with the planted checks.
+    Returns the largest f32 error of each at the micro rows' shape."""
+    from repro_torch.kernels import clip_accum as ca
+    from repro_torch.kernels import laplace as lp
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import secure_agg as sa
+
+    errs = {}
+    seed = torch.tensor([0x9E3779B9 - 2 ** 32], dtype=torch.int32,
+                        device="cuda")             # a seed past 2^31
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        bf16 = dtype == torch.bfloat16
+        for (L, D) in K5_SHAPES:
+            upd = torch.randn((L, D), generator=gen, device="cuda").to(dtype)
+            for scale in K5_SCALES:
+                got = twice_equal(torch, "secure_agg_mean",
+                                  lambda: sa.secure_agg_mean(upd, seed,
+                                                             scale))
+                want = ref.secure_agg_mean_plain(upd, seed, scale)
+                tol = bf16_tol(torch, want) if bf16 else \
+                    (k5_atol(L, scale), 0.0)
+                e = check_close(torch, f"secure_agg_mean {L, D} {dname} "
+                                f"scale={scale}", got, want, dtype, tol=tol)
+                if not bf16 and (L, D) == K5_SHAPES[0]:
+                    errs["secure_agg_mean"] = max(
+                        errs.get("secure_agg_mean", 0.0), e)
+                emit({"phase": "kernel_bench", "kernel": "secure_agg_mean",
+                      "shape": [L, D], "dtype": dname, "scale": scale,
+                      "max_abs_err": e, "atol": tol[0], "rtol": tol[1]})
+            if not bf16:
+                emit({"phase": "kernel_bench", "kernel": "secure_agg_mean",
+                      "shape": [L, D], "planted": k5_plant(torch, sa, ref,
+                                                           upd, seed)})
+            del upd
+        for (L, D) in K6_SHAPES:
+            g = (3 * torch.randn((L, D), generator=gen,
+                                 device="cuda")).to(dtype)
+            for b in K6_BOUNDS:
+                got = twice_equal(torch, "clip_accum",
+                                  lambda: ca.clip_accum(g, b))
+                want = ref.clip_accum_plain(g, b)
+                tol = bf16_tol(torch, want) if bf16 else (TOL_CLIP, TOL_CLIP)
+                e = check_close(torch, f"clip_accum {L, D} {dname} "
+                                f"bound={b}", got, want, dtype, tol=tol)
+                if not bf16 and (L, D) == K6_SHAPES[0]:
+                    errs["clip_accum"] = max(errs.get("clip_accum", 0.0), e)
+                rec = {"phase": "kernel_bench", "kernel": "clip_accum",
+                       "shape": [L, D], "dtype": dname, "bound": b,
+                       "max_abs_err": e, "atol": tol[0], "rtol": tol[1]}
+                if b == 0.5:
+                    # planted: the plain version with the clip left out
+                    unclipped = g.float().mean(dim=0)
+                    caught = not torch.allclose(
+                        unclipped, want.float(), atol=tol[0], rtol=tol[1])
+                    require(caught, f"clip_accum {L, D} {dname}: the limit "
+                            "misses a kernel that leaves out the clip")
+                    rec["planted_unclipped_max_abs_err"] = max_err(
+                        torch, unclipped, want)
+                emit(rec)
+            del g
+        for (P, D) in K7_SHAPES:
+            u = (torch.rand((P, D), generator=gen, device="cuda") * 0.998
+                 - 0.499).to(dtype)
+            for sigma in K7_SIGMAS:
+                got = twice_equal(torch, "laplace_transform",
+                                  lambda: lp.laplace_transform(u, sigma))
+                want = ref.laplace_transform_plain(u, sigma)
+                tol = bf16_tol(torch, want) if bf16 else (ATOL_LAPLACE, 0.0)
+                e = check_close(torch, f"laplace_transform {P, D} {dname} "
+                                f"sigma={sigma}", got, want, dtype, tol=tol)
+                if not bf16 and (P, D) == K7_SHAPES[0]:
+                    errs["laplace_transform"] = max(
+                        errs.get("laplace_transform", 0.0), e)
+                emit({"phase": "kernel_bench", "kernel": "laplace_transform",
+                      "shape": [P, D], "dtype": dname, "sigma": sigma,
+                      "max_abs_err": e, "atol": tol[0], "rtol": tol[1]})
+            del u
+        torch.cuda.empty_cache()
+    return errs
+
+
+def single_server_timings(torch, gen):
+    """f32 kernel, plain and library times of K5-K7 at the micro rows'
+    shape and the wide one, with their bounds."""
+    from repro_torch.kernels import clip_accum as ca
+    from repro_torch.kernels import laplace as lp
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import secure_agg as sa
+    from repro_torch.launch.kernel_bench import time_ms
+
+    out = {}
+    seed = torch.tensor([7], dtype=torch.int32, device="cuda")
+    for which in (0, -1):
+        L, D = K5_SHAPES[which]
+        upd = torch.randn((L, D), generator=gen, device="cuda")
+        # the function needs each pair's stream once per feature (the plain
+        # version's acc + s - s); the kernel, as the Pallas one, hashes each
+        # pair twice (once in each client's net mask): redundant work that
+        # the bound does not count
+        streams = L * (L - 1) // 2 * D
+        out[("secure_agg_mean", which)] = bound({
+            "shape": [L, D],
+            "ms": time_ms(lambda: sa.secure_agg_mean(upd, seed)),
+            "plain_ms": time_ms(lambda: ref.secure_agg_mean_plain(
+                upd, seed, 1.0), budget_s=0.5, max_reps=50),
+            # the unmasked floor: the client mean without masks
+            "library_ms": time_ms(lambda: upd.mean(dim=0)),
+            "library": "torch.mean(dim=0), the unmasked floor",
+            "bytes": L * D * 4 + D * 4 + 4,
+            "flops": streams * (HASH_FLOPS + 2) + L * D + D,
+            "int_ops": streams * HASH_INT_OPS})
+        del upd
+        L, D = K6_SHAPES[which]
+        g = 3 * torch.randn((L, D), generator=gen, device="cuda")
+        out[("clip_accum", which)] = bound({
+            "shape": [L, D],
+            "ms": time_ms(lambda: ca.clip_accum(g, 1.0)),
+            "plain_ms": time_ms(lambda: ref.clip_accum_plain(g, 1.0)),
+            "library_ms": None, "library": NO_LIBRARY["clip_accum"],
+            # g read once (the kernel reads it twice), out written once;
+            # an fma per element in each pass
+            "bytes": L * D * 4 + D * 4, "flops": 4 * L * D + D})
+        del g
+        P, D = K7_SHAPES[which]
+        u = torch.rand((P, D), generator=gen, device="cuda") * 0.998 - 0.499
+        out[("laplace_transform", which)] = bound({
+            "shape": [P, D],
+            "ms": time_ms(lambda: lp.laplace_transform(u, 0.5)),
+            "plain_ms": time_ms(lambda: ref.laplace_transform_plain(
+                u, 0.5)),
+            "library_ms": None, "library": NO_LIBRARY["laplace_transform"],
+            # abs, -2x, log1p (counted as one), sign * -b, the product
+            "bytes": 2 * P * D * 4, "flops": 5 * P * D})
+        del u
+    for (name, _), rec in out.items():
+        rec["roof_share"] = rec["bound_ms"] / rec["ms"]
+        emit({"phase": "kernel_bench", "kernel": name, "timing": rec,
+              "dtype": "float32"})
+    return out
+
+
+def round_check(torch, D, gen):
+    """One round as the round rows' fused side runs it (``ops.round_fold``
+    + ``ops.graph_combine``: K1, K2, K3) held against the plain chain
+    (``round_fold_ref`` + ``graph_combine_ref``) on the same inputs, seeds
+    and noise, in both noise modes, at [P, L] of the round rows and width
+    D: psi and the combined output within atol 1e-5, the squared norms
+    within rtol 1e-5."""
+    from repro_torch.core.privacy.noise import sample_laplace
+    from repro_torch.core.topology import combination_matrix
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.kernel_bench import ROUND_SHAPE
+
+    P, L, _ = ROUND_SHAPE
+    sigma, mu, clip = 0.3, 0.1, 10.0             # the round rows' values
+    A = torch.as_tensor(combination_matrix("ring", P), dtype=torch.float32,
+                        device="cuda")
+    w = torch.randn((P, D), generator=gen, device="cuda")
+    grads = torch.randn((P, L, D), generator=gen, device="cuda")
+    gn = 0.3 * torch.randn((P, D), generator=gen, device="cuda")
+    ones = torch.ones((P, L), device="cuda")
+    for mode in ("mask", "laplace"):
+        seeds = noise = None
+        if mode == "mask":
+            seeds = torch.randint(0, 2 ** 31 - 1, (P,), generator=gen,
+                                  device="cuda")
+        else:
+            noise = sample_laplace((P, L, D), sigma, generator=gen)
+        kw = dict(mu=mu, bound=clip, mode=mode, sigma=sigma, seeds=seeds,
+                  noise=noise)
+        psi, sq = ops.round_fold(w, grads, **kw)
+        out = ops.graph_combine(A, psi, gn)
+        psi_p, sq_p = ref.round_fold_ref(w, grads, pre_w=ones, fold_w=ones,
+                                         noise_w=ones / L, **kw)
+        out_p = ref.graph_combine_ref(A.T, psi_p, gn)
+        name = f"round {mode} {P, L, D}"
+        emit({"phase": "kernel_bench", "round_check": mode,
+              "shape": [P, L, D],
+              "sq_max_abs_err": check_close(torch, f"{name} sq", sq, sq_p,
+                                            torch.float32, norms=True),
+              "psi_max_abs_err": check_close(torch, f"{name} psi", psi,
+                                             psi_p, torch.float32),
+              "out_max_abs_err": check_close(torch, f"{name} combine", out,
+                                             out_p, torch.float32)})
+        del noise
+    del grads
+    torch.cuda.empty_cache()
+
+
+def phase_kernel_bench(torch):
+    """K5-K7 checked and timed, one fused round held against the plain
+    chain at each round-row width, then the kernel-bench entry point driven
+    with the launch counts read: its micro rows and round rows (D = 16384),
+    and the round rows again at D = 2^20."""
+    from repro_torch import kernels as K
+    from repro_torch.launch import kernel_bench as kb
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1313)
+    errs = single_server_checks(torch, gen)
+    for D in ROUND_DS:
+        round_check(torch, D, gen)
+    timings = single_server_timings(torch, gen)
+
+    K.reset_launches()
+    res = kb.main([])
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    for name in ("secure_agg_mean", "clip_accum", "laplace_transform",
+                 "graph_combine", "fold_norms", "fold_apply"):
+        require(launches[name] > 0,
+                f"kernel_bench: kernel {name} was never launched")
+    rows = dict(res["micro"] + res["round"])
+    require(all(v == v and abs(v) != float("inf") for v in rows.values()),
+            "kernel_bench: a non-finite row")
+    emit({"phase": "kernel_bench", "entry": "python -m "
+          "repro_torch.launch.kernel_bench", "device": res["device"],
+          "rows": rows, "round_report": res["report"], "launches": launches})
+    for D in ROUND_DS[1:]:
+        K.reset_launches()
+        round_rows, report = kb.round_rows(device="cuda", D=D)
+        torch.cuda.synchronize()
+        wide = dict(K.LAUNCHES)
+        for name in ("graph_combine", "fold_norms", "fold_apply"):
+            require(wide[name] > 0, f"round rows D={D}: kernel {name} was "
+                    "never launched")
+        require(all(v == v and abs(v) != float("inf")
+                    for _, v in round_rows),
+                f"round rows D={D}: a non-finite row")
+        emit({"phase": "kernel_bench", "round_rows_D": D,
+              "rows": dict(round_rows), "round_report": report,
+              "launches": wide})
+    return errs, timings, launches
 
 
 # ------------------------------------------------------------ main path
@@ -516,11 +838,10 @@ def cycling(fns):
 def swa_bound(B, H, KV, n_live, Dh, esize):
     """Least time of one K8 call: each live K/V row, q and out moved once
     (bytes), or 4 B H n Dh flops on the CUDA cores (f32 FMAs)."""
+    from repro_torch.launch.roofline import kernel_bound_ms
     nbytes = 2 * B * n_live * KV * Dh * esize + 2 * B * H * Dh * esize + 4
-    ops = 4 * B * H * n_live * Dh
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), \
-        nbytes
+    ms, by = kernel_bound_ms(nbytes, 4 * B * H * n_live * Dh)
+    return ms, by, nbytes
 
 
 def planted_faults(torch, swa, q, k, v, nv, want, tol):
@@ -550,6 +871,8 @@ def planted_faults(torch, swa, q, k, v, nv, want, tol):
 def phase_swa(torch):
     import torch.nn.functional as F
     from repro_torch.kernels import swa_decode as swa
+    from repro_torch.launch.kernel_bench import time_ms
+    from repro_torch.launch.roofline import L2_BYTES
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(812)
@@ -571,7 +894,7 @@ def phase_swa(torch):
             got = twice_equal(torch, "swa_decode",
                               lambda: swa.swa_decode(q, k, v, nvalid))
             want = swa.swa_decode_attention_plain(q, k, v, nvalid)
-            tol = swa_tol(torch, want)
+            tol = bf16_tol(torch, want)
             err = check_close(torch, f"swa_decode {(B, H, KV, C, Dh)} "
                               f"{dname} nvalid={nv}", got, want, dtype,
                               tol=tol)
@@ -584,14 +907,14 @@ def phase_swa(torch):
                     attn_mask=mask, enable_gqa=KV != H)[:, :, 0]
             lib_err = max_err(torch, library(k, v), want)
             rec = {
-                "ms": time_ms(torch, cycling(
+                "ms": time_ms(cycling(
                     [lambda k_=k_, v_=v_: swa.swa_decode(q, k_, v_, nvalid)
                      for k_, v_ in kvs])),
-                "plain_ms": time_ms(torch, cycling(
+                "plain_ms": time_ms(cycling(
                     [lambda k_=k_, v_=v_: swa.swa_decode_attention_plain(
                         q, k_, v_, nvalid) for k_, v_ in kvs]),
                     budget_s=0.5, max_reps=50),
-                "library_ms": time_ms(torch, cycling(
+                "library_ms": time_ms(cycling(
                     [lambda k_=k_, v_=v_: library(k_, v_)
                      for k_, v_ in kvs]), budget_s=0.5, max_reps=100)}
             rec["bound_ms"], rec["bound_by"], nbytes = swa_bound(
@@ -697,6 +1020,7 @@ def phase_serve(torch):
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import swa_decode_attention_plain
+    from repro_torch.launch.roofline import HBM_BYTES_PER_S
     from repro_torch.launch.serve import generate
     from repro_torch.models.model import Model
 
@@ -744,7 +1068,7 @@ def phase_serve(torch):
             want = swa_decode_attention_plain(q, k, v, nv)
             err = check_close(torch, f"serve {name} layer {layer} step "
                               f"{step}", got, want, torch.bfloat16,
-                              tol=swa_tol(torch, want))
+                              tol=bf16_tol(torch, want))
             require(torch.equal(got, ops.swa_decode_attention(q, k, v, nv)),
                     f"serve {name} layer {layer} step {step}: rerun differs")
             live[f"layer{layer}_step{step}"] = {"nvalid": int(nv),
@@ -786,6 +1110,12 @@ KERNELS = {
                       "graph_combine[g]"),
     "swa_decode": ("src/repro_torch/csrc/swa_decode.cu",
                    "src/repro/kernels/swa_decode.py:57", None),
+    "secure_agg_mean": ("src/repro_torch/csrc/secure_agg_mean.cu",
+                        "src/repro/kernels/secure_agg.py:106", None),
+    "clip_accum": ("src/repro_torch/csrc/clip_accum.cu",
+                   "src/repro/kernels/clip_accum.py:42", None),
+    "laplace_transform": ("src/repro_torch/csrc/laplace.cu",
+                          "src/repro/kernels/laplace.py:23", None),
 }
 
 
@@ -804,6 +1134,7 @@ def main() -> int:
         kind, smi = phase_device(torch)
         phase_build()
         errs, timings = phase_kernels(torch)
+        kb_errs, kb_timings, kb_launches = phase_kernel_bench(torch)
         launches, prob = phase_main(torch)
         phase_profile(torch, prob)
         del prob
@@ -812,11 +1143,18 @@ def main() -> int:
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    for name in kb_errs:
+        launches[name] = kb_launches[name]
+        errs[name] = kb_errs[name]
     table = []
     main_t = timings[MAIN_SHAPE]
     for name, (source, replaces, key) in KERNELS.items():
-        rec = main_t[key] if key is not None else swa_row
-        err = errs[name] if key is not None else swa_row["max_abs_err"]
+        if name == "swa_decode":
+            rec, err = swa_row, swa_row["max_abs_err"]
+        elif key is None:                 # K5-K7: the micro rows' shape
+            rec, err = kb_timings[(name, 0)], errs[name]
+        else:
+            rec, err = main_t[key], errs[name]
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": launches[name],
                       "max_abs_err": err, "ms": rec["ms"],

@@ -9,7 +9,8 @@ can show that its main path went through the kernels.
 from __future__ import annotations
 
 LAUNCHES = {"fold_norms": 0, "fold_apply": 0, "graph_combine": 0,
-            "pair_streams": 0, "swa_decode": 0}
+            "pair_streams": 0, "swa_decode": 0, "secure_agg_mean": 0,
+            "clip_accum": 0, "laplace_transform": 0}
 
 
 def reset_launches() -> None:

@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("fold_norms", "fold_apply", "graph_combine", "secure_agg",
-           "swa_decode")
+           "swa_decode", "secure_agg_mean", "clip_accum", "laplace")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -46,6 +46,10 @@ SIGNATURES = {
     "swa_decode": ("gfl_swa_decode",
                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64, _I64,
                     _F, _P]),
+    "secure_agg_mean": ("gfl_secure_agg_mean", [_P, _I, _P, _F, _P, _I, _I64,
+                                                _P]),
+    "clip_accum": ("gfl_clip_accum", [_P, _I, _P, _F, _P, _I, _I64, _P]),
+    "laplace": ("gfl_laplace_transform", [_P, _P, _I, _I64, _F, _P]),
 }
 
 _FUNCS: dict = {}

@@ -11,8 +11,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.clip_accum import clip_accum as _clip
 from repro_torch.kernels.graph_combine import graph_combine as _combine
+from repro_torch.kernels.laplace import laplace_transform as _laplace
 from repro_torch.kernels.round_fold import fold_apply, fold_norms
+from repro_torch.kernels.secure_agg import secure_agg_mean as _secure_agg_mean
 from repro_torch.kernels.swa_decode import swa_decode
 
 
@@ -84,3 +87,26 @@ def swa_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     an int32 tensor (kept on the device) or an int."""
     nvalid = torch.as_tensor(nvalid, device=q.device).reshape(1)
     return swa_decode(q, k, v, nvalid.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# single-server kernels (reached by launch/kernel_bench.py and the tests)
+# ---------------------------------------------------------------------------
+
+
+def secure_agg_mean(updates: torch.Tensor, seed, scale: float = 1.0
+                    ) -> torch.Tensor:
+    """Masked client mean: [L, D] -> [D].  ``seed`` is a uint32 value, as
+    an int32/int64 tensor [1] (kept on the device) or an int."""
+    seed = torch.as_tensor(seed, device=updates.device).reshape(1)
+    return _secure_agg_mean(updates.contiguous(), seed, scale)
+
+
+def laplace_transform(u: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Uniform (-1/2, 1/2) -> Lap(0, sigma/sqrt 2): [P, D] -> [P, D]."""
+    return _laplace(u.contiguous(), sigma)
+
+
+def clip_accum(grads: torch.Tensor, bound: float) -> torch.Tensor:
+    """Per-client clip to B + mean: [L, D] -> [D]."""
+    return _clip(grads.contiguous(), bound)

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.secure_agg import net_mask_stream
+from repro_torch.kernels.secure_agg import net_mask_stream, pair_stream
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -24,6 +24,41 @@ def graph_combine_ref(a_t: torch.Tensor, psi: torch.Tensor,
     """out = A^T (psi + g) - g  (eq. 8 with eq. 24 noise structure)."""
     mixed = matmul_f32(a_t.to(torch.float32), (psi + g).to(torch.float32))
     return (mixed - g.to(torch.float32)).to(psi.dtype)
+
+
+def secure_agg_mean_plain(updates: torch.Tensor, seed: torch.Tensor,
+                          scale: float = 1.0) -> torch.Tensor:
+    """Masked client mean with the integer-hash pairwise streams
+    (``ref.secure_agg_mean_ref``): updates [L, D], seed [1] (a uint32
+    value, read on the device) -> [D] in updates' dtype.  Each pair's
+    stream is added and taken away again, ``acc + s - s``, pair by pair in
+    row-major (a < b) order, so the masks cancel up to f32 rounding."""
+    L, D = updates.shape
+    acc = updates.to(torch.float32).sum(dim=0)
+    idx = torch.arange(D, device=updates.device)
+    sd = seed.reshape(-1)[0]
+    for pid in range(L * (L - 1) // 2):
+        s = pair_stream(pid, idx, sd, scale)
+        acc = acc + s - s
+    return (acc / L).to(updates.dtype)
+
+
+def laplace_transform_plain(u: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Uniform u in (-1/2, 1/2) -> Lap(0, sigma/sqrt 2)
+    (``ref.laplace_transform_ref``), in f32, cast once to u's dtype."""
+    b = sigma / (2.0 ** 0.5)
+    uf = u.to(torch.float32)
+    return (-b * torch.sign(uf) * torch.log1p(-2.0 * torch.abs(uf))
+            ).to(u.dtype)
+
+
+def clip_accum_plain(grads: torch.Tensor, bound: float) -> torch.Tensor:
+    """Per-client clip to the B-ball, then the client mean
+    (``ref.clip_accum_ref``): grads [L, D] -> [D] in grads' dtype."""
+    g = grads.to(torch.float32)
+    nrm = torch.linalg.vector_norm(g, dim=1, keepdim=True)
+    coef = torch.clamp(bound / torch.clamp(nrm, min=1e-12), max=1.0)
+    return (g * coef).mean(dim=0).to(grads.dtype)
 
 
 def hash_net_mask_fold(seeds: torch.Tensor, noise_w: torch.Tensor, D: int,

@@ -33,6 +33,15 @@ def fold_norms(grads: torch.Tensor) -> torch.Tensor:
     check(grads, "grads", (None, None, None), FLOAT_TYPES)
     if not on_cuda(grads):
         return fold_norms_plain(grads)
+    out = launch_norms(grads)
+    _k.LAUNCHES["fold_norms"] += 1
+    return out
+
+
+def launch_norms(grads: torch.Tensor) -> torch.Tensor:
+    """Launch the K1 kernel on a checked CUDA [P, L, D] tensor, without
+    counting the launch: ``fold_norms`` counts its own, and ``clip_accum``
+    runs it as its first pass under its own count."""
     P, L, D = grads.shape
     rows = P * L
     if rows > _MAX_GRID_Y:
@@ -45,7 +54,6 @@ def fold_norms(grads: torch.Tensor) -> torch.Tensor:
     _build.check(fn(grads.data_ptr(), int(grads.dtype == torch.bfloat16),
                     out.data_ptr(), partial.data_ptr(), rows, D, NORMS_CHUNK,
                     nsplit, stream_handle(grads)), "fold_norms")
-    _k.LAUNCHES["fold_norms"] += 1
     return out
 
 

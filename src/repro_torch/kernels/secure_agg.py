@@ -1,11 +1,12 @@
-"""Counter-hash pairwise mask streams (eq. 23): plain torch version and the
-CUDA check kernel.
+"""Counter-hash pairwise mask streams (eq. 23) and K5 ``secure_agg_mean``.
 
-Mirrors the device functions of ``repro/kernels/secure_agg.py``
-(``_hash_u32``, ``pair_stream``, ``net_mask_stream``); their CUDA
+Mirrors ``repro/kernels/secure_agg.py``: the device functions
+(``_hash_u32``, ``pair_stream``, ``net_mask_stream``), whose CUDA
 counterparts live in ``csrc/hash.cuh`` and run inside ``fold_apply``'s mask
-mode.  The streams are uint32 integer math and match the reference bit for
-bit.
+mode and K5, and the single-server masked mean ``secure_agg_mean``
+(``csrc/secure_agg_mean.cu``).  The streams are uint32 integer math and
+match the reference bit for bit; ``pair_streams`` writes them out so the
+card can be checked against the plain version.
 
 torch's uint32 dtype supports few operations, so the plain version holds
 uint32 values in int64 and masks with ``& 0xFFFFFFFF``.  A product of two
@@ -19,9 +20,10 @@ import torch
 
 from repro_torch import kernels as _k
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import on_cuda, stream_handle
+from repro_torch.kernels.common import FLOAT_TYPES, check, on_cuda, stream_handle
 
 MASK32 = 0xFFFFFFFF
+MAX_CLIENTS = 256          # L(L-1)/2 pair keys in one block's shared memory
 
 
 def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -97,4 +99,36 @@ def pair_streams(seed: int, L: int, D: int, scale,
     _build.check(fn(int(seed) & MASK32, float(scale), out.data_ptr(), npairs,
                     D, stream_handle(out)), "pair_streams")
     _k.LAUNCHES["pair_streams"] += 1
+    return out
+
+
+def secure_agg_mean(updates: torch.Tensor, seed: torch.Tensor,
+                    scale: float = 1.0) -> torch.Tensor:
+    """Masked client mean: updates [L, D] f32/bf16, seed [1] int32 or
+    int64 (a uint32 value, read on the device) -> [D] in updates'
+    dtype.  The pairwise masks are generated in the kernel and cancel up
+    to f32 rounding.  The kernel reads the seed's first four bytes as a
+    uint32: an int32's bit pattern or an int64's low word (little-endian),
+    in both cases the value mod 2^32, so the seed is used as it lies on the
+    device, with no conversion launched."""
+    # ref imports this module for the stream functions, so the plain
+    # version is imported here, at call time
+    from repro_torch.kernels.ref import secure_agg_mean_plain
+
+    check(updates, "updates", (None, None), FLOAT_TYPES)
+    check(seed, "seed", (1,), (torch.int32, torch.int64))
+    if not on_cuda(updates, seed):
+        return secure_agg_mean_plain(updates, seed, scale)
+    L, D = updates.shape
+    if L > MAX_CLIENTS:
+        raise ValueError(f"secure_agg_mean: L={L} exceeds {MAX_CLIENTS}")
+    if D >= 2 ** 32:
+        raise ValueError("secure_agg_mean: the mask streams index D in "
+                         "uint32")
+    out = torch.empty((D,), dtype=updates.dtype, device=updates.device)
+    fn = _build.function("secure_agg_mean")
+    _build.check(fn(updates.data_ptr(), int(updates.dtype == torch.bfloat16),
+                    seed.data_ptr(), float(scale), out.data_ptr(), L, D,
+                    stream_handle(updates)), "secure_agg_mean")
+    _k.LAUNCHES["secure_agg_mean"] += 1
     return out

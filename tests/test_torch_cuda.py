@@ -10,13 +10,21 @@ Tolerances: f32 atol 1e-5 (the reference's parity contract), squared norms
 rtol 1e-5, bf16 fold outputs atol = rtol = 3e-2 (about two bf16 ulps at
 |psi| < 4), bf16 attention outputs rtol 1e-2 and atol 2^-8 max|plain| (one
 bf16 ulp of each value), hash streams exactly equal; every kernel repeats
-bit for bit.
+bit for bit.  The single-server kernels: K5 ``secure_agg_mean`` within atol
+max(1e-5, L scale 2^-22) (its masks cancel in another order than the plain
+version's), K6 ``clip_accum`` atol = rtol = 1e-5 and K7
+``laplace_transform`` atol 1e-6 (the reference's own limits), all three
+atol = rtol = 3e-2 in bf16.
 """
 import pytest
 import torch
 
 from repro_torch import kernels as K
+from repro_torch.kernels import clip_accum as ca
 from repro_torch.kernels import graph_combine as gc
+from repro_torch.kernels import laplace as lp
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref
 from repro_torch.kernels import round_fold as rf
 from repro_torch.kernels import secure_agg as sa
 from repro_torch.kernels import swa_decode as swa
@@ -157,3 +165,90 @@ def test_serve_path_uses_the_kernel(cuda):
         torch.testing.assert_close(logits, full[:, 96 + t], atol=2e-4,
                                    rtol=2e-4)
     assert K.LAUNCHES["swa_decode"] == 4 * cfg.num_layers
+
+
+def _single_tol(dtype, f32_tol):
+    return f32_tol if dtype == torch.float32 else dict(atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,D", [(8, 8192), (5, 1000), (64, 256), (1, 7)])
+def test_secure_agg_mean_matches_plain(cuda, dtype, L, D):
+    upd = torch.randn((L, D), generator=cuda, device="cuda").to(dtype)
+    for seed, scale in (([7], 0.7), ([-1640531527], 1.0)):
+        seed = torch.tensor(seed, dtype=torch.int32, device="cuda")
+        before = K.LAUNCHES["secure_agg_mean"]
+        a = ops.secure_agg_mean(upd, seed, scale)
+        assert K.LAUNCHES["secure_agg_mean"] == before + 1
+        assert torch.equal(a, sa.secure_agg_mean(upd, seed, scale))
+        tol = _single_tol(dtype, dict(atol=max(1e-5, L * scale * 2 ** -22),
+                                      rtol=0))
+        torch.testing.assert_close(
+            a.float(), ref.secure_agg_mean_plain(upd, seed, scale).float(),
+            **tol)
+
+
+def test_secure_agg_mean_applies_the_masks(cuda):
+    # at scale 2^20 the cancelled masks leave f32 rounding far above the
+    # summation-order noise of an unmasked mean
+    upd = torch.randn((8, 4096), generator=cuda, device="cuda")
+    seed = torch.tensor([7], dtype=torch.int64, device="cuda")
+    a = sa.secure_agg_mean(upd, seed, 2.0 ** 20)
+    assert float((a - upd.mean(0)).abs().max()) > 1e-3
+    torch.testing.assert_close(
+        a, ref.secure_agg_mean_plain(upd, seed, 2.0 ** 20), atol=2.0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,D", [(8, 8192), (6, 509), (2, 40000)])
+def test_clip_accum_matches_plain(cuda, dtype, L, D):
+    g = (3 * torch.randn((L, D), generator=cuda, device="cuda")).to(dtype)
+    for bound in (0.5, 100.0):
+        before = dict(K.LAUNCHES)
+        a = ops.clip_accum(g, bound)
+        # pass 1 runs K1's kernel under clip_accum's count alone
+        assert K.LAUNCHES["clip_accum"] == before["clip_accum"] + 1
+        assert K.LAUNCHES["fold_norms"] == before["fold_norms"]
+        assert torch.equal(a, ca.clip_accum(g, bound))
+        torch.testing.assert_close(
+            a.float(), ref.clip_accum_plain(g, bound).float(),
+            **_single_tol(dtype, dict(atol=1e-5, rtol=1e-5)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,D", [(16, 8192), (10, 1000), (1, 4096), (3, 5)])
+def test_laplace_transform_matches_plain(cuda, dtype, P, D):
+    u = (torch.rand((P, D), generator=cuda, device="cuda") * 0.998
+         - 0.499).to(dtype)
+    u.view(-1)[0] = 0.0                      # sign(0) = 0
+    for sigma in (0.1, 1.0):
+        before = K.LAUNCHES["laplace_transform"]
+        a = ops.laplace_transform(u, sigma)
+        assert K.LAUNCHES["laplace_transform"] == before + 1
+        assert float(a.view(-1)[0]) == 0.0
+        assert torch.equal(a, lp.laplace_transform(u, sigma))
+        torch.testing.assert_close(
+            a.float(), ref.laplace_transform_plain(u, sigma).float(),
+            **_single_tol(dtype, dict(atol=1e-6, rtol=0)))
+
+
+def test_laplace_transform_unaligned(cuda):
+    # an offset view: the 16-byte vector path is off, the scalar path runs
+    base = torch.rand((1, 4097), generator=cuda, device="cuda") - 0.5
+    u = base[:, 1:]
+    assert u.data_ptr() % 16
+    torch.testing.assert_close(lp.laplace_transform(u, 1.0),
+                               ref.laplace_transform_plain(u, 1.0),
+                               atol=1e-6, rtol=0)
+
+
+def test_kernel_bench_runs_on_the_card(cuda):
+    from repro_torch.launch import kernel_bench as kb
+    K.reset_launches()
+    micro = dict(kb.micro_rows(reduced=True, device="cuda"))
+    rows, _ = kb.round_rows(reduced=True, device="cuda")
+    for name in ("secure_agg_mean", "clip_accum", "laplace_transform",
+                 "graph_combine", "fold_norms", "fold_apply"):
+        assert K.LAUNCHES[name] > 0, name
+    assert all(v > 0 for v in micro.values())
+    assert all(v == v for _, v in rows)

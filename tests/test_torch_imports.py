@@ -50,6 +50,15 @@ def test_import_check_covers_the_serving_slice():
     assert serving <= set(_port_modules())
 
 
+def test_import_check_covers_the_kernel_bench_slice():
+    kernel_bench = {"repro_torch.launch.kernel_bench",
+                    "repro_torch.launch.roofline",
+                    "repro_torch.kernels.secure_agg",
+                    "repro_torch.kernels.clip_accum",
+                    "repro_torch.kernels.laplace"}
+    assert kernel_bench <= set(_port_modules())
+
+
 def test_importing_the_port_leaves_jax_out():
     mods = _port_modules()
     code = ("import sys\n"
@@ -71,6 +80,15 @@ def test_cuda_request_without_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rng(0)
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_bench_without_card_raises(monkeypatch):
+    from repro_torch.launch import kernel_bench
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kernel_bench.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kernel_bench.micro_rows(reduced=True)
 
 
 def test_rng_honours_seed_env(monkeypatch):

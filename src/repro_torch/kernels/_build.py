@@ -7,8 +7,9 @@ use by ``nvcc`` into its own shared library, loaded with :mod:`ctypes`:
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so \\
          csrc/<name>.cu
 
-The file name carries a hash of the sources and flags, so an edited source
-is rebuilt and a stale library is never loaded.  ``build()`` starts one
+The file name carries a hash of the sources, flags and defines (``-D``
+macros, for a diagnostic build of a source), so an edited source is
+rebuilt and a stale library is never loaded.  ``build()`` starts one
 ``nvcc`` per missing source, all at once, and waits for them together.
 The ``-Xptxas -v`` report (registers, spills) is kept beside each library.
 Nothing here runs at import: the CPU tests import every module.
@@ -41,11 +42,11 @@ SIGNATURES = {
                    [_P, _I, _I, _P, _I, _P, _P, _P, _I, _F, _P, _P, _P, _I,
                     _I, _I64, _P]),
     "graph_combine": ("gfl_graph_combine",
-                      [_P, _P, _P, _P, _P, _P, _I, _I, _I64, _P]),
+                      [_P, _P, _P, _P, _P, _P, _I, _I64, _P]),
     "secure_agg": ("gfl_pair_streams", [_U32, _F, _P, _I, _I64, _P]),
     "swa_decode": ("gfl_swa_decode",
-                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I64, _I64,
-                    _F, _P]),
+                   [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _I64, _I64, _F, _I, _I, _I, _P]),
     "secure_agg_mean": ("gfl_secure_agg_mean", [_P, _I, _P, _F, _P, _I, _I64,
                                                 _P]),
     "clip_accum": ("gfl_clip_accum", [_P, _I, _P, _F, _P, _I, _I64, _P]),
@@ -66,34 +67,35 @@ def nvcc_path() -> str:
                        "use and need the CUDA toolkit")
 
 
-def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(name: str, defines: tuple) -> str:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:12]
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+def library_path(name: str, defines: tuple = ()) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name, defines)}.so"
 
 
 def report_path(name: str) -> Path:
     return library_path(name).with_suffix(".log")
 
 
-def build(names=SOURCES) -> dict:
-    """Compile every listed source whose library is missing, in parallel.
-    Returns {name: library path}; raises with nvcc's output on failure."""
+def build(names=SOURCES, defines: tuple = ()) -> dict:
+    """Compile every listed source whose library is missing, in parallel,
+    each with ``-D`` for every macro in ``defines``.  Returns {name:
+    library path}; raises with nvcc's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
-        lib = library_path(name)
+        lib = library_path(name, defines)
         if lib.exists():
             continue
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I",
+               str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, lib)
@@ -108,20 +110,21 @@ def build(names=SOURCES) -> dict:
         os.replace(tmp, lib)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return {name: library_path(name) for name in names}
+    return {name: library_path(name, defines) for name in names}
 
 
-def function(name: str):
-    """The C entry point of ``csrc/<name>.cu``, built and loaded on first
-    use, with its argument and result types declared."""
-    fn = _FUNCS.get(name)
+def function(name: str, defines: tuple = ()):
+    """The C entry point of ``csrc/<name>.cu`` (built with ``defines``),
+    built and loaded on first use, with its argument and result types
+    declared."""
+    fn = _FUNCS.get((name, defines))
     if fn is None:
-        path = build([name])[name]
+        path = build([name], defines)[name]
         symbol, argtypes = SIGNATURES[name]
         fn = getattr(ctypes.CDLL(str(path)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _FUNCS[name] = fn
+        _FUNCS[(name, defines)] = fn
     return fn
 
 

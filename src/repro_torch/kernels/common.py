@@ -32,5 +32,12 @@ def check(t: torch.Tensor, name: str, shape, dtypes) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def raw_stream(index: int) -> int:
+    """The raw handle of the current stream on card ``index``, read without
+    building a ``torch.cuda.Stream`` object (the binding torch's own
+    generated kernels launch with)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def stream_handle(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return raw_stream(t.device.index)

@@ -70,9 +70,8 @@ def graph_combine(A: torch.Tensor, psi: torch.Tensor,
     ``A`` is a runtime operand; ``g=None`` is the noise-free combine;
     ``gate`` [P] / ``cache`` [P, D] is the event engine's cached-psi
     re-announce, applied inside the kernel."""
-    a_t = A.T.to(torch.float32).contiguous()
     gate_f = None if gate is None else gate.to(torch.float32).contiguous()
-    return _combine(a_t, psi.contiguous(),
+    return _combine(A.to(torch.float32), psi.contiguous(),
                     None if g is None else g.contiguous(),
                     cache=None if cache is None else cache.contiguous(),
                     gate=gate_f)

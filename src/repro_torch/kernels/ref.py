@@ -137,3 +137,59 @@ def swa_decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgc,bckd->bkgd", w, v.to(torch.float32))
     return out.reshape(B, H, Dh).to(q.dtype)
+
+
+def swa_decode_splits_plain(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, nvalid: torch.Tensor,
+                            n_splits: int, *, tile: int = 1,
+                            leave_out: int | None = None) -> torch.Tensor:
+    """The split-and-combine algorithm of ``csrc/swa_decode.cu`` in plain
+    torch, for the tests and the chip check (nothing else calls it).
+
+    The C slots fall into ``n_splits`` ranges of ``chunk`` slots, ``chunk``
+    a multiple of ``tile``; each range is clipped to the live slots
+    ``[0, n_live)`` (``n_live = min(nvalid, C)``, or C when ``nvalid < 1``
+    masks every slot) and gives a partial: its max m, denominator l and
+    un-normalised weighted V.  A range with no live slot gives m = -inf,
+    l = 0, acc = 0, weighed by exactly 0.  The partials combine in split
+    order: M = max m_s, out = sum acc_s e^(m_s - M) / max(sum l_s
+    e^(m_s - M), 1e-30).  ``leave_out`` drops one split's partial, as a
+    kernel that lost it would.  Shapes and dtypes as
+    :func:`swa_decode_attention_plain`."""
+    B, H, Dh = q.shape
+    C, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nv = int(nvalid.reshape(-1)[0])
+    n_live = min(nv, C) if nv >= 1 else C
+    chunk = -(-(-(-C // tile)) // n_splits) * tile
+    qg = q.to(torch.float32).reshape(B, KV, G, Dh)
+    s_all = torch.einsum("bkgd,bckd->bkgc", qg,
+                         k.to(torch.float32)) / (Dh ** 0.5)
+    if nv < 1:
+        s_all = torch.full_like(s_all, -1e30)
+    v32 = v.to(torch.float32)
+    parts = []
+    for s in range(n_splits):
+        lo, hi = s * chunk, min(s * chunk + chunk, n_live)
+        if hi <= lo or s == leave_out:
+            parts.append((torch.full((B, KV, G), float("-inf"),
+                                     device=q.device),
+                          torch.zeros((B, KV, G), device=q.device),
+                          torch.zeros((B, KV, G, Dh), device=q.device)))
+            continue
+        sc = s_all[..., lo:hi]
+        m = sc.amax(dim=-1)
+        p = torch.exp(sc - m[..., None])
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("bkgc,bckd->bkgd", p, v32[:, lo:hi])))
+    M = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    den = torch.zeros_like(M)
+    acc = torch.zeros((B, KV, G, Dh), device=q.device)
+    for m, l, a in parts:
+        w = torch.where(m == float("-inf"), torch.zeros_like(m),
+                        torch.exp(m - M))
+        den = den + l * w
+        acc = acc + a * w[..., None]
+    out = acc / torch.clamp(den, min=1e-30)[..., None]
+    return out.reshape(B, H, Dh).to(q.dtype)

@@ -73,9 +73,42 @@ def test_fold_apply_matches_plain(cuda, mode, per_client, P, L, D):
 
 
 @pytest.mark.parametrize("variant", ["g", "none", "gate"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 2, 3, 5, 509, 40001, 8192])
+@pytest.mark.parametrize("layout", ["A", "psi+1"])
+def test_graph_combine_layouts(cuda, variant, dtype, D, layout):
+    """A passed as stored, untransposed (the kernel reads its transpose),
+    and psi one element off a 16-byte boundary (the element-wise path)."""
+    P = 10
+    A = torch.rand((P, P), generator=cuda, device="cuda")
+    psi = torch.randn((P, D), generator=cuda, device="cuda").to(dtype)
+    if layout == "psi+1":
+        off = torch.empty(P * D + 1, dtype=dtype, device="cuda")[1:]
+        psi = off.view(P, D).copy_(psi)
+        assert psi.data_ptr() % 16
+    g = None if variant == "none" else torch.randn(
+        (P, D), generator=cuda, device="cuda").to(dtype)
+    cache = gate = None
+    if variant == "gate":
+        cache = torch.randn((P, D), generator=cuda, device="cuda").to(dtype)
+        gate = (torch.arange(P, device="cuda") % 3 != 0)
+    before = K.LAUNCHES["graph_combine"]
+    a = ops.graph_combine(A, psi, g, cache=cache, gate=gate)
+    assert K.LAUNCHES["graph_combine"] == before + 1
+    assert torch.equal(a, ops.graph_combine(A, psi, g, cache=cache,
+                                            gate=gate))
+    want = gc.graph_combine_plain(
+        A, psi, g, cache=cache,
+        gate=None if gate is None else gate.float())
+    tol = dict(atol=1e-5, rtol=0) if dtype == torch.float32 else \
+        dict(atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(a.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("variant", ["g", "none", "gate"])
 @pytest.mark.parametrize("P,D", [(10, 2), (7, 509)])
 def test_graph_combine_matches_plain(cuda, variant, P, D):
-    a_t = torch.rand((P, P), generator=cuda, device="cuda")
+    A = torch.rand((P, P), generator=cuda, device="cuda")
     psi = torch.randn((P, D), generator=cuda, device="cuda")
     g = None if variant == "none" else torch.randn((P, D), generator=cuda,
                                                    device="cuda")
@@ -83,11 +116,11 @@ def test_graph_combine_matches_plain(cuda, variant, P, D):
     if variant == "gate":
         cache = torch.randn((P, D), generator=cuda, device="cuda")
         gate = (torch.arange(P, device="cuda") % 2).float()
-    a = gc.graph_combine(a_t, psi, g, cache=cache, gate=gate)
-    assert torch.equal(a, gc.graph_combine(a_t, psi, g, cache=cache,
+    a = gc.graph_combine(A, psi, g, cache=cache, gate=gate)
+    assert torch.equal(a, gc.graph_combine(A, psi, g, cache=cache,
                                            gate=gate))
     torch.testing.assert_close(
-        a, gc.graph_combine_plain(a_t, psi, g, cache=cache, gate=gate),
+        a, gc.graph_combine_plain(A, psi, g, cache=cache, gate=gate),
         atol=1e-5, rtol=0)
 
 
@@ -137,6 +170,73 @@ def test_swa_decode_matches_plain(cuda, dtype, B, H, KV, C, Dh):
         tol = dict(atol=1e-5, rtol=0) if dtype == torch.float32 else \
             dict(atol=float(want.abs().max()) * 2.0 ** -8, rtol=1e-2)
         torch.testing.assert_close(a.float(), want, **tol)
+
+
+def _swa_inputs(gen, dtype, B, H, KV, C, Dh):
+    q = torch.randn((B, H, Dh), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, C, KV, Dh), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, C, KV, Dh), generator=gen, device="cuda").to(dtype)
+    return q, k, v
+
+
+def _swa_tol(want):
+    if want.dtype == torch.float32:
+        return dict(atol=1e-5, rtol=0)
+    return dict(atol=float(want.float().abs().max()) * 2.0 ** -8, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,C,Dh", [
+    (4, 32, 32, 2047, 96),    # phi3's serving shape: 4 splits
+    (2, 8, 4, 1000, 64),      # many short splits
+    (4, 9, 3, 1064, 64),      # smollm's GQA layout
+    (1, 8, 1, 130, 100)])     # the element-wise copies
+def test_swa_decode_split_boundaries(cuda, dtype, B, H, KV, C, Dh):
+    """nvalid at the split boundaries, none and one slot, every slot: the
+    kernel, its split model and the plain version agree, and reruns are
+    bitwise equal."""
+    q, k, v = _swa_inputs(cuda, dtype, B, H, KV, C, Dh)
+    plan = swa.plan(B, KV, C, Dh, q.element_size(),
+                    torch.cuda.get_device_properties(0).multi_processor_count)
+    tile, splits, chunk = plan["tile"], plan["splits"], plan["chunk"]
+    edges = sorted({e for s in range(1, splits) for e in
+                    (s * chunk - 1, s * chunk, s * chunk + 1)})
+    for nv in [0, 1, C, *edges]:
+        nvalid = torch.tensor([nv], dtype=torch.int32, device="cuda")
+        a = swa.swa_decode(q, k, v, nvalid)
+        assert torch.equal(a, swa.swa_decode(q, k, v, nvalid)), nv
+        want = swa.swa_decode_attention_plain(q, k, v, nvalid)
+        torch.testing.assert_close(a.float(), want.float(), **_swa_tol(want),
+                                   msg=f"nvalid={nv}")
+        model = ref.swa_decode_splits_plain(q, k, v, nvalid, splits,
+                                            tile=tile)
+        torch.testing.assert_close(model.float(), want.float(),
+                                   **_swa_tol(want), msg=f"model nv={nv}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_decode_graph_replay(cuda, dtype):
+    """Captured at nvalid = C/3, replayed after nvalid is set in place to
+    C: the split count reads the shape only, so the replay is right."""
+    B, H, KV, C, Dh = 4, 32, 32, 2047, 96
+    q, k, v = _swa_inputs(cuda, dtype, B, H, KV, C, Dh)
+    nvalid = torch.tensor([C // 3], dtype=torch.int32, device="cuda")
+    swa.swa_decode(q, k, v, nvalid)                     # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = swa.swa_decode(q, k, v, nvalid)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = swa.swa_decode_attention_plain(q, k, v, nvalid)
+    torch.testing.assert_close(out.float(), want.float(), **_swa_tol(want))
+    nvalid.fill_(C)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    want = swa.swa_decode_attention_plain(q, k, v, nvalid)
+    torch.testing.assert_close(out.float(), want.float(), **_swa_tol(want))
+    assert torch.equal(out, swa.swa_decode(q, k, v, nvalid))
 
 
 def test_swa_decode_strided_batch(cuda):

@@ -199,3 +199,12 @@ def test_plain_versions_launch_nothing_on_cpu():
     t_ops.round_fold(_t(x["w"]), _t(x["g"]), mu=0.1, bound=1.0)
     t_ops.graph_combine(torch.eye(2), _t(x["w"]))
     assert all(n == 0 for n in K.LAUNCHES.values())
+
+
+def test_build_defines_name_their_own_library():
+    # a diagnostic build (a -D macro) never shares the kernel's library
+    from repro_torch.kernels import _build
+    plain = _build.library_path("swa_decode")
+    probe = _build.library_path("swa_decode", ("SWA_PROBE_LOADS_ONLY",))
+    assert plain != probe and plain.parent == probe.parent
+    assert plain == _build.library_path("swa_decode")

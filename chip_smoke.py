@@ -17,11 +17,14 @@ Phases, each printing JSON lines:
              (P=10, L=8, D=2^22): every fold mode, w as [P, D] and
              [P, L, D], f32 and bf16, graph_combine with g / None / gate,
              each with A as stored and with psi off a 16-byte boundary;
-             hash streams bit-exact; every kernel run twice, bitwise equal.
+             hash streams bit-exact; K1 also on rows that start off a
+             16-byte boundary; every kernel run twice, bitwise equal.
              Times each (CUDA events), its bound, its plain version and,
-             where one torch call computes the same thing, that call (K3
-             and its call in turns), with K3's device-only time from the
-             profiler and its host split at (10, 2).
+             where one torch call computes the same thing, that call (K1
+             against vector_norm^2 and K3 against its call in turns), with
+             device-only times of K1, K2 (every mode) and K3 from the
+             profiler, which must see one device op a call of K1 and K2,
+             the kernel, and K3's host split at (10, 2).
 4. kernel_bench — K5 secure_agg_mean, K6 clip_accum and K7
              laplace_transform against their plain versions, f32 and bf16,
              run twice and bitwise equal: K5 at (L, D) = (8, 8192), (5,
@@ -66,6 +69,10 @@ Phases, each printing JSON lines:
              step's byte bound, peak memory, and a torch.profiler view of
              decode steps (device busy and idle share, K8's share; no
              softmax or scaled_dot_product_attention may run there).
+             A profiler trace whose launch count is off (K8 a layer and
+             step here, one op a call of K1 and K2 above) is taken again,
+             up to three traces: the profiler has been seen to lose one
+             kernel record in a trace.
 
 Tolerances: f32 outputs within atol 1e-5 of the plain version (the
 reference's parity contract, docs/kernels.md); fold_norms' f32 sums within
@@ -129,6 +136,7 @@ SERVE_ARCH = "phi3-mini-3.8b"
 SERVE_REQUESTS = (("A", 4, 4096), ("B", 4, 1000))   # name, batch, prompt
 SERVE_NEW_TOKENS = 32
 SERVE_PROFILE_STEPS = 3
+TRACE_TRIES = 3       # traces of a launch count before it fails
 
 
 def emit(obj) -> None:
@@ -278,6 +286,17 @@ def phase_kernels(torch):
         emit({"phase": "kernels", "check": "pair_streams", "L": L, "D": D,
               "seed": seed, "bit_exact": True})
 
+    # K1 on rows off a 16-byte boundary: g[1:] of [rows + 1, D], D odd
+    for dtype in (torch.float32, torch.bfloat16):
+        base = torch.randn((81, 40001), generator=gen, device="cuda")
+        g = base.to(dtype)[1:].view(10, 8, 40001)
+        got = twice_equal(torch, "fold_norms", lambda: rf.fold_norms(g))
+        e = check_close(torch, f"fold_norms unaligned {dtype}", got,
+                        rf.fold_norms_plain(g), torch.float32, norms=True)
+        emit({"phase": "kernels", "kernel": "fold_norms", "layout": "g[1:]",
+              "shape": [10, 8, 40001], "dtype": str(dtype), "max_abs_err": e})
+        del base, g
+
     for (P, L, D) in SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
@@ -366,14 +385,16 @@ def time_shape(torch, P, L, D, gen):
                                                 gen)
     nw = torch.full((P, L), 1.0 / L, device="cuda")     # all alive
     out = {}
-    # K1: reads g once, writes [P, L]
+    # K1: reads g once, writes [P, L]; against the library call in turns
+    # (both host-bound at the main path's shape)
     bytes_k1 = P * L * D * 4 + P * L * 4
+    ms, lib_ms = paired_ms(torch, lambda: rf.fold_norms(g),
+                           lambda: torch.linalg.vector_norm(g, dim=-1) ** 2)
     out["fold_norms"] = {
-        "ms": time_ms(lambda: rf.fold_norms(g)),
+        "ms": ms, **one_op(torch, lambda: rf.fold_norms(g), "norms",
+                           f"fold_norms {P, L, D}"),
         "plain_ms": time_ms(lambda: rf.fold_norms_plain(g)),
-        "library_ms": time_ms(
-            lambda: torch.linalg.vector_norm(g, dim=-1) ** 2),
-        "bytes": bytes_k1, "flops": 2 * P * L * D}
+        "library_ms": lib_ms, "bytes": bytes_k1, "flops": 2 * P * L * D}
     # K2 per mode: reads w, g (+ noise), weights; writes psi
     base = P * D * 4 + P * L * D * 4 + 3 * P * L * 4 + P * D * 4
     npairs = L * (L - 1) // 2
@@ -390,9 +411,11 @@ def time_shape(torch, P, L, D, gen):
                          + ((HASH_FLOPS + 2) * npairs if mode == "mask"
                             else 0))
         int_ops = P * D * npairs * HASH_INT_OPS if mode == "mask" else 0
+        call = (lambda: rf.fold_apply(w, g, ss, fw, nw, **kw))
         out[f"fold_apply[{mode}]"] = {
-            "ms": time_ms(lambda: rf.fold_apply(w, g, ss, fw, nw,
-                                                       **kw)),
+            "ms": time_ms(call),
+            **one_op(torch, call, "fold_apply",
+                     f"fold_apply {mode} {P, L, D}"),
             "plain_ms": time_ms(lambda: rf.fold_apply_plain(
                 w, g, ss, fw, nw, **kw), budget_s=0.5, max_reps=50),
             "library_ms": None, "bytes": nbytes, "flops": flops,
@@ -443,6 +466,25 @@ def paired_ms(torch, fn, lib, rounds=11):
     return statistics.median(mine), statistics.median(theirs)
 
 
+def one_op(torch, fn, kernel, name, calls=50, tries=TRACE_TRIES):
+    """The device-only time a call of ``fn`` from the profiler, requiring
+    that each call enqueue exactly one device op, the kernel's.  A trace
+    that disagrees is taken again, up to ``tries`` traces (the profiler
+    has been seen to lose one kernel record in a trace)."""
+    for attempt in range(tries):
+        rec = profile_calls(torch, fn, calls, kernel)
+        n = round(rec["device_ops_per_call"] * calls)
+        if n == calls and len(rec["device_ops"]) == 1 and \
+                kernel in rec["device_ops"][0]:
+            return {"device_ms": rec["device_ms"],
+                    "device_ops_per_call": rec["device_ops_per_call"]}
+        emit({"phase": "kernels", "retrace": attempt + 1, "of": name,
+              "device_ops": n, "calls": calls, "names": rec["device_ops"]})
+    require(False, f"{name}: {n} device ops in {calls} calls "
+            f"({rec['device_ops']}) in each of {tries} traces, expected "
+            "the kernel alone, once a call")
+
+
 def profile_calls(torch, fn, calls, kernel):
     """torch.profiler over ``calls`` back-to-back calls of ``fn`` (after a
     warm-up): the host's wall time per call (the enqueue, no synchronise
@@ -461,10 +503,12 @@ def profile_calls(torch, fn, calls, kernel):
         torch.cuda.synchronize()
     dev = dev_all = 0.0
     names = set()
+    n_ops = 0
     for evt in prof.events():
         if str(getattr(evt, "device_type", "")).endswith("CUDA"):
             us = evt.time_range.elapsed_us()
             dev_all += us
+            n_ops += 1
             names.add(evt.name[:60])
             if kernel in evt.name:
                 dev += us
@@ -472,6 +516,7 @@ def profile_calls(torch, fn, calls, kernel):
     return {"calls": calls, "host_ms_per_call": host * 1e3 / calls,
             "device_ms": dev / 1e3 / calls,
             "device_ms_all_ops": dev_all / 1e3 / calls,
+            "device_ops_per_call": n_ops / calls,
             "device_ops": sorted(names),
             "host_self_us_by_op": [
                 {"name": e.key[:60], "us_per_call": e.self_cpu_time_total /
@@ -1159,38 +1204,48 @@ class DecodeTap:
         return out
 
 
-def decode_profile(torch, model, toks, cache, steps):
-    """torch.profiler over ``steps`` decode steps (already warm)."""
+def decode_profile(torch, model, toks, cache, steps, tries=TRACE_TRIES):
+    """torch.profiler over ``steps`` decode steps (already warm).  A trace
+    whose K8 count is not one a layer and step is taken again, up to
+    ``tries`` traces (the profiler has been seen to lose one kernel
+    record of thousands); every trace must be free of softmax and SDPA."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            logits, cache = model.decode_step(toks, cache)
-            toks = logits.argmax(-1)
+    want = steps * model.cfg.num_layers
+    for attempt in range(tries):
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy, k8, k8_n, count, by_name = 0.0, 0.0, 0, 0, {}
-    for evt in prof.events():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            us = evt.time_range.elapsed_us()
-            busy += us
-            count += 1
-            tot = by_name.setdefault(evt.name[:60], [0.0, 0])
-            tot[0] += us
-            tot[1] += 1
-            if "swa_decode" in evt.name:
-                k8 += us
-                k8_n += 1
-    host_ops = {e.key for e in prof.key_averages()}
-    banned = sorted(n for n in host_ops | set(by_name)
-                    if "softmax" in n.lower() or "scaled_dot_product" in n)
-    require(not banned, f"decode step runs {banned}: the attention core "
-            "must go through K8 alone")
-    require(k8_n == steps * model.cfg.num_layers,
-            f"profiled {steps} decode steps saw {k8_n} K8 launches")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, cache = model.decode_step(toks, cache)
+                toks = logits.argmax(-1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, k8, k8_n, count, by_name = 0.0, 0.0, 0, 0, {}
+        for evt in prof.events():
+            if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+                us = evt.time_range.elapsed_us()
+                busy += us
+                count += 1
+                tot = by_name.setdefault(evt.name[:60], [0.0, 0])
+                tot[0] += us
+                tot[1] += 1
+                if "swa_decode" in evt.name:
+                    k8 += us
+                    k8_n += 1
+        host_ops = {e.key for e in prof.key_averages()}
+        banned = sorted(n for n in host_ops | set(by_name)
+                        if "softmax" in n.lower() or "scaled_dot_product" in n)
+        require(not banned, f"decode step runs {banned}: the attention core "
+                "must go through K8 alone")
+        if k8_n == want:
+            break
+        emit({"phase": "serve", "retrace": attempt + 1, "k8_launches": k8_n,
+              "expected": want})
+    require(k8_n == want,
+            f"profiled {steps} decode steps saw {k8_n} K8 launches in each "
+            f"of {tries} traces")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,

@@ -49,4 +49,37 @@ __device__ __forceinline__ void pair_of(int pid, int L, int* a, int* b) {
   *b = pid - pair_id(r, r + 1, L) + r + 1;
 }
 
+// The row a of pair id pid among n items (the largest a with
+// pair_id(a, a + 1, n) <= pid), by bisection: O(log n).
+__device__ __forceinline__ int pair_row(int pid, int n) {
+  int lo = 0, hi = n - 2;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (pair_id(mid, mid + 1, n) <= pid) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// Walks the pairs (i < j) of n items whose ids pair_id(i, j, n) lie in
+// [lo, hi), row by row, calling f(pid - lo, i, j) for each; the calling
+// thread takes cells tid, tid + nthreads, ... of the walk.  The rows that
+// hold [lo, hi) are walked as a grid of cells, row i0's length wide, so a
+// pair's (i, j) is read off its cell and no id is inverted by a search;
+// cells past a row's end or outside [lo, hi) are skipped.  Every id in
+// [lo, hi) is visited exactly once.
+template <typename F>
+__device__ __forceinline__ void walk_pairs(int n, int lo, int hi, int tid,
+                                           int nthreads, F f) {
+  const int i0 = pair_row(lo, n), i1 = pair_row(hi - 1, n) + 1;
+  const int width = n - 1 - i0;
+  const int cells = (i1 - i0) * width;
+  for (int t = tid; t < cells; t += nthreads) {
+    const int r = t / width;
+    const int i = i0 + r, j = i + 1 + (t - r * width);
+    if (j >= n) continue;
+    const int pid = pair_id(i, j, n);
+    if (pid >= lo && pid < hi) f(pid - lo, i, j);
+  }
+}
+
 }  // namespace gfl

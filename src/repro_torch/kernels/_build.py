@@ -36,11 +36,9 @@ _P, _I, _I64, _F, _U32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 # the stream as c_void_p, so ctypes never cuts them to 32 bits); every entry
 # point returns a cudaError_t as int
 SIGNATURES = {
-    "fold_norms": ("gfl_fold_norms",
-                   [_P, _I, _P, _P, _I, _I64, _I64, _I, _P]),
+    "fold_norms": ("gfl_fold_norms", [_P, _P, _P, _I64, _I64, _I, _P]),
     "fold_apply": ("gfl_fold_apply",
-                   [_P, _I, _I, _P, _I, _P, _P, _P, _I, _F, _P, _P, _P, _I,
-                    _I, _I64, _P]),
+                   [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I64, _F, _P]),
     "graph_combine": ("gfl_graph_combine",
                       [_P, _P, _P, _P, _P, _P, _I, _I64, _P]),
     "secure_agg": ("gfl_pair_streams", [_U32, _F, _P, _I, _I64, _P]),

@@ -32,6 +32,22 @@ def check(t: torch.Tensor, name: str, shape, dtypes) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def operand(t: torch.Tensor, name: str, shape: tuple, dtypes,
+            device: torch.device) -> None:
+    """Raise unless ``t`` has exactly ``shape``, one of ``dtypes``, lies on
+    ``device`` and is contiguous: a fixed number of attribute reads, for
+    the wrappers the main path calls once a round, where host time is the
+    cost."""
+    if t.shape != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected one of {dtypes}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
 def raw_stream(index: int) -> int:
     """The raw handle of the current stream on card ``index``, read without
     building a ``torch.cuda.Stream`` object (the binding torch's own

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch import kernels as _k
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import FLOAT_TYPES, raw_stream
+from repro_torch.kernels.common import FLOAT_TYPES, operand, raw_stream
 from repro_torch.kernels.ref import matmul_f32
 
 MAX_P = 64
@@ -33,14 +33,6 @@ def graph_combine_plain(A, psi, g=None, *, cache=None, gate=None
         return matmul_f32(a32, x).to(psi.dtype)
     g32 = g.to(torch.float32)
     return (matmul_f32(a32, x + g32) - g32).to(psi.dtype)
-
-
-def _operand(t, name, P, D, dtype, device):
-    if t.shape != (P, D) or t.dtype is not dtype or t.device != device:
-        raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on {t.device}, "
-                         f"expected {(P, D)} {dtype} on {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
 
 
 def graph_combine(A: torch.Tensor, psi: torch.Tensor,
@@ -65,16 +57,12 @@ def graph_combine(A: torch.Tensor, psi: torch.Tensor,
         raise ValueError(f"A: {tuple(A.shape)} {A.dtype} on {A.device}, "
                          f"expected {(P, P)} float32 on {dev}")
     if g is not None:
-        _operand(g, "g", P, D, psi.dtype, dev)
+        operand(g, "g", (P, D), (psi.dtype,), dev)
     if (gate is None) != (cache is None):
         raise ValueError("gate and cache go together")
     if gate is not None:
-        _operand(cache, "cache", P, D, psi.dtype, dev)
-        if gate.shape != (P,) or gate.dtype is not torch.float32 or \
-                gate.device != dev or not gate.is_contiguous():
-            raise ValueError(f"gate: {tuple(gate.shape)} {gate.dtype} on "
-                             f"{gate.device}, expected contiguous ({P},) "
-                             f"float32 on {dev}")
+        operand(cache, "cache", (P, D), (psi.dtype,), dev)
+        operand(gate, "gate", (P,), (torch.float32,), dev)
     if dev.type != "cuda":
         if dev.type != "cpu":
             raise ValueError(f"no kernel for device {dev}")

@@ -81,6 +81,118 @@ def hash_net_mask_fold(seeds: torch.Tensor, noise_w: torch.Tensor, D: int,
     return out
 
 
+PAIR_CHUNK = 2048      # alive pairs a chunk (csrc/fold_apply.cu kPairChunk)
+
+
+def pair_id(a: int, b: int, n: int) -> int:
+    """Row-major (a < b) pair id among n items (csrc/hash.cuh pair_id)."""
+    return (a * (2 * n - a - 1)) // 2 + (b - a - 1)
+
+
+def pair_row(pid: int, n: int) -> int:
+    """The row a of pair id ``pid`` among n items, by bisection
+    (csrc/hash.cuh pair_row)."""
+    lo, hi = 0, n - 2
+    while lo < hi:
+        mid = (lo + hi + 1) >> 1
+        if pair_id(mid, mid + 1, n) <= pid:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def walk_pairs(n: int, lo: int, hi: int) -> list:
+    """csrc/hash.cuh walk_pairs in plain python: [(pid - lo, i, j)] for the
+    pairs (i < j) of n items with ids in [lo, hi), in the walk's cell order
+    (the cells of the rows that hold [lo, hi), row i0's length wide)."""
+    i0, i1 = pair_row(lo, n), pair_row(hi - 1, n) + 1
+    width = n - 1 - i0
+    out = []
+    for t in range((i1 - i0) * width):
+        r = t // width
+        i = i0 + r
+        j = i + 1 + t - r * width
+        if j < n and lo <= pair_id(i, j, n) < hi:
+            out.append((pair_id(i, j, n) - lo, i, j))
+    return out
+
+
+def alive_pairs(alive, chunk: int = PAIR_CHUNK) -> list:
+    """K2's pair list of one server as its kernel builds it: the alive
+    clients in order (``alive`` [L] bools), their pairs walked in chunks of
+    ``chunk`` ids by :func:`walk_pairs`, each chunk a list of (pair id
+    among all L, a, b) in slot order.  A slot no cell fills stays None."""
+    L = len(alive)
+    live = [k for k in range(L) if bool(alive[k])]
+    A = len(live)
+    npairs = A * (A - 1) // 2
+    chunks = []
+    for lo in range(0, npairs, chunk):
+        slots = [None] * min(chunk, npairs - lo)
+        for c, i, j in walk_pairs(A, lo, lo + len(slots)):
+            slots[c] = (pair_id(live[i], live[j], L), live[i], live[j])
+        chunks.append(slots)
+    return chunks
+
+
+def _slice_fold(x: torch.Tensor, terms: torch.Tensor, S: int) -> torch.Tensor:
+    """x [P, S, D] plus terms [P, n, D], term c into slice c % S, each
+    slice's terms added one at a time in index order."""
+    P, n, D = terms.shape
+    pad = torch.zeros((P, -n % S, D), dtype=terms.dtype, device=terms.device)
+    terms = torch.cat([terms, pad], dim=1)
+    for r in range(terms.shape[1] // S):
+        x = x + terms[:, r * S:(r + 1) * S]
+    return x
+
+
+def fold_apply_regrouped_plain(w, grads, stepscale, fold_wn, noise_w, *,
+                               mode="none", sigma=0.0, seeds=None,
+                               noise=None, slices: int = 1,
+                               chunk: int = PAIR_CHUNK) -> torch.Tensor:
+    """K2's order of summation (csrc/fold_apply.cu) in plain torch, for the
+    tests: psi [P, D] in w.dtype, as ``round_fold.fold_apply_plain``.
+
+    Slice s of ``slices`` (``round_fold.fold_layout``'s S) folds clients
+    s, s + S, ... in order, then the noise terms the same way, or the
+    alive pairs s, s + S, ... of each chunk of :func:`alive_pairs`, each
+    hashed once with coefficient nw[a] - nw[b]; a tree adds the slices,
+    halves first.  f32 throughout; the kernel fuses the multiply-adds."""
+    P, L, D = grads.shape
+    S = slices
+    g = grads.to(torch.float32)
+    wb = w.to(torch.float32)
+    if w.dim() == 2:
+        wb = wb[:, None, :]
+    ss = stepscale.to(torch.float32)[..., None]
+    fw = fold_wn.to(torch.float32)[..., None]
+    nw = noise_w.to(torch.float32)
+    zero = torch.zeros((P, S, D), dtype=torch.float32, device=g.device)
+    acc = _slice_fold(zero, fw * (wb - ss * g), S)
+    nacc = zero
+    if mode == "laplace":
+        nacc = _slice_fold(zero, nw[..., None] * noise.to(torch.float32), S)
+    elif mode == "mask":
+        idx = torch.arange(D, device=g.device)
+        parts = []
+        for p in range(P):
+            x = zero[p:p + 1]
+            for slots in alive_pairs((nw[p] > 0).tolist(), chunk):
+                pid, a, b = (torch.tensor(v, device=g.device)
+                             for v in zip(*slots))
+                vals = (nw[p, a] - nw[p, b])[:, None] * pair_stream(
+                    pid[:, None], idx[None, :], seeds[p], sigma)
+                x = _slice_fold(x, vals[None], S)
+            parts.append(x)
+        nacc = torch.cat(parts)
+    total = acc + nacc
+    while total.shape[1] > 1:
+        h = total.shape[1] // 2
+        total = total[:, :h] + total[:, h:]
+    return total[:, 0].to(w.dtype)
+
+
 def round_fold_ref(w: torch.Tensor, grads: torch.Tensor, *, mu: float,
                    bound: float, pre_w: torch.Tensor, fold_w: torch.Tensor,
                    noise_w: torch.Tensor, mode: str = "none",

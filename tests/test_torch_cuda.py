@@ -72,6 +72,113 @@ def test_fold_apply_matches_plain(cuda, mode, per_client, P, L, D):
                                atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 3, 2 ** 14 - 1, 2 ** 14, 2 ** 14 + 1,
+                               40000])
+def test_fold_norms_layouts(cuda, dtype, D):
+    """Both layouts of K1's plan: a lane a row (D = 1, 3), one block a row
+    and 3-9 splits a row with the last block adding the partials."""
+    P, L = 3, 5
+    g = torch.randn((P, L, D), generator=cuda, device="cuda").to(dtype)
+    a = rf.fold_norms(g)
+    assert torch.equal(a, rf.fold_norms(g))
+    torch.testing.assert_close(a, rf.fold_norms_plain(g), atol=0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [509, 4097, 40001])
+def test_fold_norms_unaligned_rows(cuda, dtype, D):
+    """g[1:] of a [rows, D] tensor with D odd: contiguous, but no row
+    starts on a 16-byte boundary, so each has a scalar head and tail."""
+    P, L = 2, 4
+    base = torch.randn((P * L + 1, D), generator=cuda, device="cuda").to(dtype)
+    g = base[1:].view(P, L, D)
+    assert g.is_contiguous() and g.data_ptr() % 16
+    a = rf.fold_norms(g)
+    assert torch.equal(a, rf.fold_norms(g))
+    torch.testing.assert_close(a, rf.fold_norms_plain(g), atol=0, rtol=1e-5)
+
+
+def _mask_weights(cuda, P, L, alive):
+    nw = torch.rand((P, L), generator=cuda, device="cuda") + 0.1
+    if alive == "one_dead":
+        nw[:, L // 2] = 0.0
+    elif alive == "one_alive":
+        nw[:, 1:] = 0.0
+    elif alive == "none":
+        nw.zero_()
+    return nw / torch.clamp(nw.sum(dim=1, keepdim=True), min=1e-12)
+
+
+@pytest.mark.parametrize("alive", ["one_dead", "one_alive", "none"])
+@pytest.mark.parametrize("L", [1, 2, 45, 46, 64, 91])
+@pytest.mark.parametrize("D", [2, 128, 129, 600, 1027])
+def test_fold_apply_mask_pairs(cuda, alive, L, D):
+    """K2's mask mode: pair slices at D <= 128, one thread a feature at
+    129, two and four features a thread at 600 and 1027; 45, 46 and 91
+    clients give 990, 1,035 and 4,095 pairs (two chunks of 2,048)."""
+    P = 3
+    w = torch.randn((P, D), generator=cuda, device="cuda")
+    g = torch.randn((P, L, D), generator=cuda, device="cuda")
+    ss = 0.1 * torch.rand((P, L), generator=cuda, device="cuda")
+    fw = torch.rand((P, L), generator=cuda, device="cuda")
+    fw = fw / fw.sum(dim=1, keepdim=True)     # normalized, as the round folds
+    nw = _mask_weights(cuda, P, L, alive)
+    seeds = torch.arange(P, device="cuda") * 2654435761 + 7
+    kw = dict(mode="mask", sigma=0.5, seeds=seeds)
+    a = rf.fold_apply(w, g, ss, fw, nw, **kw)
+    assert torch.equal(a, rf.fold_apply(w, g, ss, fw, nw, **kw))
+    torch.testing.assert_close(a, rf.fold_apply_plain(w, g, ss, fw, nw, **kw),
+                               atol=1e-5, rtol=0)
+
+
+def test_fold_apply_seed_dtypes(cuda):
+    """Seeds read as stored: int64 values at and above 2^31 and their
+    int32 bit patterns give the same bits."""
+    P, L, D = 4, 9, 300
+    w = torch.randn((P, D), generator=cuda, device="cuda")
+    g = torch.randn((P, L, D), generator=cuda, device="cuda")
+    ss = 0.1 * torch.rand((P, L), generator=cuda, device="cuda")
+    nw = _mask_weights(cuda, P, L, "one_dead")
+    s64 = torch.tensor([0, 2 ** 31, 2 ** 32 - 1, 2 ** 31 + 12345],
+                       device="cuda")
+    s32 = torch.where(s64 >= 2 ** 31, s64 - 2 ** 32, s64).to(torch.int32)
+    a = rf.fold_apply(w, g, ss, ss, nw, mode="mask", sigma=0.5, seeds=s64)
+    assert torch.equal(a, rf.fold_apply(w, g, ss, ss, nw, mode="mask",
+                                        sigma=0.5, seeds=s32))
+    torch.testing.assert_close(a, rf.fold_apply_plain(
+        w, g, ss, ss, nw, mode="mask", sigma=0.5, seeds=s64),
+        atol=1e-5, rtol=0)
+
+
+def test_round_fold_graph_replay(cuda):
+    """ops.round_fold captured in a CUDA graph at a width where K1 splits
+    each row (8 rows x 9 splits): each replay finds new gradients and
+    must give the eager result, which it can only if the last block of
+    every row reset the row's ticket in the replay before."""
+    P, L, D = 2, 4, 40000
+    assert rf.norms_plan(P * L, D, 4, 132)["splits"] > 1
+    w = torch.randn((P, D), generator=cuda, device="cuda")
+    g = torch.randn((P, L, D), generator=cuda, device="cuda")
+    seeds = torch.tensor([3, 2 ** 31 + 5], device="cuda")
+    kw = dict(mu=0.1, bound=50.0, mode="mask", sigma=0.5, seeds=seeds)
+    ops.round_fold(w, g, **kw)                          # warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        psi, sq = ops.round_fold(w, g, **kw)
+    for _ in range(3):
+        g.copy_(torch.randn((P, L, D), generator=cuda, device="cuda"))
+        psi.zero_()
+        sq.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        want_psi, want_sq = ops.round_fold(w, g, **kw)
+        assert torch.equal(sq, want_sq) and torch.equal(psi, want_psi)
+        torch.testing.assert_close(sq, rf.fold_norms_plain(g), atol=0,
+                                   rtol=1e-5)
+
+
 @pytest.mark.parametrize("variant", ["g", "none", "gate"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [1, 2, 3, 5, 509, 40001, 8192])

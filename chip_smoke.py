@@ -9,7 +9,8 @@ Phases, each printing JSON lines:
              or no port beside this script exits non-zero with no result.
 2. build   — compiles every kernel of the main path from
              src/repro_torch/csrc (one nvcc per source, in parallel) and
-             prints ptxas' registers and spills.
+             prints ptxas' registers and spills, and the SASS of K5's pair
+             loop (cuobjdump) counted per stream.
 3. kernels — holds each kernel against its plain torch version on the card
              at the main-path shape (P=10, L=50, D=2), the BENCH shape
              (P=10, L=8, D=2048), the kernel bench's micro rows (P=16, L=8,
@@ -29,15 +30,19 @@ Phases, each printing JSON lines:
              laplace_transform against their plain versions, f32 and bf16,
              run twice and bitwise equal: K5 at (L, D) = (8, 8192), (5,
              1000), (64, 256), (8, 2^22); K6 at (8, 8192), (6, 509),
-             (8, 2^22); K7 at (P, D) = (16, 8192), (10, 1000), (1, 4096),
-             (16, 2^22).  Planted checks: K5 at scale 2^20 must differ from
+             either side of its resident limit (8, 811008) and (8, 811009),
+             and (8, 2^22); K7 at (P, D) = (16, 8192), (10, 1000), (1,
+             4096), (16, 2^22).  Planted checks: K5 at scale 2^20 must differ from
              the plain mean (masks applied) yet hold its limit; K6's limit
              must catch the plain version with the clip left out.  One
              round as the bench's fused side runs it (K1 + K2 + K3, mask
              and laplace) against the plain chain on the same inputs, at
              D = 16384 and 2^20.  Times each of K5-K7 at the micro shape
-             and the wide one beside its bound, its plain version and the
-             library call (K5: the unmasked mean).  Then drives `python -m repro_torch.launch.kernel_bench` (micro
+             and the wide one (K6 also at its resident limit) beside its
+             bound, its plain version and the library call (K5: the
+             unmasked mean), with K5's and K6's device-only times from the
+             profiler, which must see one device op a call, the kernel's;
+             K6's record also carries the bytes its plan must move.  Then drives `python -m repro_torch.launch.kernel_bench` (micro
              rows, round rows at D = 16384) and the round rows at D = 2^20,
              with the launch counts read.
 5. main    — run_gfl on the gfl-logreg problem at full size (P=10, K=50,
@@ -72,7 +77,8 @@ Phases, each printing JSON lines:
              A profiler trace whose launch count is off (K8 a layer and
              step here, one op a call of K1 and K2 above) is taken again,
              up to three traces: the profiler has been seen to lose one
-             kernel record in a trace.
+             kernel record in a trace.  Every profiled window is fenced
+             by marker kernels, and only the ops between them count.
 
 Tolerances: f32 outputs within atol 1e-5 of the plain version (the
 reference's parity contract, docs/kernels.md); fold_norms' f32 sums within
@@ -185,17 +191,103 @@ def phase_build():
         emit({"phase": "build", "source": f"csrc/{name}.cu",
               "library": paths[name].name, "ptxas": lines})
     emit({"phase": "build", "seconds": secs})
+    sass = k5_stream_sass(paths["secure_agg_mean"])
+    emit({"phase": "build", "k5_sass": sass})
+    # the bound counts HASH_INT_OPS a stream: the kernel must need as many
+    require("error" not in sass, f"K5 SASS: {sass.get('error')}")
+    require(sass["int_per_stream"] >= HASH_INT_OPS,
+            f"K5 SASS: {sass['int_per_stream']} integer and conversion "
+            f"instructions a stream, below the bound's {HASH_INT_OPS}")
+
+
+# K5's instantiation at eight f32 features a thread in 16-byte vectors:
+# its pair loop is the hot loop at every wide f32 shape
+K5_SASS_FUNCTION = "secure_agg_mean_kernelIfLi8ELb1E"
+K5_SASS_FPT = 8
+# the opcodes (before their first '.') that issue on the INT32 lanes or
+# convert: the ones HASH_INT_OPS counts
+K5_SASS_INT = {"LOP3", "LOP", "SHF", "SHL", "SHR", "IMAD", "IMUL", "IADD3",
+               "LEA", "PRMT", "I2F", "I2FP"}
+
+
+def k5_stream_sass(lib):
+    """The SASS of one K5 stream: ``cuobjdump -sass`` of the library,
+    K5's f32 16-byte instantiation, its loop that reads pair keys from
+    shared memory (the pair loop: the loop with the most key loads, a
+    backward branch to its head).  Returns the loop's instruction counts
+    by opcode and per stream (each key serves ``K5_SASS_FPT`` features),
+    among them the integer and conversion instructions a stream
+    (``K5_SASS_INT``), or why none was read."""
+    import collections
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=120).stdout
+    except OSError as exc:
+        return {"error": f"cuobjdump: {exc}"}
+    body, inside = [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = K5_SASS_FUNCTION in line
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if inside and m:
+            body.append((int(m.group(1), 16), m.group(2).strip()))
+    if not body:
+        return {"error": f"no SASS for {K5_SASS_FUNCTION}"}
+
+    def opcode(ins):
+        ins = re.sub(r"^@!?U?P\w+\s+", "", ins)
+        return ins.split()[0]
+
+    def keys(ins):
+        op = opcode(ins)
+        if not op.startswith("LDS"):
+            return 0
+        width = re.search(r"\.(64|128)", op)
+        return int(width.group(1)) // 32 if width else 1
+
+    best = None
+    for addr, ins in body:
+        m = re.search(r"BRA\s+(?:`\()?[^0-9]*0x([0-9a-f]+)", ins)
+        if not m or int(m.group(1), 16) >= addr:
+            continue
+        loop = [i for a, i in body if int(m.group(1), 16) <= a <= addr]
+        n_keys = sum(keys(i) for i in loop)
+        if n_keys and (best is None or n_keys > best[0]):
+            best = (n_keys, loop)
+    if best is None:
+        return {"error": "no loop reads keys from shared memory"}
+    n_keys, loop = best
+    counts = collections.Counter(opcode(i) for i in loop)
+    streams = n_keys * K5_SASS_FPT
+    n_int = sum(n for op, n in counts.items()
+                if op.split(".")[0] in K5_SASS_INT)
+    return {"function": K5_SASS_FUNCTION, "loop_instructions": len(loop),
+            "keys": n_keys, "streams": streams,
+            "per_stream": len(loop) / streams,
+            "int_per_stream": n_int / streams,
+            "by_opcode": dict(sorted(counts.items()))}
 
 
 # -------------------------------------------------------------- kernels
 
 
-# Instructions of one counter-hash stream value (csrc/hash.cuh pair_value):
-# the Murmur3 finalizer (three shift-xor pairs, two multiplies), the
-# idx ^ key xor, the >> 8 and the int-to-float conversion on the INT32
-# lanes; the 2^-24 scale, 2u, -1 and * scale on the fp32 lanes.
-HASH_INT_OPS = 11
-HASH_FLOPS = 4
+# Instructions of one counter-hash stream value (csrc/hash.cuh), counted
+# from the least sequence.  The Murmur3 finalizer's first shift-xor
+# distributes over idx ^ key (hash.cuh premix), so with the keys and the
+# feature indices premixed once a stream is left the xor, two multiplies,
+# two shift-xor pairs, the >> 8 and the int-to-float conversion: 9 integer
+# and conversion instructions (K5's SASS: 3 LOP3, 3 SHF, 2 IMAD and one
+# I2FP a stream; the build phase requires at least this many), on the
+# INT32 lanes; and one fma for (2u - 1) scale (hash.cuh stream_value) on
+# the fp32 lanes.  K2's mask mode runs the sequence without the premix,
+# 11, against the same bound.
+HASH_INT_OPS = 9
+HASH_FLOPS = 2
 
 
 def bound(rec) -> dict:
@@ -489,29 +581,44 @@ def profile_calls(torch, fn, calls, kernel):
     """torch.profiler over ``calls`` back-to-back calls of ``fn`` (after a
     warm-up): the host's wall time per call (the enqueue, no synchronise
     inside), the device time per call of the kernels whose name holds
-    ``kernel`` and of every device op, and host self time by op."""
+    ``kernel`` and of every device op, and host self time by op.
+
+    The calls are fenced on the device by marker kernels
+    (``torch.cuda._sleep``'s ``spin_kernel``), two before and three after,
+    and only the device ops between the first and the last marker are
+    read: the profiler has been seen to drop one kernel record at the edge
+    of a window, and a dropped marker costs nothing."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            torch.cuda._sleep(1)
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
         host = time.perf_counter() - t0
+        for _ in range(3):
+            torch.cuda._sleep(1)
         torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    marks = [e.time_range.start for e in device if "spin_kernel" in e.name]
+    lo, hi = (min(marks), max(marks)) if len(marks) >= 2 else (0, -1)
     dev = dev_all = 0.0
     names = set()
     n_ops = 0
-    for evt in prof.events():
-        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            us = evt.time_range.elapsed_us()
-            dev_all += us
-            n_ops += 1
-            names.add(evt.name[:60])
-            if kernel in evt.name:
-                dev += us
+    for evt in device:
+        if "spin_kernel" in evt.name or not lo < evt.time_range.start < hi:
+            continue
+        us = evt.time_range.elapsed_us()
+        dev_all += us
+        n_ops += 1
+        names.add(evt.name[:60])
+        if kernel in evt.name:
+            dev += us
     ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     return {"calls": calls, "host_ms_per_call": host * 1e3 / calls,
             "device_ms": dev / 1e3 / calls,
@@ -559,9 +666,15 @@ def k3_host_split(torch, gen, calls=200):
 
 
 # (L, D) for K5 and K6, (P, D) for K7: the micro rows' shape first, ragged
-# shapes, then one past the 50 MB L2 (K5, K6: 134 MB; K7: 268 MB in, out)
+# shapes, then one past the 50 MB L2 (K5, K6: 134 MB; K7: 268 MB in, out).
+# K6 also either side of its plan's resident limit on 132 SMs: 264 blocks
+# keep 3 tiles of 1024 f32 of each of 8 rows (26 MB of g), and one element
+# more is read twice
 K5_SHAPES = [(8, 8192), (5, 1000), (64, 256), (8, 1 << 22)]
-K6_SHAPES = [(8, 8192), (6, 509), (8, 1 << 22)]
+K6_RESIDENT_D = 264 * 3 * 1024
+K6_SHAPES = [(8, 8192), (6, 509), (8, K6_RESIDENT_D), (8, K6_RESIDENT_D + 1),
+             (8, 1 << 22)]
+K6_TIMED = (0, 2, 3, -1)          # the shapes timed beside K5's and K7's
 K7_SHAPES = [(16, 8192), (10, 1000), (1, 4096), (16, 1 << 22)]
 K5_SCALES = (1.0, 0.7)            # the micro row's scale, the tests'
 K5_PLANT_SCALE = 2.0 ** 20
@@ -578,12 +691,15 @@ NO_LIBRARY = {
 
 
 def k5_atol(L, scale):
-    """K5's f32 limit against its plain version.  The kernel adds each
-    client's net mask (magnitude < L * scale) and the plain version adds
-    and takes away each pair's stream; every f32 add there rounds by at
-    most 2^-24 of its magnitude, so the two differ by less than
-    L * scale * 2^-22 after the division by L.  Never below 1e-5, the
-    reference's parity limit."""
+    """K5's f32 limit against its plain version.  Kernel and plain version
+    add and take away each pair's stream in the same order, but their
+    client sums before the masks may differ in summation order, and each
+    add and subtraction of a stream (magnitude < scale) then rounds by at
+    most 2^-24 of the running sum's magnitude (< L * scale); the two
+    differ by less than L * scale * 2^-22 after the division by L.  The
+    Pallas kernel, which adds each client's net mask instead, stays within
+    the same limit (tests/test_torch_single_server_plans.py).  Never below
+    1e-5, the reference's parity limit."""
     return max(ATOL_F32, L * scale * 2.0 ** -22)
 
 
@@ -696,26 +812,31 @@ def single_server_checks(torch, gen):
 
 def single_server_timings(torch, gen):
     """f32 kernel, plain and library times of K5-K7 at the micro rows'
-    shape and the wide one, with their bounds."""
+    shape and the wide one (K6 also at its resident boundary), with their
+    bounds and, for K5 and K6, the kernel's device-only time from the
+    profiler, which must see one device op a call."""
     from repro_torch.kernels import clip_accum as ca
     from repro_torch.kernels import laplace as lp
     from repro_torch.kernels import ref
     from repro_torch.kernels import secure_agg as sa
     from repro_torch.launch.kernel_bench import time_ms
+    from repro_torch.launch.roofline import HBM_BYTES_PER_S
 
     out = {}
     seed = torch.tensor([7], dtype=torch.int32, device="cuda")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for which in (0, -1):
         L, D = K5_SHAPES[which]
         upd = torch.randn((L, D), generator=gen, device="cuda")
-        # the function needs each pair's stream once per feature (the plain
-        # version's acc + s - s); the kernel, as the Pallas one, hashes each
-        # pair twice (once in each client's net mask): redundant work that
-        # the bound does not count
+        # each pair's stream once per feature, as the kernel and the plain
+        # version's acc + s - s hash it
         streams = L * (L - 1) // 2 * D
+        call = (lambda: sa.secure_agg_mean(upd, seed))
         out[("secure_agg_mean", which)] = bound({
-            "shape": [L, D],
-            "ms": time_ms(lambda: sa.secure_agg_mean(upd, seed)),
+            "shape": [L, D], "ms": time_ms(call),
+            **one_op(torch, call, "secure_agg_mean",
+                     f"secure_agg_mean {L, D}"),
+            "plan": sa.plan(L, D, 4, n_sm),
             "plain_ms": time_ms(lambda: ref.secure_agg_mean_plain(
                 upd, seed, 1.0), budget_s=0.5, max_reps=50),
             # the unmasked floor: the client mean without masks
@@ -725,17 +846,6 @@ def single_server_timings(torch, gen):
             "flops": streams * (HASH_FLOPS + 2) + L * D + D,
             "int_ops": streams * HASH_INT_OPS})
         del upd
-        L, D = K6_SHAPES[which]
-        g = 3 * torch.randn((L, D), generator=gen, device="cuda")
-        out[("clip_accum", which)] = bound({
-            "shape": [L, D],
-            "ms": time_ms(lambda: ca.clip_accum(g, 1.0)),
-            "plain_ms": time_ms(lambda: ref.clip_accum_plain(g, 1.0)),
-            "library_ms": None, "library": NO_LIBRARY["clip_accum"],
-            # g read once (the kernel reads it twice), out written once;
-            # an fma per element in each pass
-            "bytes": L * D * 4 + D * 4, "flops": 4 * L * D + D})
-        del g
         P, D = K7_SHAPES[which]
         u = torch.rand((P, D), generator=gen, device="cuda") * 0.998 - 0.499
         out[("laplace_transform", which)] = bound({
@@ -747,6 +857,24 @@ def single_server_timings(torch, gen):
             # abs, -2x, log1p (counted as one), sign * -b, the product
             "bytes": 2 * P * D * 4, "flops": 5 * P * D})
         del u
+    for which in K6_TIMED:
+        L, D = K6_SHAPES[which]
+        g = 3 * torch.randn((L, D), generator=gen, device="cuda")
+        p = ca.plan(L, D, 4, n_sm)
+        design = ca.hbm_bytes(p, L, D, 4)
+        call = (lambda: ca.clip_accum(g, 1.0))
+        out[("clip_accum", which)] = bound({
+            "shape": [L, D], "ms": time_ms(call),
+            **one_op(torch, call, "clip_accum", f"clip_accum {L, D}"),
+            "plain_ms": time_ms(lambda: ref.clip_accum_plain(g, 1.0)),
+            "library_ms": None, "library": NO_LIBRARY["clip_accum"],
+            # g read once, out written once; an fma per element in each
+            # pass.  Beside it, the bytes the design must move: the tiles
+            # not resident in shared memory are read twice
+            "bytes": L * D * 4 + D * 4, "flops": 4 * L * D + D,
+            "plan": p, "design_bytes": design,
+            "design_bound_ms": design / HBM_BYTES_PER_S * 1e3})
+        del g
     for (name, _), rec in out.items():
         rec["roof_share"] = rec["bound_ms"] / rec["ms"]
         emit({"phase": "kernel_bench", "kernel": name, "timing": rec,

@@ -11,14 +11,23 @@
 
 namespace gfl {
 
-// Murmur3 finalizer on uint32.
-__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
-  x ^= x >> 16;
+// x ^ (x >> 16), the Murmur3 finalizer's first step.  It distributes over
+// xor, premix(a ^ b) = premix(a) ^ premix(b), so the idx ^ key of a stream
+// can be premixed half by half: each key once, each feature index once.
+__device__ __forceinline__ uint32_t premix(uint32_t x) { return x ^ (x >> 16); }
+
+// The Murmur3 finalizer after its first step.
+__device__ __forceinline__ uint32_t hash_tail(uint32_t x) {
   x *= 0x7FEB352Du;
   x ^= x >> 15;
   x *= 0x846CA68Bu;
   x ^= x >> 16;
   return x;
+}
+
+// Murmur3 finalizer on uint32.
+__device__ __forceinline__ uint32_t hash_u32(uint32_t x) {
+  return hash_tail(premix(x));
 }
 
 // The per-(pair, seed) half of pair_stream: it does not depend on the
@@ -27,13 +36,21 @@ __device__ __forceinline__ uint32_t pair_key(uint32_t pid, uint32_t seed) {
   return hash_u32(pid * 0x9E3779B9u + seed);
 }
 
-// Uniform(-scale, scale) value of a pair's stream at feature idx: the top
-// 24 bits of the hash times 2^-24 give u in [0, 1) exactly in float32.
+// The Uniform(-scale, scale) value of a stream's hash h: with u = (h >> 8)
+// 2^-24, the top 24 bits of h, exactly in float32, it is (2u - 1) scale.
+// 2u - 1 = (h >> 8) 2^-23 - 1 is exact in float32, so the reference's
+// (2u - 1) * scale rounds once; the fma (h >> 8) (scale 2^-23) - scale
+// rounds the same exact value once, so the two agree bit for bit while
+// scale 2^-23 is a normal float (at scale 0, up to the sign of a zero).
+__device__ __forceinline__ float stream_value(uint32_t h, float scale) {
+  return __fmaf_rn(static_cast<float>(h >> 8), scale * (1.0f / 8388608.0f),
+                   -scale);
+}
+
+// Uniform(-scale, scale) value of a pair's stream at feature idx.
 __device__ __forceinline__ float pair_value(uint32_t key, uint32_t idx,
                                             float scale) {
-  const uint32_t h = hash_u32(idx ^ key);
-  const float u = static_cast<float>(h >> 8) * (1.0f / 16777216.0f);
-  return __fmul_rn(__fsub_rn(__fmul_rn(2.0f, u), 1.0f), scale);
+  return stream_value(hash_u32(idx ^ key), scale);
 }
 
 // Row-major (a < b) pair id: a(2L - a - 1)/2 + (b - a - 1).

@@ -45,11 +45,16 @@ SIGNATURES = {
     "swa_decode": ("gfl_swa_decode",
                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I64, _I64, _F, _I, _I, _I, _P]),
-    "secure_agg_mean": ("gfl_secure_agg_mean", [_P, _I, _P, _F, _P, _I, _I64,
+    "secure_agg_mean": ("gfl_secure_agg_mean", [_P, _P, _F, _P, _I64, _I,
                                                 _P]),
-    "clip_accum": ("gfl_clip_accum", [_P, _I, _P, _F, _P, _I, _I64, _P]),
+    "clip_accum": ("gfl_clip_accum", [_P, _P, _P, _F, _I, _I64, _I, _P]),
     "laplace": ("gfl_laplace_transform", [_P, _P, _I, _I64, _F, _P]),
 }
+
+# further entry points of a source: name -> (source, symbol, argtypes)
+AUX = {"clip_accum_blocks_per_sm": ("clip_accum",
+                                    "gfl_clip_accum_blocks_per_sm",
+                                    [_I, _I])}
 
 _FUNCS: dict = {}
 
@@ -112,13 +117,14 @@ def build(names=SOURCES, defines: tuple = ()) -> dict:
 
 
 def function(name: str, defines: tuple = ()):
-    """The C entry point of ``csrc/<name>.cu`` (built with ``defines``),
-    built and loaded on first use, with its argument and result types
-    declared."""
+    """The C entry point of ``csrc/<name>.cu`` (built with ``defines``), or
+    the entry ``name`` of ``AUX``, built and loaded on first use, with its
+    argument and result types declared."""
     fn = _FUNCS.get((name, defines))
     if fn is None:
-        path = build([name], defines)[name]
-        symbol, argtypes = SIGNATURES[name]
+        source, symbol, argtypes = (AUX[name] if name in AUX
+                                    else (name, *SIGNATURES[name]))
+        path = build([source], defines)[source]
         fn = getattr(ctypes.CDLL(str(path)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -57,3 +57,32 @@ def raw_stream(index: int) -> int:
 
 def stream_handle(t: torch.Tensor) -> int:
     return raw_stream(t.device.index)
+
+
+def stream_workspace(cache: dict, device: torch.device, key: tuple, make):
+    """(``make()``'s workspace, raw stream) for a launch at ``key`` on the
+    current stream of ``device``.
+
+    The kernels that keep integer tickets (K1's split layout, K6's grid
+    barrier, K8 at S > 1) leave them at zero after every launch, so one
+    workspace serves every launch in one stream's order.  Workspaces are
+    therefore cached per (device, stream, key): launches on two streams
+    never share tickets, and may overlap.  Under CUDA-graph capture the
+    cache is neither read nor written: each captured launch gets a
+    workspace of its own, allocated from the graph's private pool and
+    zeroed by a node of the graph (``make`` allocates with
+    ``torch.zeros``), so every replay starts at zero on whatever stream it
+    runs, beside any eager launch.  The caller must hold the workspace's
+    tensors until its launch is enqueued (captured), and need not after:
+    the pool keeps their memory for the graph's replays and gives it back
+    when the graph is freed.  A later allocation of the
+    same capture may reuse it, after the launch in stream order, and each
+    replay zeroes it again before the launch."""
+    stream = raw_stream(device.index)
+    if torch.cuda.is_current_stream_capturing():
+        return make(), stream
+    full = (device.index, stream, *key)
+    hit = cache.get(full)
+    if hit is None:
+        hit = cache[full] = make()
+    return hit, stream

@@ -61,6 +61,59 @@ def clip_accum_plain(grads: torch.Tensor, bound: float) -> torch.Tensor:
     return (g * coef).mean(dim=0).to(grads.dtype)
 
 
+def _shuffle_tree(v: torch.Tensor) -> torch.Tensor:
+    """A warp's ``__shfl_down_sync`` sum over the last dim (32 lanes):
+    halves added lane by lane, 16 apart, then 8, ... -> lane 0."""
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
+def clip_accum_blocked_plain(grads: torch.Tensor, bound: float, grid: int,
+                             threads: int = 256) -> torch.Tensor:
+    """K6's order of summation (csrc/clip_accum.cu) in plain torch, for the
+    tests: [L, D] -> [D] in grads' dtype, as :func:`clip_accum_plain`.
+
+    A tile is ``threads`` 16-byte vectors of a row; block b of ``grid``
+    owns tiles b, b + grid, ...  Thread t of block b adds the squares of its
+    vector of each of the block's tiles in order; a warp adds its 32
+    threads by a shuffle tree and the block its warps in order: block b's
+    partial of row k.  Each client's squared norm is lane l's sum of
+    partials l, l + 32, ... in order, then a shuffle tree; then the clip
+    coefficients, and the client mean of the clipped rows, clients in
+    order, cast once.  f32 throughout; the kernel fuses the multiply-adds."""
+    L, D = grads.shape
+    vec = 16 // grads.element_size()
+    tile = threads * vec
+    tiles = -(-D // tile)
+    g = grads.to(torch.float32)
+    gp = torch.cat([g, g.new_zeros((L, tiles * tile - D))], dim=1)
+    sq = (gp * gp).view(L, tiles, threads, vec)
+    vsum = sq[..., 0]
+    for j in range(1, vec):
+        vsum = vsum + sq[..., j]                          # [L, tiles, t]
+    partial = g.new_zeros((L, grid))
+    for b in range(grid):
+        acc = g.new_zeros((L, threads))
+        for t in range(b, tiles, grid):
+            acc = acc + vsum[:, t]
+        warps = _shuffle_tree(acc.view(L, threads // 32, 32))
+        s = warps[:, 0]
+        for w in range(1, threads // 32):
+            s = s + warps[:, w]
+        partial[:, b] = s
+    lanes = g.new_zeros((L, 32))
+    for j in range(grid):
+        lanes[:, j % 32] = lanes[:, j % 32] + partial[:, j]
+    nrm = torch.sqrt(_shuffle_tree(lanes))
+    coef = torch.clamp(bound / torch.clamp(nrm, min=1e-12), max=1.0)
+    out = g.new_zeros((D,))
+    for k in range(L):
+        out = out + coef[k] * g[k]
+    return (out / L).to(grads.dtype)
+
+
 def hash_net_mask_fold(seeds: torch.Tensor, noise_w: torch.Tensor, D: int,
                        scale) -> torch.Tensor:
     """Per server, the folded net pairwise hash-stream masks

@@ -20,7 +20,8 @@ import torch
 
 from repro_torch import kernels as _k
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import FLOAT_TYPES, operand, raw_stream
+from repro_torch.kernels.common import (FLOAT_TYPES, operand, raw_stream,
+                                        stream_workspace)
 from repro_torch.kernels.ref import hash_net_mask_fold
 
 MODES = {"none": 0, "laplace": 1, "mask": 2}
@@ -33,7 +34,7 @@ MAX_SERVERS = 65535    # K2: P in the grid's y and 16 bits of its shape word
 MAX_CLIENTS = 8192     # K2: the [L] weights and alive list in shared memory
 
 __all__ = ["fold_norms", "fold_norms_plain", "fold_apply", "fold_apply_plain",
-           "norms_plan", "norms_workspace", "fold_layout", "launch_norms"]
+           "norms_plan", "norms_workspace", "fold_layout"]
 
 
 def _pow2_at_least(n: int) -> int:
@@ -79,33 +80,29 @@ _NORMS: dict = {}
 
 def _norms_launch(device: torch.device, rows: int, D: int,
                   dtype: torch.dtype) -> tuple:
-    """(packed plan, workspace pointer, workspace) of a shape, cached per
-    device and shape so a round pays one dict lookup.  With splits > 1 the
-    workspace holds the partials and the rows' tickets, which the kernel
-    leaves at zero, so it is cleared once.  Under CUDA-graph capture it
-    must exist already (one eager call at the shape first)."""
-    key = (device.index, rows, D, dtype)
-    hit = _NORMS.get(key)
-    if hit is not None:
-        return hit
-    if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("fold_norms: run one eager call at this shape "
-                           "before capturing a CUDA graph")
-    esize = 2 if dtype is torch.bfloat16 else 4
-    p = norms_plan(rows, D, esize,
-                   torch.cuda.get_device_properties(device)
-                   .multi_processor_count)
-    bits = int(dtype is torch.bfloat16)
-    if p["layout"] == "rows":
-        bits |= (p["lanes"].bit_length() - 1) << 1 | \
-            (p["threads"].bit_length() - 1) << 4
-    else:
-        bits |= (THREADS.bit_length() - 1) << 4 | p["splits"] << 8
-    n = norms_workspace(rows, p["splits"])
-    ws = torch.zeros(n, dtype=torch.float32, device=device) if n else None
-    hit = (bits, None if ws is None else ws.data_ptr(), ws)
-    _NORMS[key] = hit
-    return hit
+    """((packed plan, workspace pointer, workspace), raw stream) of a
+    shape on the current stream.  With splits > 1 the workspace holds the
+    partials and the rows' tickets, which the kernel leaves at zero, so it
+    is cleared once; it is cached per (device, stream, shape) by
+    ``common.stream_workspace``, so a round pays one dict lookup, two
+    streams never share tickets, and a captured CUDA graph gets a
+    workspace of its own."""
+    def make():
+        esize = 2 if dtype is torch.bfloat16 else 4
+        p = norms_plan(rows, D, esize,
+                       torch.cuda.get_device_properties(device)
+                       .multi_processor_count)
+        bits = int(dtype is torch.bfloat16)
+        if p["layout"] == "rows":
+            bits |= (p["lanes"].bit_length() - 1) << 1 | \
+                (p["threads"].bit_length() - 1) << 4
+        else:
+            bits |= (THREADS.bit_length() - 1) << 4 | p["splits"] << 8
+        n = norms_workspace(rows, p["splits"])
+        ws = torch.zeros(n, dtype=torch.float32, device=device) if n else None
+        return bits, None if ws is None else ws.data_ptr(), ws
+
+    return stream_workspace(_NORMS, device, (rows, D, dtype), make)
 
 
 def fold_norms_plain(grads: torch.Tensor) -> torch.Tensor:
@@ -133,24 +130,16 @@ def _check_grads(grads: torch.Tensor) -> torch.device:
 
 def fold_norms(grads: torch.Tensor) -> torch.Tensor:
     """Phase 1: per-(server, client) squared gradient norms, [P, L] f32."""
-    if _check_grads(grads).type == "cpu":
+    dev = _check_grads(grads)
+    if dev.type == "cpu":
         return fold_norms_plain(grads)
-    out = launch_norms(grads)
-    _k.LAUNCHES["fold_norms"] += 1
-    return out
-
-
-def launch_norms(grads: torch.Tensor) -> torch.Tensor:
-    """Launch the K1 kernel on a checked CUDA [P, L, D] tensor, without
-    counting the launch: ``fold_norms`` counts its own, and ``clip_accum``
-    runs it as its first pass under its own count."""
     P, L, D = grads.shape
-    dev = grads.device
-    bits, ws, _ = _norms_launch(dev, P * L, D, grads.dtype)
+    (bits, ws, hold), stream = _norms_launch(dev, P * L, D, grads.dtype)
     out = torch.empty((P, L), dtype=torch.float32, device=dev)
     _build.check(_build.function("fold_norms")(
-        grads.data_ptr(), out.data_ptr(), ws, P * L, D, bits,
-        raw_stream(dev.index)), "fold_norms")
+        grads.data_ptr(), out.data_ptr(), ws, P * L, D, bits, stream),
+        "fold_norms")
+    _k.LAUNCHES["fold_norms"] += 1
     return out
 
 

@@ -6,7 +6,8 @@ counterparts live in ``csrc/hash.cuh`` and run inside ``fold_apply``'s mask
 mode and K5, and the single-server masked mean ``secure_agg_mean``
 (``csrc/secure_agg_mean.cu``).  The streams are uint32 integer math and
 match the reference bit for bit; ``pair_streams`` writes them out so the
-card can be checked against the plain version.
+card can be checked against the plain version.  :func:`plan` is K5's
+launch as a pure function of the shape, for the CPU tests.
 
 torch's uint32 dtype supports few operations, so the plain version holds
 uint32 values in int64 and masks with ``& 0xFFFFFFFF``.  A product of two
@@ -20,10 +21,14 @@ import torch
 
 from repro_torch import kernels as _k
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import FLOAT_TYPES, check, on_cuda, stream_handle
+from repro_torch.kernels.common import (FLOAT_TYPES, check, on_cuda,
+                                        raw_stream, stream_handle)
 
 MASK32 = 0xFFFFFFFF
 MAX_CLIENTS = 256          # L(L-1)/2 pair keys in one block's shared memory
+THREADS = 256              # K5: threads a block at most
+MIN_THREADS = 64           # K5: threads a block at least
+FEATURES = 8               # K5: features a thread at most
 
 
 def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -102,15 +107,63 @@ def pair_streams(seed: int, L: int, D: int, scale,
     return out
 
 
+def plan(L: int, D: int, esize: int, n_sm: int) -> dict:
+    """K5's launch at [L, D] elements of ``esize`` bytes on a card of
+    ``n_sm`` SMs: ``fpt`` neighbouring features a thread (``FEATURES``:
+    two 16-byte vectors of each f32 row, one of each bf16 row), ``threads``
+    a block.  When D is too small for that to give a block an SM, features
+    a thread are halved first, then threads a block, down to one feature
+    and ``MIN_THREADS``.  More than a vector's features a thread (eight
+    f32) only when D is a multiple of them, one vector otherwise, so the
+    last thread's vectors never reach past D.  The kernel loads 16-byte
+    vectors when a thread's features fill them, D is a multiple of them
+    and the rows are aligned, elements otherwise."""
+    fpt, threads = FEATURES, THREADS
+    while -(-D // (threads * fpt)) < n_sm and (fpt > 1 or
+                                               threads > MIN_THREADS):
+        if fpt > 1:
+            fpt //= 2
+        else:
+            threads //= 2
+    if fpt * esize > 16 and D % fpt:
+        fpt = 16 // esize
+    return {"fpt": fpt, "threads": threads,
+            "blocks": -(-D // (threads * fpt)),
+            "smem": L * (L - 1) // 2 * 4}
+
+
+_PLANS: dict = {}
+
+
+def _plan_word(device: torch.device, L: int, D: int,
+               dtype: torch.dtype) -> int:
+    """:func:`plan` packed into one ctypes word, cached per device and
+    shape: bit 0 bf16, bits 2-3 log2 features a thread, bits 4-7 log2
+    threads a block, bits 8+ L."""
+    key = (device.index, L, D, dtype)
+    word = _PLANS.get(key)
+    if word is None:
+        bf16 = dtype is torch.bfloat16
+        p = plan(L, D, 2 if bf16 else 4,
+                 torch.cuda.get_device_properties(device)
+                 .multi_processor_count)
+        word = _PLANS[key] = (int(bf16) | (p["fpt"].bit_length() - 1) << 2
+                              | (p["threads"].bit_length() - 1) << 4
+                              | L << 8)
+    return word
+
+
 def secure_agg_mean(updates: torch.Tensor, seed: torch.Tensor,
                     scale: float = 1.0) -> torch.Tensor:
     """Masked client mean: updates [L, D] f32/bf16, seed [1] int32 or
     int64 (a uint32 value, read on the device) -> [D] in updates'
-    dtype.  The pairwise masks are generated in the kernel and cancel up
-    to f32 rounding.  The kernel reads the seed's first four bytes as a
-    uint32: an int32's bit pattern or an int64's low word (little-endian),
-    in both cases the value mod 2^32, so the seed is used as it lies on the
-    device, with no conversion launched."""
+    dtype.  The pairwise masks are generated in the kernel, each pair's
+    stream once a feature, added and taken away in pair order as the
+    plain version does, so they cancel up to f32 rounding.  The kernel
+    reads the seed's first four bytes as a uint32: an int32's bit pattern
+    or an int64's low word (little-endian), in both cases the value mod
+    2^32, so the seed is used as it lies on the device, with no conversion
+    launched."""
     # ref imports this module for the stream functions, so the plain
     # version is imported here, at call time
     from repro_torch.kernels.ref import secure_agg_mean_plain
@@ -125,10 +178,11 @@ def secure_agg_mean(updates: torch.Tensor, seed: torch.Tensor,
     if D >= 2 ** 32:
         raise ValueError("secure_agg_mean: the mask streams index D in "
                          "uint32")
-    out = torch.empty((D,), dtype=updates.dtype, device=updates.device)
-    fn = _build.function("secure_agg_mean")
-    _build.check(fn(updates.data_ptr(), int(updates.dtype == torch.bfloat16),
-                    seed.data_ptr(), float(scale), out.data_ptr(), L, D,
-                    stream_handle(updates)), "secure_agg_mean")
+    dev = updates.device
+    out = torch.empty((D,), dtype=updates.dtype, device=dev)
+    _build.check(_build.function("secure_agg_mean")(
+        updates.data_ptr(), seed.data_ptr(), float(scale), out.data_ptr(), D,
+        _plan_word(dev, L, D, updates.dtype), raw_stream(dev.index)),
+        "secure_agg_mean")
     _k.LAUNCHES["secure_agg_mean"] += 1
     return out

@@ -22,7 +22,8 @@ import torch
 
 from repro_torch import kernels as _k
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import FLOAT_TYPES, check, on_cuda, stream_handle
+from repro_torch.kernels.common import (FLOAT_TYPES, check, on_cuda,
+                                        stream_workspace)
 from repro_torch.kernels.ref import swa_decode_attention_plain
 
 MAX_GROUP = 8          # query heads per KV head
@@ -99,36 +100,31 @@ _PLANS: dict = {}
 
 def _plan(device: torch.device, B: int, KV: int, C: int, G: int, Dh: int,
           esize: int) -> tuple:
-    """(tile, ld, splits, workspace pointer, ticket pointer) of a shape
-    (:func:`plan`), cached per device and shape, so a decode loop pays one
-    dict lookup.
+    """((tile, ld, splits, workspace pointer, ticket pointer, workspace,
+    tickets), raw stream) of a shape (:func:`plan`) on the current
+    stream.
 
     With splits > 1 the plan owns the split partials' workspace and the
     ticket counters: the kernel leaves the tickets at zero, so nothing is
-    allocated or cleared again.  One stream at a time may use them.  Under
-    CUDA-graph capture the plan must exist already (one eager call at the
-    shape first, as capture asks anyway): a zero fill recorded into the
-    graph would leave the tickets unset outside it."""
-    key = (device.index, B, KV, C, G, Dh, esize)
-    hit = _PLANS.get(key)
-    if hit is not None:
-        return hit
-    if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("swa_decode: run one eager call at this shape "
-                           "before capturing a CUDA graph")
-    p = plan(B, KV, C, Dh, esize,
-             torch.cuda.get_device_properties(device).multi_processor_count)
-    splits = p["splits"]
-    ws = tickets = None
-    if splits > 1:
-        ws = torch.empty(B * KV * splits * G * (Dh + 2), dtype=torch.float32,
-                         device=device)
-        tickets = torch.zeros(B * KV, dtype=torch.int32, device=device)
-    cached = (p["tile"], p["ld"], splits,
-              None if ws is None else ws.data_ptr(),
-              None if tickets is None else tickets.data_ptr(), ws, tickets)
-    _PLANS[key] = cached
-    return cached
+    allocated or cleared again.  Plans are cached per (device, stream,
+    shape) by ``common.stream_workspace``, so a decode loop pays one dict
+    lookup, launches on two streams never share tickets, and a captured
+    CUDA graph gets a workspace of its own, zeroed in the graph."""
+    def make():
+        p = plan(B, KV, C, Dh, esize,
+                 torch.cuda.get_device_properties(device)
+                 .multi_processor_count)
+        splits = p["splits"]
+        ws = tickets = None
+        if splits > 1:
+            ws = torch.empty(B * KV * splits * G * (Dh + 2),
+                             dtype=torch.float32, device=device)
+            tickets = torch.zeros(B * KV, dtype=torch.int32, device=device)
+        return (p["tile"], p["ld"], splits,
+                None if ws is None else ws.data_ptr(),
+                None if tickets is None else tickets.data_ptr(), ws, tickets)
+
+    return stream_workspace(_PLANS, device, (B, KV, C, G, Dh, esize), make)
 
 
 def _check_cache(t: torch.Tensor, name: str, q: torch.Tensor) -> None:
@@ -174,12 +170,12 @@ def launch(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``chip_smoke.py`` also gives it the loads-only build of the source."""
     B, H, Dh = q.shape
     C, KV = k.shape[1], k.shape[2]
-    tile, ld, splits, ws, tickets, _, _ = _plan(q.device, B, KV, C, H // KV,
-                                                Dh, q.element_size())
+    (tile, ld, splits, ws, tickets, *hold), stream = _plan(
+        q.device, B, KV, C, H // KV, Dh, q.element_size())
     out = torch.empty_like(q)
     _build.check(fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), nvalid.data_ptr(),
         out.data_ptr(), ws, tickets, int(q.dtype == torch.bfloat16), B, H,
         KV, C, Dh, k.stride(0), k.stride(1), 1.0 / math.sqrt(Dh), tile, ld,
-        splits, stream_handle(q)), "swa_decode")
+        splits, stream), "swa_decode")
     return out

@@ -49,9 +49,40 @@ Phases, each printing JSON lines:
              N=100, M=2, L=50, B=10, 500 rounds) for every mechanism, with
              use_kernels on (launch counts read) and off (same seeds);
              checks finite MSD, on/off agreement, hybrid below iid_dp.
-6. profile — torch.profiler over 50 hybrid rounds, kernels on and off:
+6. fig2    — the paper's Fig. 2 experiment at full size with the kernels
+             on, on the reference's own problem (data/fig2_problem0.npz,
+             written by fig2_reference.py), every config as run_schemes
+             builds it: every mechanism at sigma 0.2 and 1.0, P=10, K=50,
+             L=10, mu 0.1, full topology, 400 rounds, 16 repeats (seeds
+             1000-1015).  The Fig. 2 tail (repeats 0 and 1, as
+             run_schemes runs it) must be finite and lie within its band
+             of the reference's, the mean log tail of the 16 repeats
+             within 4 standard errors of the reference's over 96, and
+             hybrid's tail below iid_dp's at sigma 1.0; prints each tail,
+             its ratio to none's and the launch counts.  Then runs
+             `python -m repro_torch.launch.fig2_convergence --problem
+             data/fig2_problem0.npz` as a user does and requires its
+             printed tails to be the phase's (rel 1e-5).
+7. resilience — gfl-logreg at full size (as main) under the resilience
+             runtime, topology seed 7: the six regimes of
+             launch/resilience_demo.py under hybrid, and "everything at
+             once" under every mechanism, kernels on and off on the same
+             seeds: finite MSD, on/off within main's limits, the kernels
+             of each mechanism launched, every realized A_i symmetric,
+             doubly stochastic, nonnegative and connected; the host ms a
+             round that realizing A_i takes and its share of the faulted
+             round.  A null fault spec (links:0.0+dropout:0.0) must be
+             bitwise equal to the static path, kernels on and off.
+             Planted: K2 in mask mode with a third of each server's
+             clients dead at mask scale 2^20, at (10, 50, 2) and (10, 48,
+             4096), must come within 1e-5 of the plain survivor mean, and
+             the plain fold that keeps the orphaned alive-dead streams
+             must fall outside it.  Then launch/fault_sweep.py at its
+             defaults: wall ms a round of the static and faulted runs,
+             the host share of a faulted round, launch counts.
+8. profile — torch.profiler over 50 hybrid rounds, kernels on and off:
              wall and device-busy time per round, idle share, device ops.
-7. swa     — K8 swa_decode against its plain version at the serving shapes
+9. swa     — K8 swa_decode against its plain version at the serving shapes
              (B, H, KV, C, Dh) = (4, 32, 32, 2047, 96) bf16,
              (4, 32, 32, 1064, 96) bf16, (4, 9, 3, 1064, 64) bf16 and f32,
              (2, 8, 4, 1000, 64) f32 and (32, 32, 32, 2047, 96) bf16 (805 MB
@@ -63,7 +94,7 @@ Phases, each printing JSON lines:
              finds them cold; a CUDA graph captured at nvalid = C/3 and
              replayed at C; and a stall probe at the phi3 shapes (the
              kernel beside its loads-only build, built here).
-8. serve   — phi3-mini-3.8b at full width (32 layers, d 3072, bf16, random
+10. serve  — phi3-mini-3.8b at full width (32 layers, d 3072, bf16, random
              weights from seed 0) through repro_torch.launch.serve.generate:
              request A, 4 x 4096-token prompts + 32 greedy tokens (ring of
              2047 slots, wrapped); request B, 4 x 1000 + 32 (1064 slots,
@@ -99,6 +130,23 @@ plain version's add-and-take-away; each f32 add rounds by at most 2^-24 of
 its magnitude, which is below L scale); K6 in f32 within atol = rtol =
 1e-5 and K7 within atol 1e-6, the reference's own limits
 (tests/test_kernels.py).
+The fig2 gates, both on the reference's problem: the reference's tails
+(FIG2_REF_TAILS) come from benchmarks/fig2_convergence.py at its defaults
+on the CPU, and the spread of its repeats on that problem from
+fig2_reference.py (96 repeats, JAX on the CPU).  The port's draws come
+from torch generators, so a tail can match only in distribution.  The band:
+a Fig. 2 tail must satisfy |log(port / reference)| <= 4 sqrt(2) s, where s
+(FIG2_LOG_SD2) is the standard deviation of the log of a two-repeat tail
+over the reference's 48 disjoint repeat pairs; the difference of two
+independent two-repeat tails has standard deviation sqrt(2) s, so the
+band is four of them (a factor 2.08 for none, 4.9-8.4 for the hybrid
+family at sigma 0.2 and 1.26-1.35 at 1.0, 41 and 68 for iid_dp, whose
+single repeats spread by a factor e^0.92 each way).  The mean log tail:
+over the port's 16 repeats against the reference's 96 (FIG2_REF_LOG), it
+must lie within 4 standard errors of the difference, sqrt(s_port^2 / 16
++ s_ref^2 / 96): the CPU test's statistic (tests/test_torch_fig2.py) at
+full size, a factor of about 1.06-1.8, iid_dp's 2.7.  For normal log
+tails each is a false alarm at under 1e-4.
 Bounds: bytes over 3.35 TB/s, fp32 operations over 67 TFLOP/s, and the
 hash's integer and conversion instructions over the INT32 rate derived in
 src/repro_torch/launch/roofline.py, the largest of the three.
@@ -131,6 +179,57 @@ ITERS = 500
 # masks (hash vs Gaussian) that cancel only to f32 rounding, each round
 PARAMS_ATOL = 1e-4
 MSD_RTOL, MSD_ATOL = 1e-3, 1e-6
+# which kernels each mechanism's rounds must launch with use_kernels on:
+# iid_dp's per-edge combine noise keeps the einsum, and scheduled's traced
+# sigma has no fold spec, so its client level takes the protect hooks
+EXPECT = {"none": {"fold_norms", "fold_apply", "graph_combine"},
+          "iid_dp": {"fold_norms", "fold_apply"},
+          "hybrid": {"fold_norms", "fold_apply", "graph_combine"},
+          "gaussian_dp": {"fold_norms", "fold_apply", "graph_combine"},
+          "scheduled": {"graph_combine"}}
+# the Fig. 2 experiment (benchmarks/fig2_convergence.py's defaults), on
+# the reference's problem of key 0, the benchmark's, as plain arrays:
+# `python3 fig2_reference.py --save-problem data/fig2_problem0.npz`
+FIG2_PROBLEM = "data/fig2_problem0.npz"
+FIG2_SIGMAS = (0.2, 1.0)
+FIG2_ITERS, FIG2_REPEATS = 400, 2
+FIG2_STAT_REPEATS = 16
+# the reference's tails: `PYTHONPATH=src python benchmarks/fig2_convergence.py`
+# at its defaults, JAX 0.9.0 on the CPU (problem key 0, seeds 1000, 1001)
+FIG2_REF_TAILS = {
+    (0.2, "gaussian_dp"): 0.000529049, (0.2, "hybrid"): 0.000515278,
+    (0.2, "iid_dp"): 0.182732, (0.2, "none"): 0.00257179,
+    (0.2, "scheduled"): 0.000249682,
+    (1.0, "gaussian_dp"): 0.358767, (1.0, "hybrid"): 0.364971,
+    (1.0, "iid_dp"): 6.35843, (1.0, "none"): 0.00257179,
+    (1.0, "scheduled"): 1.09095}
+# on that problem, over the reference's seeds 1000-1095 (`python3
+# fig2_reference.py`, JAX 0.9.0 on the CPU): the standard deviation of the
+# log of a two-repeat tail over the 48 disjoint pairs of repeats ...
+FIG2_LOG_SD2 = {
+    (0.2, "gaussian_dp"): 0.2793, (0.2, "hybrid"): 0.2907,
+    (0.2, "iid_dp"): 0.6554, (0.2, "none"): 0.1294,
+    (0.2, "scheduled"): 0.3758, (1.0, "gaussian_dp"): 0.0406,
+    (1.0, "hybrid"): 0.0536, (1.0, "iid_dp"): 0.7454, (1.0, "none"): 0.1294,
+    (1.0, "scheduled"): 0.0476}
+# ... and the mean and standard deviation of the log of one repeat's tail
+FIG2_REF_REPEATS = 96
+FIG2_REF_LOG = {
+    (0.2, "gaussian_dp"): (-7.3959, 0.4758),
+    (0.2, "hybrid"): (-7.4240, 0.4845),
+    (0.2, "iid_dp"): (-2.9022, 0.9095),
+    (0.2, "none"): (-5.8488, 0.2148),
+    (0.2, "scheduled"): (-8.5965, 0.5585),
+    (1.0, "gaussian_dp"): (-1.0329, 0.0563),
+    (1.0, "hybrid"): (-1.0203, 0.0732),
+    (1.0, "iid_dp"): (0.4956, 0.9322),
+    (1.0, "none"): (-5.8488, 0.2148),
+    (1.0, "scheduled"): (0.1081, 0.0626)}
+FIG2_BAND_SDS = 4.0
+RES_TOPOLOGY_SEED = 7          # examples/resilience_demo.py's
+RES_NULL_SPEC = "links:0.0+dropout:0.0"
+DROPOUT_PLANT_SCALE = float(1 << 20)
+DROPOUT_PLANT_SHAPES = [MAIN_SHAPE, (10, 48, 4096)]
 SWA_SERVE_SHAPE = (4, 32, 32, 2047, 96)
 SWA_PROBE_SHAPES = [(SWA_SERVE_SHAPE, "bfloat16"),
                     ((32, 32, 32, 2047, 96), "bfloat16")]
@@ -999,11 +1098,6 @@ def phase_main(torch):
     emit({"phase": "main", "problem_seconds": time.perf_counter() - t0,
           "w_opt": prob.w_opt.cpu().tolist()})
     eps_budget = epsilon_at(ITERS, base.mu, base.grad_bound, base.sigma_g)
-    expect = {"none": {"fold_norms", "fold_apply", "graph_combine"},
-              "iid_dp": {"fold_norms", "fold_apply"},
-              "hybrid": {"fold_norms", "fold_apply", "graph_combine"},
-              "gaussian_dp": {"fold_norms", "fold_apply", "graph_combine"},
-              "scheduled": {"graph_combine"}}
     totals = {name: 0 for name in K.LAUNCHES}
     tails = {}
     for scheme in list_mechanisms():
@@ -1036,7 +1130,7 @@ def phase_main(torch):
         require(bool(np.all(np.isfinite(msd_on)))
                 and bool(np.all(np.isfinite(msd_off))),
                 f"{scheme}: non-finite MSD")
-        for name in expect[scheme]:
+        for name in EXPECT[scheme]:
             require(launches[name] > 0,
                     f"{scheme}: kernel {name} was never launched")
         require(p_err <= PARAMS_ATOL
@@ -1048,6 +1142,282 @@ def phase_main(torch):
             f"hybrid MSD tail {tails['hybrid']} not below iid_dp "
             f"{tails['iid_dp']}")
     return totals, prob
+
+
+# ----------------------------------------------------------------- fig2
+
+
+def fig2_band(sigma, scheme) -> float:
+    """The largest |log(port tail / reference tail)| the fig2 phase takes."""
+    return FIG2_BAND_SDS * 2 ** 0.5 * FIG2_LOG_SD2[(sigma, scheme)]
+
+
+def fig2_config(sigma, scheme):
+    """The config ``run_schemes`` builds for ``scheme`` at ``sigma`` (the
+    fig2 entry's tails, from ``run_schemes``, must equal the phase's)."""
+    from repro_torch.configs.base import GFLConfig
+    from repro_torch.core.privacy.accountant import epsilon_at
+
+    return GFLConfig(num_servers=10, clients_per_server=50,
+                     clients_sampled=10, topology="full", privacy=scheme,
+                     sigma_g=sigma, mu=0.1, grad_bound=10.0,
+                     epsilon_target=epsilon_at(FIG2_ITERS, 0.1, 10.0, sigma),
+                     epsilon_horizon=FIG2_ITERS, use_kernels=True)
+
+
+def phase_fig2(torch):
+    """The paper's Fig. 2 at full size with the kernels on, on the
+    reference's own problem (FIG2_PROBLEM): every mechanism at sigma 0.2
+    and 1.0, FIG2_STAT_REPEATS repeats (seeds 1000, ...).  The Fig. 2 tail
+    (repeats 0 and 1, as ``run_schemes`` runs it) must be finite and lie
+    within its band of the reference's; the mean log tail of all repeats
+    within FIG2_BAND_SDS standard errors of the reference's; hybrid's
+    tail below iid_dp's at sigma 1.0.  Then ``python -m
+    repro_torch.launch.fig2_convergence --problem``, whose rows must
+    carry the same Fig. 2 tails."""
+    import math
+    import os
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.core.privacy.mechanism import list_mechanisms
+    from repro_torch.core.simulate import msd_tail, run_gfl
+    from repro_torch.launch.fig2_convergence import load_problem
+
+    prob = load_problem(ROOT / FIG2_PROBLEM, "cuda")
+    tails, totals = {}, {name: 0 for name in K.LAUNCHES}
+    for sigma in FIG2_SIGMAS:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        reps = {}
+        for scheme in list_mechanisms():
+            cfg = fig2_config(sigma, scheme)
+            msds = [run_gfl(prob, cfg, iters=FIG2_ITERS, batch_size=10,
+                            seed=1000 + r)[0]
+                    for r in range(FIG2_STAT_REPEATS)]
+            require(all(bool(np.isfinite(m).all()) for m in msds),
+                    f"fig2 sigma {sigma} {scheme}: non-finite MSD")
+            reps[scheme] = np.array([msd_tail(m, FIG2_ITERS) for m in msds])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        for name, n in launches.items():
+            totals[name] += n
+        for name in {"fold_norms", "fold_apply", "graph_combine"}:
+            require(launches[name] > 0,
+                    f"fig2 sigma {sigma}: kernel {name} was never launched")
+        for scheme, rep in reps.items():
+            tail = float(rep[:FIG2_REPEATS].mean())
+            tails[(sigma, scheme)] = tail
+            ref = FIG2_REF_TAILS[(sigma, scheme)]
+            dev = abs(math.log(tail / ref)) if tail > 0 else math.inf
+            logs = np.log(rep)
+            ref_mean, ref_sd = FIG2_REF_LOG[(sigma, scheme)]
+            se = math.sqrt(logs.var(ddof=1) / len(logs)
+                           + ref_sd ** 2 / FIG2_REF_REPEATS)
+            z = abs(float(logs.mean()) - ref_mean) / se
+            emit({"phase": "fig2", "sigma": sigma, "scheme": scheme,
+                  "msd_tail": tail, "ref_tail": ref, "log_ratio_to_ref": dev,
+                  "band": fig2_band(sigma, scheme),
+                  "mean_log_tail": float(logs.mean()),
+                  "ref_mean_log_tail": ref_mean,
+                  "log_sd": float(logs.std(ddof=1)), "ref_log_sd": ref_sd,
+                  "standard_errors": z, "repeats": len(logs)})
+            require(dev <= fig2_band(sigma, scheme),
+                    f"fig2 sigma {sigma} {scheme}: tail {tail} outside the "
+                    f"band of the reference's {ref}")
+            require(z <= FIG2_BAND_SDS,
+                    f"fig2 sigma {sigma} {scheme}: mean log tail "
+                    f"{float(logs.mean())} is {z} standard errors from the "
+                    f"reference's {ref_mean}")
+        emit({"phase": "fig2", "sigma": sigma, "wall_s": wall,
+              "runs": len(reps) * FIG2_STAT_REPEATS, "launches": launches,
+              "ratio_to_none": {s: tails[(sigma, s)] / tails[(sigma, "none")]
+                                for s in reps}})
+    require(tails[(1.0, "hybrid")] < tails[(1.0, "iid_dp")],
+            f"fig2: hybrid tail {tails[(1.0, 'hybrid')]} not below iid_dp "
+            f"{tails[(1.0, 'iid_dp')]} at sigma 1.0")
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.fig2_convergence",
+         "--problem", FIG2_PROBLEM],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    require(res.returncode == 0,
+            f"fig2_convergence exited {res.returncode}: {res.stderr[-2000:]}")
+    rows = dict(ln.split(",") for ln in res.stdout.splitlines()
+                if ln.startswith("fig2_msd_tail/"))
+    for (sigma, scheme), tail in tails.items():
+        got = float(rows[f"fig2_msd_tail/sigma={sigma}/{scheme}"])
+        require(math.isclose(got, tail, rel_tol=1e-5),
+                f"fig2_convergence: {sigma} {scheme} printed {got}, the "
+                f"phase's run {tail}")
+    emit({"phase": "fig2", "entry": "repro_torch.launch.fig2_convergence",
+          "rows": len(rows), "wall_s": time.perf_counter() - t0,
+          "launches_in_process": totals})
+
+
+# ----------------------------------------------------------- resilience
+
+
+def dropout_plant(torch, gen):
+    """K2 in mask mode with a third of each server's clients dead, at mask
+    scale 2^20: survivors fold with weight 1/n_alive and K2 hashes only
+    alive pairs, so their streams cancel and K2 must come within ATOL_F32
+    of the plain survivor mean (no masks); the plain fold that keeps the
+    orphaned alive-dead streams must fall outside it."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.secure_agg import net_mask_stream
+
+    for P, L, D in DROPOUT_PLANT_SHAPES:
+        w = torch.randn((P, D), generator=gen, device="cuda")
+        grads = torch.randn((P, L, D), generator=gen, device="cuda")
+        dead = torch.argsort(torch.rand((P, L), generator=gen,
+                                        device="cuda"), dim=1)[:, :L // 3]
+        alive = torch.ones((P, L), dtype=torch.bool, device="cuda")
+        alive.scatter_(1, dead, False)
+        af = alive.to(torch.float32)
+        nw = af / af.sum(dim=1, keepdim=True)
+        seeds = torch.randint(0, 2 ** 31 - 1, (P,), generator=gen,
+                              device="cuda")
+        kw = dict(mu=0.1, bound=10.0, fold_w=af, noise_w=nw)
+        psi, _ = ops.round_fold(w, grads, mode="mask",
+                                sigma=DROPOUT_PLANT_SCALE, seeds=seeds, **kw)
+        plain, _ = ref.round_fold_ref(w, grads, pre_w=torch.ones_like(af),
+                                      mode="none", **kw)
+        idx = torch.arange(D, device="cuda")
+        leak = torch.stack([sum(nw[p, k] * net_mask_stream(
+            k, idx, seeds[p], DROPOUT_PLANT_SCALE, L)
+            for k in range(L) if alive[p, k]) for p in range(P)])
+        err = max_err(torch, psi, plain)
+        leak_err = max_err(torch, plain + leak, plain)
+        emit({"phase": "resilience", "dropout_plant": [P, L, D],
+              "dead_per_server": L // 3, "mask_scale": DROPOUT_PLANT_SCALE,
+              "max_abs_err": err, "orphaned_streams_err": leak_err,
+              "limit": ATOL_F32})
+        require(err <= ATOL_F32,
+                f"K2 dropout plant {P, L, D}: {err} from the survivor mean")
+        require(leak_err > ATOL_F32,
+                f"K2 dropout plant {P, L, D}: orphaned streams within the "
+                "limit, the check sees nothing")
+
+
+def check_realizations(cfg, spec, P) -> None:
+    """Every realized A_i of ``spec`` over the run is symmetric, doubly
+    stochastic, nonnegative and connected."""
+    import numpy as np
+    from repro_torch.core.resilience import TopologyProcess
+    from repro_torch.core.simulate import base_combination_matrix
+    from repro_torch.core.topology import spectral_gap
+
+    proc = TopologyProcess(base_combination_matrix(cfg, P), spec,
+                           seed=cfg.topology_seed)
+    for i in range(ITERS):
+        A = proc.realize(i).A
+        require(bool(np.allclose(A, A.T, atol=1e-12))
+                and bool(np.allclose(A.sum(0), 1.0, atol=1e-12))
+                and bool(np.allclose(A.sum(1), 1.0, atol=1e-12))
+                and bool((A >= 0).all()) and spectral_gap(A) < 1.0,
+                f"{spec}: A_{i} breaks Assumption 1")
+
+
+def phase_resilience(torch, prob):
+    """gfl-logreg at full size under the resilience runtime: the six
+    regimes of ``launch/resilience_demo.py`` under hybrid and the last one
+    under every mechanism, kernels on and off on the same seeds; a null
+    fault spec bitwise equal to the static path; K2's dropout plant; then
+    ``launch/fault_sweep.py`` at its defaults."""
+    from dataclasses import replace
+    import numpy as np
+    from repro_torch import kernels as K, rng
+    from repro_torch.configs import gfl_logreg
+    from repro_torch.core.privacy.accountant import epsilon_at
+    from repro_torch.core.privacy.mechanism import list_mechanisms
+    from repro_torch.core.simulate import run_gfl
+    from repro_torch.launch import fault_sweep
+    from repro_torch.launch.resilience_demo import REGIMES
+
+    base = gfl_logreg.GFL
+    P = base.num_servers
+    eps_budget = epsilon_at(ITERS, base.mu, base.grad_bound, base.sigma_g)
+    everything = REGIMES[-1]
+    runs = [(name, spec, "hybrid") for name, spec in REGIMES] + [
+        (everything[0], everything[1], s) for s in list_mechanisms()
+        if s != "hybrid"]
+    totals = {name: 0 for name in K.LAUNCHES}
+    walls = {}
+    for name, spec, scheme in runs:
+        cfg = replace(base, privacy=scheme, epsilon_target=eps_budget,
+                      epsilon_horizon=ITERS, fault=spec,
+                      topology_seed=RES_TOPOLOGY_SEED, use_kernels=True)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        msd_on, p_on, gaps = run_gfl(prob, cfg, iters=ITERS, batch_size=10,
+                                     seed=1, record_gaps=True)
+        torch.cuda.synchronize()
+        wall_on = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        for k, n in launches.items():
+            totals[k] += n
+        t0 = time.perf_counter()
+        msd_off, p_off = run_gfl(prob, replace(cfg, use_kernels=False),
+                                 iters=ITERS, batch_size=10, seed=1)
+        torch.cuda.synchronize()
+        wall_off = time.perf_counter() - t0
+        walls[(spec, scheme)] = wall_on
+        p_err = float((p_on - p_off).abs().max())
+        msd_err = float(np.max(np.abs(msd_on - msd_off)))
+        realize_ms = None
+        if spec != "none":
+            check_realizations(cfg, spec, P)
+            realize_ms = fault_sweep.realize_ms(cfg, P, spec, ITERS)
+        emit({"phase": "resilience", "regime": name, "fault": spec,
+              "scheme": scheme, "msd_tail": float(np.mean(msd_on[-50:])),
+              "gap_mean": float(gaps.mean()), "gap_worst": float(gaps.max()),
+              "wall_ms_per_round": wall_on * 1e3 / ITERS,
+              "wall_ms_per_round_kernels_off": wall_off * 1e3 / ITERS,
+              "host_realize_ms_per_round": realize_ms,
+              "host_realize_share": (realize_ms / (wall_on * 1e3 / ITERS)
+                                     if realize_ms is not None else None),
+              "launches": launches, "params_max_abs_diff": p_err,
+              "msd_max_abs_diff": msd_err})
+        require(bool(np.all(np.isfinite(msd_on)))
+                and bool(np.all(np.isfinite(msd_off))),
+                f"{name} / {scheme}: non-finite MSD")
+        for k in EXPECT[scheme]:
+            require(launches[k] > 0,
+                    f"{name} / {scheme}: kernel {k} was never launched")
+        require(p_err <= PARAMS_ATOL
+                and bool(np.allclose(msd_on, msd_off, rtol=MSD_RTOL,
+                                     atol=MSD_ATOL)),
+                f"{name} / {scheme}: kernels on/off differ (params {p_err}, "
+                f"msd {msd_err})")
+    for use_kernels in (True, False):
+        cfg = replace(base, use_kernels=use_kernels)
+        msd_s, p_s = run_gfl(prob, cfg, iters=ITERS, batch_size=10, seed=1)
+        msd_n, p_n = run_gfl(prob, replace(cfg, fault=RES_NULL_SPEC),
+                             iters=ITERS, batch_size=10, seed=1)
+        same = bool(torch.equal(p_s, p_n)) and msd_s.tolist() == msd_n.tolist()
+        emit({"phase": "resilience", "null_fault": RES_NULL_SPEC,
+              "use_kernels": use_kernels, "bitwise_equal_to_static": same})
+        require(same, f"fault {RES_NULL_SPEC} differs from the static path "
+                f"(use_kernels={use_kernels})")
+    dropout_plant(torch, rng(3, "cuda"))
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rows, summary = fault_sweep.run(device="cuda")
+    torch.cuda.synchronize()
+    sweep_launches = dict(K.LAUNCHES)
+    for row in rows:
+        emit({"phase": "resilience", "fault_sweep": list(row)})
+        require(bool(np.isfinite(row[3])), f"fault_sweep {row}: non-finite")
+    for k in ("fold_norms", "fold_apply", "graph_combine"):
+        require(sweep_launches[k] > 0, f"fault_sweep: {k} never launched")
+    emit({"phase": "resilience", "fault_sweep_summary": dict(summary),
+          "wall_s": time.perf_counter() - t0, "launches": sweep_launches,
+          "launches_regimes": totals,
+          "wall_ms_per_round_static": walls[("none", "hybrid")] * 1e3 / ITERS,
+          "wall_ms_per_round_everything": walls[(everything[1], "hybrid")]
+          * 1e3 / ITERS})
 
 
 # -------------------------------------------------------------- profile
@@ -1513,6 +1883,8 @@ def main() -> int:
         errs, timings = phase_kernels(torch)
         kb_errs, kb_timings, kb_launches = phase_kernel_bench(torch)
         launches, prob = phase_main(torch)
+        phase_fig2(torch)
+        phase_resilience(torch, prob)
         phase_profile(torch, prob)
         del prob
         swa_row = phase_swa(torch)

@@ -16,6 +16,11 @@ a ``fold_spec``, and the combine as the ``graph_combine`` kernel.
 The reference vmaps over servers and clients; here those dimensions are
 written out ([P, L, D] gradients).  Randomness comes from the run's
 ``draws`` (:mod:`repro_torch.draws`) instead of a key in the state.
+
+``A`` may also be a :class:`~repro_torch.core.resilience.process.
+TopologyProcess`: the round then runs under its fault model (per-round
+A_i, client dropout; stragglers in the step function, which dispatches to
+:mod:`repro_torch.core.resilience.runtime`).
 """
 from __future__ import annotations
 
@@ -31,10 +36,8 @@ from repro_torch.core.privacy.mechanism import (
     mechanism_for,
 )
 from repro_torch.core.privacy.noise import draw_noise
+from repro_torch.core.resilience.process import TopologyProcess
 from repro_torch.kernels import ops as kops
-
-_NEXT_SLICE = ("is not ported yet: fault processes come with the resilience "
-               "slice (ROADMAP slice 2)")
 
 
 class GFLState(NamedTuple):
@@ -92,23 +95,23 @@ def _fused_client_fold(w, grads, draws, cfg: GFLConfig, mech, ctx, *,
 
 def _client_updates(params, batch, draws, grad_fn, cfg, mech, ctx,
                     alive=None):
-    """(6)+(7): per-server client updates and protected aggregation."""
-    if alive is not None:
-        raise NotImplementedError(
-            "client dropout (the masked aggregation hook) " + _NEXT_SLICE)
+    """(6)+(7): per-server client updates and protected aggregation.
+
+    ``alive`` ([P, L] bool, optional) marks the clients that survived the
+    round: the fused fold then weights survivors (``_survivor_weights``),
+    and the unfused path takes the mechanism's dropout-safe
+    ``client_protect_masked`` hook."""
     grads = _client_grads(params, batch, grad_fn)
-    fused = _fused_client_fold(params, grads, draws, cfg, mech, ctx)
+    fold_w, noise_w = _survivor_weights(alive)
+    fused = _fused_client_fold(params, grads, draws, cfg, mech, ctx,
+                               fold_w=fold_w, noise_w=noise_w)
     if fused is not None:
         return fused[0]
     updates = params[:, None, :] - cfg.mu * clip_to_bound(grads,
                                                           cfg.grad_bound)
-    return mech.client_protect(updates, draws, ctx)
-
-
-def _check_static(A) -> None:
-    if not isinstance(A, (torch.Tensor, np.ndarray)):
-        raise NotImplementedError(
-            f"combination process {type(A).__name__} " + _NEXT_SLICE)
+    if alive is None:
+        return mech.client_protect(updates, draws, ctx)
+    return mech.client_protect_masked(updates, draws, alive, ctx)
 
 
 def gfl_round(params: torch.Tensor, batch, draws, *, A, grad_fn: Callable,
@@ -118,15 +121,26 @@ def gfl_round(params: torch.Tensor, batch, draws, *, A, grad_fn: Callable,
 
     params: [P, D]; batch: (h [P, L, B, M], gamma [P, L, B]);
     grad_fn(params, batch) -> [P, L, D].  ``A`` is the fixed [P, P]
-    combination matrix.  ``traced_step`` says the reference would run this
-    round with a traced step (see :class:`RoundContext`)."""
-    _check_static(A)
-    if cfg.fault != "none":
-        raise NotImplementedError(f"fault={cfg.fault!r} " + _NEXT_SLICE)
+    combination matrix, or a :class:`TopologyProcess` whose round-``step``
+    realization (A_i and, with a dropout component, the survivor mask)
+    this round runs under; stragglers keep state across rounds and live
+    only in the step functions.  ``traced_step`` says the reference would
+    run this round with a traced step (see :class:`RoundContext`)."""
     mech = mechanism if mechanism is not None else mechanism_for(cfg)
+    alive = None
+    if isinstance(A, TopologyProcess):
+        proc, i = A, int(step)
+        A = proc.realize(i).A
+        if proc.fault.client_dropout > 0:
+            from repro_torch.core.resilience.runtime import (
+                ensure_dropout_safe)
+            ensure_dropout_safe(mech.noise_profile())
+            alive = torch.as_tensor(proc.client_alive(i, batch[0].shape[1]),
+                                    device=params.device)
     A = torch.as_tensor(A, dtype=torch.float32, device=params.device)
     ctx = RoundContext(step=step, traced_step=traced_step)
-    psi = _client_updates(params, batch, draws, grad_fn, cfg, mech, ctx)
+    psi = _client_updates(params, batch, draws, grad_fn, cfg, mech, ctx,
+                          alive)
     return mech.server_combine(psi, draws, A, ctx)
 
 
@@ -136,10 +150,13 @@ def make_gfl_step(A, grad_fn: Callable, cfg: GFLConfig):
     ``combine_every=tau > 1`` combines only every tau-th round; the other
     rounds never call the mechanism's server level, so they add no combine
     noise (the client level still runs).  The reference jits this step, so
-    its rounds see a traced step (``traced_step=True``)."""
-    _check_static(A)
-    if cfg.fault != "none":
-        raise NotImplementedError(f"fault={cfg.fault!r} " + _NEXT_SLICE)
+    its rounds see a traced step (``traced_step=True``).  A
+    :class:`TopologyProcess` for ``A`` dispatches to the resilience runtime
+    (per-round A_i, client dropout, stragglers)."""
+    if isinstance(A, TopologyProcess):
+        from repro_torch.core.resilience.runtime import (
+            make_resilient_gfl_step)
+        return make_resilient_gfl_step(A, grad_fn, cfg)
     A_host = torch.as_tensor(np.asarray(A), dtype=torch.float32)
     mech = mechanism_for(cfg)
     on_device = {}

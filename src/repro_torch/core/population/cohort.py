@@ -3,7 +3,9 @@
 This slice carries the *pure* scheduler — uniform sampling without
 replacement, every client always available, no mid-round dropout — which
 is the dense simulator's own draw.  Importance sampling, availability
-traces and dropout come with ROADMAP slice 3 and raise here.
+traces and the scheduler's dropout masks (the weighted path's) come with
+ROADMAP slice 3 and raise here; on the pure path, faults come from the
+resilience runtime's ``TopologyProcess``.
 """
 from __future__ import annotations
 
@@ -29,9 +31,6 @@ class CohortScheduler:
                     L: Optional[int] = None) -> "CohortScheduler":
         if cfg.cohort != "uniform":
             raise NotImplementedError(f"cohort={cfg.cohort!r} " + _LATER)
-        if cfg.fault != "none":
-            raise NotImplementedError(f"fault={cfg.fault!r} is not ported "
-                                      "yet (ROADMAP slice 2: resilience)")
         K = K or cfg.clients_per_server
         return cls(K, L or cfg.clients_sampled or K, cfg.num_servers)
 

@@ -4,14 +4,16 @@
 The pure path is the dense simulator's loop: each round draws the cohort
 (L clients per server without replacement, B samples each), gathers its
 minibatches and takes one :func:`~repro_torch.core.gfl.make_gfl_step`
-step.  The reference syncs the MSD to the host every round; the port keeps
-the per-round MSD on the device and copies the trace once per run.
-``scan=True`` — in the reference one ``lax.scan`` over the whole run — is
-the same loop here, recording every round.
+step — the resilience runtime's step when ``cfg.fault`` (or an explicit
+``process``) sets a fault model.  The reference syncs the MSD to the host
+every round; the port keeps the per-round MSD and straggler ages on the
+device and copies each trace once per run.  ``scan=True`` — in the
+reference one ``lax.scan`` over the whole run — is the same loop here,
+recording every round, for the static, ``combine_every=1`` path only.
 
 Not in this slice (they raise ``NotImplementedError`` naming their
 ROADMAP slice): the weighted path (importance sampling, availability
-traces), lazy populations, fault processes, telemetry and the sanitizer.
+traces, and faults there), lazy populations, telemetry and the sanitizer.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.core.population.population import (
     DensePopulation,
 )
 from repro_torch.core.privacy.mechanism import mechanism_for
+from repro_torch.core.resilience.process import TopologyProcess
 from repro_torch.core.simulate import base_combination_matrix, make_grad_fn
 from repro_torch.draws import Draws
 
@@ -61,17 +64,26 @@ def as_population(source) -> ClientPopulation:
 
 
 class PopulationRunResult(NamedTuple):
-    """Trajectory of one population-engine run."""
+    """Trajectory of one population-engine run.  ``gaps`` / ``staleness``
+    are the resilience runtime's realizations when a fault process drives
+    the run (None otherwise): ``spectral_gap(A_i)`` every round, and the
+    per-server straggler psi ages after every round."""
     msd: np.ndarray            # centroid MSD vs w_ref, every record_every
     params: torch.Tensor       # final [P, D] per-server models
     q: np.ndarray              # realized per-round sampling rate
     scheduler: CohortScheduler
+    gaps: Optional[np.ndarray] = None        # [iters] realized spectral gaps
+    staleness: Optional[np.ndarray] = None   # [iters, P] straggler psi ages
     accountant: Optional[object] = None   # PrivacyAccountant at realized q
 
 
-def _check_slice(cfg: GFLConfig) -> None:
+def _check_slice(cfg: GFLConfig, faulted: bool) -> None:
+    if faulted and cfg.cohort != "uniform":
+        raise NotImplementedError(
+            f"a fault process (GFLConfig.fault={cfg.fault!r}) on the weighted "
+            f"path (cohort={cfg.cohort!r}) is not ported yet (ROADMAP slice "
+            "3: weighted path)")
     unported = {
-        "fault": (cfg.fault, "none", "ROADMAP slice 2: resilience"),
         "cohort": (cfg.cohort, "uniform", "ROADMAP slice 3: weighted path"),
         "population": (cfg.population, "dense",
                        "ROADMAP slice 3: lazy populations"),
@@ -90,16 +102,20 @@ def run_gfl_population(source, cfg: GFLConfig, *, iters: int,
                        batch_size: int = 10, seed: int = 0,
                        record_every: int = 1,
                        A: Optional[np.ndarray] = None,
+                       process: Optional[TopologyProcess] = None,
                        scheduler: Optional[CohortScheduler] = None,
                        w_ref=None, scan: bool = False,
                        draws=None) -> PopulationRunResult:
     """Run the GFL protocol over a client population (pure path).
 
-    Randomness: ``draws`` (a :class:`~repro_torch.draws.Draws` or a replay
-    of the reference's draws), else ``Draws(seed)`` on the population's
-    device.  The result carries a :class:`PrivacyAccountant` charged once
-    per round at the realized sampling rate."""
-    _check_slice(cfg)
+    Faults come from ``process``, else from ``cfg.fault`` over the base
+    matrix (``A`` or the config's) with ``cfg.topology_seed``, as in
+    ``run_gfl``.  Randomness: ``draws`` (a
+    :class:`~repro_torch.draws.Draws` or a replay of the reference's
+    draws), else ``Draws(seed)`` on the population's device.  The result
+    carries a :class:`PrivacyAccountant` charged once per round at the
+    realized sampling rate."""
+    _check_slice(cfg, process is not None or cfg.fault != "none")
     pop = as_population(source)
     P, K = pop.P, pop.num_clients
     device = pop.features.device
@@ -111,42 +127,56 @@ def run_gfl_population(source, cfg: GFLConfig, *, iters: int,
     if w_ref is None:
         w_ref = pop.w_ref
     w_ref_t = torch.as_tensor(w_ref, dtype=torch.float32, device=device)
+    if process is None and cfg.fault != "none":
+        base = A if A is not None else base_combination_matrix(cfg, P)
+        process = TopologyProcess(base, cfg.fault, seed=cfg.topology_seed)
     if A is None:
         A = base_combination_matrix(cfg, P)
     if draws is None:
         draws = Draws(seed, device)
 
     if scan:
-        if cfg.combine_every > 1:
-            raise ValueError("scan executor supports the combine_every=1 "
-                             "pure path; use scan=False")
-        msd, params = _run_pure_loop(pop, cfg, A, grad_fn, L, batch_size,
-                                     iters, 1, w_ref_t, draws)
+        if process is not None or cfg.combine_every > 1:
+            raise ValueError("scan executor supports the static-topology, "
+                             "combine_every=1 pure path; use scan=False")
+        msd, params, gaps, ages = _run_pure_loop(
+            pop, cfg, A, None, grad_fn, L, batch_size, iters, 1, w_ref_t,
+            draws)
         msd = msd[::record_every]
     else:
-        msd, params = _run_pure_loop(pop, cfg, A, grad_fn, L, batch_size,
-                                     iters, record_every, w_ref_t, draws)
+        msd, params, gaps, ages = _run_pure_loop(
+            pop, cfg, A, process, grad_fn, L, batch_size, iters,
+            record_every, w_ref_t, draws)
     q = np.full(iters, L / K)
     scheduler.q_history.extend(q.tolist())
     acc = mechanism_for(cfg).accountant()
     acc.sampling_rate = L / K
     for qi in q:
         acc.advance(1, q=float(qi))
-    return PopulationRunResult(msd, params, q, scheduler, accountant=acc)
+    return PopulationRunResult(msd, params, q, scheduler, gaps=gaps,
+                               staleness=ages, accountant=acc)
 
 
-def _run_pure_loop(pop, cfg, A, grad_fn, L, batch_size, iters,
+def _run_pure_loop(pop, cfg, A, process, grad_fn, L, batch_size, iters,
                    record_every, w_ref_t, draws):
-    """The dense simulator's loop over the population gather.  MSD stays on
-    the device until the run ends.  Returns (msd [T], params)."""
-    step = gfl.make_gfl_step(A, grad_fn, cfg)
+    """The dense simulator's loop over the population gather.  MSD and
+    straggler ages stay on the device until the run ends.  Returns
+    (msd [T], params, gaps [iters] or None, ages [iters, P] or None)."""
+    step = gfl.make_gfl_step(process if process is not None else A,
+                             grad_fn, cfg)
     state = gfl.init_state(pop.P, pop.dim, device=w_ref_t.device)
-    msds = []
+    msds, gaps, ages = [], [], []
     for i in range(iters):
         state = step(state, uniform_cohort_batch(draws, i, pop, L,
                                                  batch_size), draws)
+        if process is not None:
+            gaps.append(process.realize(i).gap)   # the step's memoized one
+            ages.append(state.psi_age)
         if i % record_every == 0:
             msds.append(((gfl.centroid(state.params) - w_ref_t) ** 2).sum())
     msd = (torch.stack(msds).cpu().numpy() if msds
            else np.zeros(0, np.float32))
-    return msd, state.params
+    if process is None or not iters:
+        return msd, state.params, None, None
+    return (msd, state.params, np.asarray(gaps),
+            torch.stack(ages).cpu().numpy())

@@ -4,6 +4,7 @@
 A :class:`PrivacyMechanism` owns both protocol hooks of a scheme
 
   client level (eq. 7):  ``client_protect(w_clients, draws, ctx) -> psi``
+                         (``client_protect_masked`` under client dropout)
   server level (eq. 8):  ``server_combine(psi, draws, A, ctx) -> w``
 
 plus :meth:`~PrivacyMechanism.fold_spec` (how the client level enters the
@@ -39,7 +40,11 @@ from repro_torch.core.privacy.homomorphic import (
     iid_noise_combine,
 )
 from repro_torch.core.privacy.noise import draw_noise
-from repro_torch.core.privacy.secure_agg import num_pairs, pairwise_masks_vec
+from repro_torch.core.privacy.secure_agg import (
+    masked_client_mean_dropout_vec,
+    num_pairs,
+    pairwise_masks_vec,
+)
 from repro_torch.kernels import ops as kops
 
 DEFAULT_SCHEDULE_HORIZON = 100
@@ -109,6 +114,17 @@ class PrivacyMechanism:
                        ctx: RoundContext) -> torch.Tensor:
         """Aggregation step (7) for every server: [P, L, D] -> [P, D]."""
         return w_clients.mean(dim=1)
+
+    def client_protect_masked(self, w_clients: torch.Tensor, draws,
+                              alive: torch.Tensor,
+                              ctx: RoundContext) -> torch.Tensor:
+        """Aggregation step (7) under mid-round client dropout: ``alive``
+        [P, L] bool.  Without client noise, the exact survivor mean;
+        mechanisms with client noise override it and declare
+        ``noise_profile().client_dropout_safe``."""
+        a = alive.to(torch.bool)
+        n_alive = torch.clamp(a.sum(dim=1, keepdim=True), min=1)
+        return torch.where(a[..., None], w_clients, 0.0).sum(dim=1) / n_alive
 
     def fold_spec(self, ctx: Optional[RoundContext] = None
                   ) -> Optional[FoldSpec]:
@@ -185,6 +201,19 @@ class _SecureAggClientMixin:
                                    dtype=w_clients.dtype)
         return (w_clients + masks).mean(dim=1)
 
+    def client_protect_masked(self, w_clients, draws, alive, ctx):
+        """Dropout-safe secure aggregation: orphaned pair streams are
+        subtracted and the mean is taken over survivors, on the same
+        Gaussian pair streams :meth:`client_protect` draws."""
+        if not self.cfg.secure_agg:
+            return PrivacyMechanism.client_protect_masked(
+                self, w_clients, draws, alive, ctx)
+        P, L, D = w_clients.shape
+        normals = draws.normal(ctx.step, "client", (P, num_pairs(L), D))
+        return masked_client_mean_dropout_vec(w_clients, alive,
+                                              self.sigma(ctx),
+                                              normals=normals)
+
     def fold_spec(self, ctx=None):
         if not self.cfg.secure_agg:
             return FoldSpec("none", 0.0)
@@ -258,6 +287,15 @@ class IIDLaplaceDP(PrivacyMechanism):
                            w_clients.dtype)
         return (w_clients + noise).mean(dim=1)
 
+    def client_protect_masked(self, w_clients, draws, alive, ctx):
+        """iid noise has no pairs to orphan: the survivor mean of
+        (update + noise), on the same client-stream draw."""
+        noise = draw_noise(draws, ctx.step, "client", "laplace",
+                           tuple(w_clients.shape), self.sigma(ctx),
+                           w_clients.dtype)
+        return PrivacyMechanism.client_protect_masked(
+            self, w_clients + noise, draws, alive, ctx)
+
     def fold_spec(self, ctx=None):
         if ctx is not None and ctx.sigma_traced:
             return None
@@ -319,6 +357,10 @@ class ScheduledMechanism(PrivacyMechanism):
     def client_protect(self, w_clients, draws, ctx):
         return self.inner.client_protect(w_clients, draws,
                                          self._inner_ctx(ctx))
+
+    def client_protect_masked(self, w_clients, draws, alive, ctx):
+        return self.inner.client_protect_masked(w_clients, draws, alive,
+                                                self._inner_ctx(ctx))
 
     def fold_spec(self, ctx=None):
         # a traced schedule makes the inner fold_spec return None, so the

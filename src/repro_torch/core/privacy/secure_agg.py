@@ -9,7 +9,8 @@ The streams are standard normals ``[..., L(L-1)/2, dim]`` in the
 row-major (j < k) pair order of ``triu_indices`` — drawn from a
 Generator, or handed in (the tests pass the reference's own draws, which
 it takes from ``fold_in(fold_in(key, j), k)``).  Leading dims batch
-servers.
+servers.  :func:`masked_client_mean_dropout_vec` is the survivor mean the
+mechanisms take when clients drop out mid-round.
 """
 from __future__ import annotations
 
@@ -53,3 +54,31 @@ def pairwise_masks_vec(L: int, dim: int, scale, *,
     """Pairwise secure-agg masks [..., L, dim]; columns sum to exactly 0."""
     return pair_stream_matrix(L, dim, scale, normals=normals,
                               generator=generator, dtype=dtype).sum(dim=-2)
+
+
+def masked_client_mean_dropout_vec(updates: torch.Tensor, alive: torch.Tensor,
+                                   scale, *,
+                                   normals: torch.Tensor | None = None,
+                                   generator: torch.Generator | None = None
+                                   ) -> torch.Tensor:
+    """Survivor-renormalized aggregation (7) under mid-round client dropout.
+
+    Bonawitz-style recovery: masks between two survivors cancel in the sum,
+    masks between two dead clients never arrive, and each orphaned
+    alive<->dead stream is rebuilt from the survivors' seed shares and
+    subtracted; the sum is then divided by the survivor count, so the
+    result is the exact mean over alive clients.
+
+    updates: [..., L, D]; alive: [..., L] bool -> [..., D].  The pair
+    streams come from ``normals`` [..., L(L-1)/2, D] or ``generator``, as
+    in :func:`pair_stream_matrix`."""
+    L, D = updates.shape[-2:]
+    S = pair_stream_matrix(L, D, scale, normals=normals, generator=generator,
+                           dtype=updates.dtype)
+    masks = S.sum(dim=-2)
+    a = alive.to(torch.bool)
+    total = torch.where(a[..., None], updates + masks, 0.0).sum(dim=-2)
+    orphan = a[..., :, None] & ~a[..., None, :]      # j alive, k dead
+    repair = torch.where(orphan[..., None], S, 0.0).sum(dim=(-3, -2))
+    n_alive = torch.clamp(a.sum(dim=-1, keepdim=True), min=1)
+    return (total - repair) / n_alive

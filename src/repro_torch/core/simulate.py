@@ -22,7 +22,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import GFLConfig
-from repro_torch.core.topology import combination_matrix
+from repro_torch.core.topology import combination_matrix, spectral_gap
 
 
 @dataclass(frozen=True)
@@ -58,6 +58,13 @@ def logistic_loss(w: torch.Tensor, h: torch.Tensor, gamma: torch.Tensor,
     margins = gamma * (h * w).sum(dim=-1)
     return (torch.logaddexp(torch.zeros_like(margins), -margins).mean()
             + 0.5 * rho * (w * w).sum())
+
+
+def global_risk(w: torch.Tensor, prob: LogisticProblem) -> torch.Tensor:
+    """The regularized logistic risk of ``w`` over every sample."""
+    h = prob.features.reshape(-1, prob.features.shape[-1])
+    g = prob.labels.reshape(-1)
+    return logistic_loss(w, h, g, prob.rho)
 
 
 def _logistic_grad(w: torch.Tensor, h: torch.Tensor, gamma: torch.Tensor,
@@ -99,11 +106,16 @@ def base_combination_matrix(cfg: GFLConfig, P: int) -> np.ndarray:
 
 def run_gfl(prob: LogisticProblem, cfg: GFLConfig, *, iters: int,
             batch_size: int = 10, seed: int = 0, record_every: int = 1,
-            A: np.ndarray | None = None, draws=None):
+            A: np.ndarray | None = None, process=None,
+            record_gaps: bool = False, draws=None):
     """Run the protocol on the problem's device; return (msd_trace [T],
-    final params [P, D]).
+    final params [P, D]), and with ``record_gaps`` the per-round
+    ``spectral_gap(A_i)`` [iters] third.
 
-    This IS the population engine's pure path over a dense population.
+    ``cfg.fault != "none"`` (or an explicit ``process``, a
+    :class:`~repro_torch.core.resilience.process.TopologyProcess`) runs the
+    resilience runtime: per-round A_i, client dropout, stragglers.  This
+    IS the population engine's pure path over a dense population.
     ``draws`` replaces the run's generators (``Draws(seed)``) with, e.g.,
     a replay of the reference's draws."""
     from repro_torch.core.population import CohortScheduler, DensePopulation
@@ -114,8 +126,15 @@ def run_gfl(prob: LogisticProblem, cfg: GFLConfig, *, iters: int,
                                 pop.P)
     res = run_gfl_population(pop, cfg, iters=iters, batch_size=batch_size,
                              seed=seed, record_every=record_every, A=A,
-                             scheduler=scheduler, draws=draws)
-    return res.msd, res.params
+                             process=process, scheduler=scheduler,
+                             draws=draws)
+    if not record_gaps:
+        return res.msd, res.params
+    gaps = res.gaps
+    if gaps is None:
+        base = A if A is not None else base_combination_matrix(cfg, pop.P)
+        gaps = np.full(iters, spectral_gap(np.asarray(base)))
+    return res.msd, res.params, gaps
 
 
 def run_schemes(seed: int = 0, *, iters: int = 500, sigma_g: float = 0.2,
@@ -123,10 +142,19 @@ def run_schemes(seed: int = 0, *, iters: int = 500, sigma_g: float = 0.2,
                 repeats: int = 3, topology: str = "full",
                 batch_size: int = 10, grad_bound: float = 10.0,
                 schemes: tuple | None = None,
-                epsilon_target: float | None = None, device=None):
+                epsilon_target: float | None = None,
+                fault: str = "none", topology_seed: int = 0,
+                use_kernels: bool = False, device=None,
+                problem: LogisticProblem | None = None):
     """Fig. 2 harness: every registered privacy mechanism on the same
-    problem.  ``scheduled`` spends the budget the fixed-sigma Theorem-2
-    curve spends by ``iters``, so its row is noise-comparable to hybrid's."""
+    problem, ``repeats`` runs each (seeds 1000, 1001, ...), returning
+    (problem, {scheme: the repeats' mean MSD trace}).  ``scheduled``
+    spends the budget the fixed-sigma Theorem-2 curve spends by ``iters``,
+    so its row is noise-comparable to hybrid's.  ``fault`` runs every
+    scheme under the same fault realizations; ``use_kernels`` runs the
+    rounds through the CUDA kernels (the reference leaves its own off).
+    ``problem`` (for example the reference's, converted) replaces the one
+    drawn from ``seed``; P and K are then its own."""
     from repro_torch import rng
     from repro_torch.core.privacy.accountant import epsilon_at
     from repro_torch.core.privacy.mechanism import list_mechanisms
@@ -135,15 +163,45 @@ def run_schemes(seed: int = 0, *, iters: int = 500, sigma_g: float = 0.2,
     if epsilon_target is None:
         epsilon_target = (epsilon_at(iters, mu, grad_bound, sigma_g)
                           if sigma_g > 0 else 0.0)
-    prob = generate_problem(rng(seed, device), P=P, K=K)
+    prob = (problem if problem is not None
+            else generate_problem(rng(seed, device), P=P, K=K))
+    P, K = prob.labels.shape[:2]
     out = {}
     for scheme in schemes if schemes is not None else list_mechanisms():
         cfg = GFLConfig(num_servers=P, clients_per_server=K,
                         clients_sampled=L, topology=topology,
                         privacy=scheme, sigma_g=sigma_g, mu=mu,
-                        grad_bound=grad_bound,
-                        epsilon_target=epsilon_target, epsilon_horizon=iters)
+                        grad_bound=grad_bound, fault=fault,
+                        topology_seed=topology_seed,
+                        epsilon_target=epsilon_target, epsilon_horizon=iters,
+                        use_kernels=use_kernels)
         traces = [run_gfl(prob, cfg, iters=iters, batch_size=batch_size,
                           seed=1000 + r)[0] for r in range(repeats)]
         out[scheme] = np.mean(np.stack(traces), axis=0)
     return prob, out
+
+
+def msd_tail(msd: np.ndarray, iters: int) -> float:
+    """The steady-state MSD the benchmarks report: the mean over the last
+    ``max(iters // 10, 5)`` rounds."""
+    return float(np.mean(msd[-max(iters // 10, 5):]))
+
+
+def fault_sweep(prob: LogisticProblem, cfg: GFLConfig, *, iters: int,
+                drop_probs, fault_kind: str = "links",
+                batch_size: int = 10, seed: int = 0):
+    """MSD against failure rate: ``cfg`` under ``<fault_kind>:<p>`` for each
+    p in ``drop_probs``.  Returns rows ``(p, msd_tail, gap_mean,
+    gap_worst)`` — the realized spectral-gap trajectory (larger = slower
+    mixing) connects the failure rate to the convergence hit."""
+    from dataclasses import replace
+
+    rows = []
+    for p in drop_probs:
+        spec = "none" if p == 0 else f"{fault_kind}:{p:g}"
+        msd, _, gaps = run_gfl(prob, replace(cfg, fault=spec), iters=iters,
+                               batch_size=batch_size, seed=seed,
+                               record_gaps=True)
+        rows.append((float(p), msd_tail(msd, iters), float(gaps.mean()),
+                     float(gaps.max())))
+    return rows

@@ -186,8 +186,16 @@ def test_replay_rejects_out_of_order_requests():
     ("population", "synthetic:iid"), ("async_spec", "async"),
     ("telemetry", "memory"), ("sanitize", True)])
 def test_unported_options_raise(field, value, problem):
-    cfg = GFLConfig(**_cfg_kw("none", **{field: value}))
-    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
+    """Options of later slices raise, naming their slice.  Faults run on
+    the pure path; on the weighted path (a non-uniform cohort) they wait
+    for slice 3, and the message names the fault, not only the cohort."""
+    kw = {field: value}
+    match = "ROADMAP slice"
+    if field == "fault":
+        kw["cohort"] = "importance"
+        match = r"fault process .*links:0\.1.* weighted path.*ROADMAP slice 3"
+    cfg = GFLConfig(**_cfg_kw("none", **kw))
+    with pytest.raises(NotImplementedError, match=match):
         run_gfl(problem, cfg, iters=1, batch_size=5)
 
 

@@ -59,6 +59,18 @@ def test_import_check_covers_the_kernel_bench_slice():
     assert kernel_bench <= set(_port_modules())
 
 
+def test_import_check_covers_the_experiment_and_resilience_slice():
+    slice_ = {"repro_torch.core.resilience.faults",
+              "repro_torch.core.resilience.process",
+              "repro_torch.core.resilience.runtime",
+              "repro_torch.launch.fig2_convergence",
+              "repro_torch.launch.noise_sweep",
+              "repro_torch.launch.privacy_epsilon",
+              "repro_torch.launch.dp_sweep",
+              "repro_torch.launch.fault_sweep",
+              "repro_torch.launch.resilience_demo"}
+    assert slice_ <= set(_port_modules())
+
 def test_importing_the_port_leaves_jax_out():
     mods = _port_modules()
     code = ("import sys\n"

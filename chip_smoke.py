@@ -47,10 +47,19 @@ Phases, each printing JSON lines:
              with the launch counts read.
 5. main    — run_gfl on the gfl-logreg problem at full size (P=10, K=50,
              N=100, M=2, L=50, B=10, 500 rounds) for every mechanism, with
-             use_kernels on (launch counts read) and off (same seeds);
-             checks finite MSD, on/off agreement, hybrid below iid_dp.
+             use_kernels on (launch counts read) and off (same seeds),
+             through the default executor, the round graph (one round
+             captured as a CUDA graph, replayed every round); checks
+             finite MSD, on/off agreement, hybrid below iid_dp.  Each run
+             again through the eager executor on the same seed: params and
+             MSD bitwise equal, the same launch counts, and the wrappers
+             launched K1-K3 only in the graph's warm-up round (every later
+             launch a replay); the same for hybrid and iid_dp at
+             combine_every=2 (two graphs).  Then 20 runs, each capturing
+             and freeing its graph, must leave the allocated memory as
+             they found it.
 6. fig2    — the paper's Fig. 2 experiment at full size with the kernels
-             on, on the reference's own problem (data/fig2_problem0.npz,
+             on, through the round graph, on the reference's own problem (data/fig2_problem0.npz,
              written by fig2_reference.py), every config as run_schemes
              builds it: every mechanism at sigma 0.2 and 1.0, P=10, K=50,
              L=10, mu 0.1, full topology, 400 rounds, 16 repeats (seeds
@@ -77,11 +86,25 @@ Phases, each printing JSON lines:
              clients dead at mask scale 2^20, at (10, 50, 2) and (10, 48,
              4096), must come within 1e-5 of the plain survivor mean, and
              the plain fold that keeps the orphaned alive-dead streams
-             must fall outside it.  Then launch/fault_sweep.py at its
-             defaults: wall ms a round of the static and faulted runs,
-             the host share of a faulted round, launch counts.
-8. profile — torch.profiler over 50 hybrid rounds, kernels on and off:
-             wall and device-busy time per round, idle share, device ops.
+             must fall outside it.  "Everything at once" under every
+             mechanism and the null spec, kernels on and off, again through
+             the eager executor: bitwise equal to the round graph's runs.
+             Then launch/fault_sweep.py at its defaults: wall ms a round of
+             the static and faulted runs, the host share of a faulted
+             round, launch counts.
+8. profile — hybrid rounds under the round graph and the eager executor,
+             at the main path's shape (kernels on and off) and the Fig. 2
+             shape (L=10): steady wall ms a round (the difference of a
+             250- and a 50-round run), and from torch.profiler over 50
+             rounds (for the graph, from its first replay on) device busy
+             ms, the traced window's idle share (the tracer's host cost
+             stretches it), busy over the untraced wall, device ops and
+             host launch calls a round by name (cudaLaunchKernel,
+             cudaGraphLaunch), and the K1-K3 kernels by the call that
+             launched them.  The graph must be
+             launched at most once a round, no K1-K3 kernel after its
+             capture may come from a cudaLaunchKernel, and the wrappers
+             may launch K1-K3 only in the warm-up round.
 9. swa     — K8 swa_decode against its plain version at the serving shapes
              (B, H, KV, C, Dh) = (4, 32, 32, 2047, 96) bf16,
              (4, 32, 32, 1064, 96) bf16, (4, 9, 3, 1064, 64) bf16 and f32,
@@ -182,6 +205,8 @@ MSD_RTOL, MSD_ATOL = 1e-3, 1e-6
 # which kernels each mechanism's rounds must launch with use_kernels on:
 # iid_dp's per-edge combine noise keeps the einsum, and scheduled's traced
 # sigma has no fold spec, so its client level takes the protect hooks
+ROUND_KERNELS = ("fold_norms", "fold_apply", "graph_combine")
+GRAPH_CYCLES = 20     # capture-and-free cycles the memory gate runs
 EXPECT = {"none": {"fold_norms", "fold_apply", "graph_combine"},
           "iid_dp": {"fold_norms", "fold_apply"},
           "hybrid": {"fold_norms", "fold_apply", "graph_combine"},
@@ -1078,6 +1103,41 @@ def phase_kernel_bench(torch):
 # ------------------------------------------------------------ main path
 
 
+def timed_run(torch, prob, cfg, iters, seed, executor=None, **kw):
+    """(msd, params, wall s, launches, replayed[, gaps]) of one
+    ``run_gfl``."""
+    from repro_torch import kernels as K
+    from repro_torch.core.simulate import run_gfl
+
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_gfl(prob, cfg, iters=iters, batch_size=10, seed=seed,
+                  executor=executor, **kw)
+    torch.cuda.synchronize()
+    return (out[0], out[1], time.perf_counter() - t0, dict(K.LAUNCHES),
+            dict(K.REPLAYED), *out[2:])
+
+
+def require_graph_is_eager(torch, what, graph, eager, warmups=1) -> None:
+    """The round graph's run against the eager executor's on the same
+    seed: params and MSD trace bitwise equal, the same launch counts, and
+    the wrappers launched K1-K3 only in the graph run's warm-up rounds,
+    one a graph (every later launch a replay)."""
+    msd_g, p_g, _, launches_g, replayed = graph[:5]
+    msd_e, p_e, _, launches_e, _ = eager[:5]
+    require(bool(torch.equal(p_g, p_e)) and msd_g.tolist() == msd_e.tolist(),
+            f"{what}: the round graph differs from the eager executor")
+    require(launches_g == launches_e,
+            f"{what}: launches {launches_g} under the graph, {launches_e} "
+            "eagerly")
+    for name in ROUND_KERNELS:
+        calls = launches_g[name] - replayed[name]
+        require(calls <= warmups and (calls > 0) == (launches_g[name] > 0),
+                f"{what}: {name} launched by its wrapper {calls} times under "
+                f"the graph, expected at most {warmups} (the warm-up rounds)")
+
+
 def phase_main(torch):
     import numpy as np
     from repro_torch import kernels as K, rng
@@ -1085,7 +1145,7 @@ def phase_main(torch):
     from repro_torch.core.privacy.accountant import epsilon_at
     from repro_torch.core.privacy.mechanism import (list_mechanisms,
                                                     mechanism_for)
-    from repro_torch.core.simulate import generate_problem, run_gfl
+    from repro_torch.core.simulate import generate_problem
     from dataclasses import replace
 
     t0 = time.perf_counter()
@@ -1103,19 +1163,15 @@ def phase_main(torch):
     for scheme in list_mechanisms():
         cfg = replace(base, privacy=scheme, epsilon_target=eps_budget,
                       epsilon_horizon=ITERS, use_kernels=True)
-        K.reset_launches()
-        t0 = time.perf_counter()
-        msd_on, p_on = run_gfl(prob, cfg, iters=ITERS, batch_size=10, seed=1)
-        torch.cuda.synchronize()
-        wall_on = time.perf_counter() - t0
-        launches = dict(K.LAUNCHES)
+        off = replace(cfg, use_kernels=False)
+        on_g = timed_run(torch, prob, cfg, ITERS, 1)
+        msd_on, p_on, wall_on, launches = on_g[:4]
         for name, n in launches.items():
             totals[name] += n
-        t0 = time.perf_counter()
-        msd_off, p_off = run_gfl(prob, replace(cfg, use_kernels=False),
-                                 iters=ITERS, batch_size=10, seed=1)
-        torch.cuda.synchronize()
-        wall_off = time.perf_counter() - t0
+        on_e = timed_run(torch, prob, cfg, ITERS, 1, "eager")
+        off_g = timed_run(torch, prob, off, ITERS, 1)
+        off_e = timed_run(torch, prob, off, ITERS, 1, "eager")
+        msd_off, p_off, wall_off = off_g[:3]
         tail = float(np.mean(msd_on[-50:]))
         tails[scheme] = tail
         acc = mechanism_for(cfg).accountant()
@@ -1125,7 +1181,11 @@ def phase_main(torch):
         emit({"phase": "main", "scheme": scheme, "msd_tail": tail,
               "msd_tail_kernels_off": float(np.mean(msd_off[-50:])),
               "epsilon": acc.epsilon(), "wall_s": wall_on,
-              "wall_s_kernels_off": wall_off, "launches": launches,
+              "wall_s_kernels_off": wall_off, "wall_s_eager": on_e[2],
+              "wall_s_eager_kernels_off": off_e[2],
+              "wall_ms_per_round": wall_on * 1e3 / ITERS,
+              "wall_ms_per_round_eager": on_e[2] * 1e3 / ITERS,
+              "launches": launches, "replayed": on_g[4],
               "params_max_abs_diff": p_err, "msd_max_abs_diff": msd_err})
         require(bool(np.all(np.isfinite(msd_on)))
                 and bool(np.all(np.isfinite(msd_off))),
@@ -1133,6 +1193,8 @@ def phase_main(torch):
         for name in EXPECT[scheme]:
             require(launches[name] > 0,
                     f"{scheme}: kernel {name} was never launched")
+        require_graph_is_eager(torch, f"{scheme}, kernels on", on_g, on_e)
+        require_graph_is_eager(torch, f"{scheme}, kernels off", off_g, off_e)
         require(p_err <= PARAMS_ATOL
                 and bool(np.allclose(msd_on, msd_off, rtol=MSD_RTOL,
                                      atol=MSD_ATOL)),
@@ -1141,7 +1203,35 @@ def phase_main(torch):
     require(tails["hybrid"] < tails["iid_dp"],
             f"hybrid MSD tail {tails['hybrid']} not below iid_dp "
             f"{tails['iid_dp']}")
+    for scheme in ("hybrid", "iid_dp"):   # two graphs: combine or not
+        for use_kernels in (True, False):
+            cfg = replace(base, privacy=scheme, combine_every=2,
+                          use_kernels=use_kernels)
+            what = f"{scheme}, combine_every 2, use_kernels {use_kernels}"
+            graph = timed_run(torch, prob, cfg, ITERS, 1)
+            require_graph_is_eager(torch, what, graph,
+                                   timed_run(torch, prob, cfg, ITERS, 1,
+                                             "eager"), warmups=2)
+            emit({"phase": "main", "scheme": scheme, "combine_every": 2,
+                  "use_kernels": use_kernels, "graph_is_eager": True,
+                  "launches": graph[3]})
+    graph_memory(torch, prob, replace(base, privacy="hybrid",
+                                      use_kernels=True))
     return totals, prob
+
+
+def graph_memory(torch, prob, cfg, runs=GRAPH_CYCLES):
+    """``runs`` runs, each capturing its round graph and freeing it at the
+    end, must leave the allocated memory where the first left it."""
+    timed_run(torch, prob, cfg, 20, 0)
+    base = torch.cuda.memory_allocated()
+    for seed in range(runs):
+        timed_run(torch, prob, cfg, 20, seed)
+    after = torch.cuda.memory_allocated()
+    emit({"phase": "main", "graph_cycles": runs,
+          "memory_allocated_before": base, "memory_allocated_after": after})
+    require(after == base, f"{runs} round-graph runs left {after - base} "
+            "bytes allocated")
 
 
 # ----------------------------------------------------------------- fig2
@@ -1349,21 +1439,24 @@ def phase_resilience(torch, prob):
         cfg = replace(base, privacy=scheme, epsilon_target=eps_budget,
                       epsilon_horizon=ITERS, fault=spec,
                       topology_seed=RES_TOPOLOGY_SEED, use_kernels=True)
-        K.reset_launches()
-        t0 = time.perf_counter()
-        msd_on, p_on, gaps = run_gfl(prob, cfg, iters=ITERS, batch_size=10,
-                                     seed=1, record_gaps=True)
-        torch.cuda.synchronize()
-        wall_on = time.perf_counter() - t0
-        launches = dict(K.LAUNCHES)
+        on_g = timed_run(torch, prob, cfg, ITERS, 1, record_gaps=True)
+        msd_on, p_on, wall_on, launches = on_g[:4]
+        gaps = on_g[5]
         for k, n in launches.items():
             totals[k] += n
-        t0 = time.perf_counter()
-        msd_off, p_off = run_gfl(prob, replace(cfg, use_kernels=False),
-                                 iters=ITERS, batch_size=10, seed=1)
-        torch.cuda.synchronize()
-        wall_off = time.perf_counter() - t0
+        off = replace(cfg, use_kernels=False)
+        off_g = timed_run(torch, prob, off, ITERS, 1)
+        msd_off, p_off, wall_off = off_g[:3]
         walls[(spec, scheme)] = wall_on
+        wall_eager = None
+        if spec == everything[1]:
+            on_e = timed_run(torch, prob, cfg, ITERS, 1, "eager")
+            wall_eager = on_e[2]
+            require_graph_is_eager(torch, f"{name} / {scheme}, kernels on",
+                                   on_g, on_e)
+            require_graph_is_eager(torch, f"{name} / {scheme}, kernels off",
+                                   off_g, timed_run(torch, prob, off, ITERS,
+                                                    1, "eager"))
         p_err = float((p_on - p_off).abs().max())
         msd_err = float(np.max(np.abs(msd_on - msd_off)))
         realize_ms = None
@@ -1375,6 +1468,9 @@ def phase_resilience(torch, prob):
               "gap_mean": float(gaps.mean()), "gap_worst": float(gaps.max()),
               "wall_ms_per_round": wall_on * 1e3 / ITERS,
               "wall_ms_per_round_kernels_off": wall_off * 1e3 / ITERS,
+              "wall_ms_per_round_eager": (None if wall_eager is None
+                                          else wall_eager * 1e3 / ITERS),
+              "graph_is_eager": wall_eager is not None or None,
               "host_realize_ms_per_round": realize_ms,
               "host_realize_share": (realize_ms / (wall_on * 1e3 / ITERS)
                                      if realize_ms is not None else None),
@@ -1394,13 +1490,17 @@ def phase_resilience(torch, prob):
     for use_kernels in (True, False):
         cfg = replace(base, use_kernels=use_kernels)
         msd_s, p_s = run_gfl(prob, cfg, iters=ITERS, batch_size=10, seed=1)
-        msd_n, p_n = run_gfl(prob, replace(cfg, fault=RES_NULL_SPEC),
-                             iters=ITERS, batch_size=10, seed=1)
+        null = replace(cfg, fault=RES_NULL_SPEC)
+        null_g = timed_run(torch, prob, null, ITERS, 1)
+        msd_n, p_n = null_g[:2]
         same = bool(torch.equal(p_s, p_n)) and msd_s.tolist() == msd_n.tolist()
         emit({"phase": "resilience", "null_fault": RES_NULL_SPEC,
               "use_kernels": use_kernels, "bitwise_equal_to_static": same})
         require(same, f"fault {RES_NULL_SPEC} differs from the static path "
                 f"(use_kernels={use_kernels})")
+        require_graph_is_eager(
+            torch, f"{RES_NULL_SPEC}, use_kernels {use_kernels}", null_g,
+            timed_run(torch, prob, null, ITERS, 1, "eager"))
     dropout_plant(torch, rng(3, "cuda"))
     K.reset_launches()
     t0 = time.perf_counter()
@@ -1423,51 +1523,140 @@ def phase_resilience(torch, prob):
 # -------------------------------------------------------------- profile
 
 
-def phase_profile(torch, prob, rounds=50):
-    """Where an M=2 hybrid round's time goes: torch.profiler over a short
-    run (after the main phase warmed everything up), kernels on and off."""
-    from dataclasses import replace
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                "cudaGraphLaunch")
+# K1-K3's device kernels, by the names csrc/ gives them
+ROUND_KERNEL_SYMBOLS = {"fold_norms": ("norms_rows", "norms_split"),
+                        "fold_apply": ("fold_apply_kernel",),
+                        "graph_combine": ("combine_kernel",)}
+PROFILE_ROUNDS = 50
+STEADY_ROUNDS = (100, 600)  # wall a round: the difference of two runs
+STEADY_REPEATS = 3
+
+
+def steady_ms(torch, prob, cfg, executor) -> float:
+    """Wall ms a round in steady state, without the profiler: the median
+    over STEADY_REPEATS of the difference of a long and a short run over
+    their difference in rounds, so the round graph's warm-up and capture
+    (and the eager run's first round) cancel."""
+    import statistics
+
+    short, long_ = STEADY_ROUNDS
+    diffs = []
+    for _ in range(STEADY_REPEATS):
+        walls = [timed_run(torch, prob, cfg, n, 2, executor)[2]
+                 for n in (short, long_)]
+        diffs.append((walls[1] - walls[0]) * 1e3 / (long_ - short))
+    return statistics.median(diffs)
+
+
+def profile_run(torch, prob, cfg, executor, rounds=PROFILE_ROUNDS) -> dict:
+    """torch.profiler over one ``rounds``-round run.  For the round graph
+    the window opens at the first ``cudaGraphLaunch`` (after the warm-up
+    round and the capture) and a round is a replay; eagerly it opens at
+    the run's first device op.  It closes at the last device op's end.
+    Per round: the window's length, device busy ms and ops, host launch
+    calls by name, and the K1-K3 device kernels by the host call that
+    launched them (CUPTI's correlation id: ``cudaLaunchKernel`` or
+    ``cudaGraphLaunch``); the idle share is the window's.  The tracer
+    lengthens small kernels, so busy time here can exceed a round's
+    wall time measured without it (``steady_ms``)."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import gfl_logreg
+    from repro_torch import kernels as K
     from repro_torch.core.simulate import run_gfl
 
-    for use_kernels in (True, False):
-        cfg = replace(gfl_logreg.GFL, privacy="hybrid",
-                      use_kernels=use_kernels)
-        run_gfl(prob, cfg, iters=5, batch_size=10, seed=2)
+    run_gfl(prob, cfg, iters=5, batch_size=10, seed=2, executor=executor)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_gfl(prob, cfg, iters=rounds, batch_size=10, seed=2,
+                executor=executor)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run_gfl(prob, cfg, iters=rounds, batch_size=10, seed=2)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        busy, count, by_name = 0.0, 0, {}
-        for evt in prof.events():
-            if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-                us = evt.time_range.elapsed_us()
-                busy += us
-                count += 1
-                tot = by_name.setdefault(evt.name[:60], [0.0, 0])
-                tot[0] += us
-                tot[1] += 1
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-        host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-        host = [{"name": e.key[:60], "ms_per_round":
-                 e.self_cpu_time_total / 1e3 / rounds,
-                 "per_round": e.count / rounds} for e in host[:8]]
-        emit({"phase": "profile", "scheme": "hybrid",
-              "use_kernels": use_kernels, "rounds": rounds,
-              "wall_ms_per_round": wall * 1e3 / rounds,
-              "device_busy_ms_per_round": (busy / 1e3 / rounds
-                                           if count else None),
-              "device_idle_share": (1.0 - busy / 1e6 / wall
-                                    if count else None),
-              "device_ops_per_round": count / rounds if count else None,
-              "top_device_ops": [{"name": n, "ms_per_round": v[0] / 1e3 /
-                                  rounds, "per_round": v[1] / rounds}
-                                 for n, v in top],
-              "top_host_ops": host})
+    wrapper_calls = {k: K.LAUNCHES[k] - K.REPLAYED[k] for k in ROUND_KERNELS}
+    events = list(prof.events())
+    device = [e for e in events
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    require(bool(device), f"profile: no device op in the trace of {rounds} "
+            f"{executor} rounds")
+    calls = [e for e in events if e.name in LAUNCH_CALLS]
+    graph_launches = [e.time_range.start for e in calls
+                      if e.name == "cudaGraphLaunch"]
+    lo = (min(graph_launches) if executor == "graph" and graph_launches
+          else min(e.time_range.start for e in device))
+    hi = max(e.time_range.end for e in device)
+    n = len(graph_launches) if executor == "graph" else rounds
+    by_call = {e.id: e.name for e in calls}
+    launch_calls = {name: 0 for name in LAUNCH_CALLS}
+    for e in calls:
+        if e.time_range.start >= lo:
+            launch_calls[e.name] += 1
+    busy, ops, k13 = 0.0, 0, {}
+    for e in device:
+        if e.time_range.start < lo:
+            continue
+        busy += e.time_range.elapsed_us()
+        ops += 1
+        for k, symbols in ROUND_KERNEL_SYMBOLS.items():
+            if any(sym in e.name for sym in symbols):
+                via = by_call.get(e.id, "unlinked")
+                k13[f"{k}/{via}"] = k13.get(f"{k}/{via}", 0) + 1
+    return {"rounds_in_window": n, "graph_launches": len(graph_launches),
+            "window_ms_per_round": (hi - lo) / 1e3 / n if n else None,
+            "device_idle_share": 1.0 - busy / (hi - lo) if n else None,
+            "device_busy_ms_per_round": busy / 1e3 / n if n else None,
+            "device_ops_per_round": ops / n if n else None,
+            "launch_calls_per_round": {k: v / n for k, v in
+                                       launch_calls.items()} if n else None,
+            "round_kernels_by_launch_call": k13,
+            "wrapper_launches": wrapper_calls}
+
+
+def phase_profile(torch, prob):
+    """Where a hybrid round's time goes under each executor, at the main
+    path's shape (L = 50) and the Fig. 2 shape (L = 10): steady wall ms a
+    round, and from torch.profiler the device busy time, idle share,
+    device ops and host launch calls a round.  The round graph must be
+    replayed at most once a round, and after its capture no K1-K3 kernel
+    may come from a wrapper's launch (the wrappers run only in the warm-up
+    round)."""
+    from dataclasses import replace
+    from repro_torch.configs import gfl_logreg
+
+    shapes = [("main", replace(gfl_logreg.GFL, privacy="hybrid",
+                               use_kernels=True)),
+              ("main, kernels off", replace(gfl_logreg.GFL,
+                                            privacy="hybrid")),
+              ("fig2", fig2_config(0.2, "hybrid"))]
+    for shape, cfg in shapes:
+        for executor in ("graph", "eager"):
+            rec = profile_run(torch, prob, cfg, executor)
+            wall = steady_ms(torch, prob, cfg, executor)
+            emit({"phase": "profile", "scheme": "hybrid", "shape": shape,
+                  "clients_sampled": cfg.clients_sampled,
+                  "use_kernels": cfg.use_kernels, "executor": executor,
+                  "wall_ms_per_round": wall,
+                  "busy_over_wall": rec["device_busy_ms_per_round"] / wall,
+                  **rec})
+            if executor != "graph":
+                continue
+            require(0 < rec["graph_launches"] <= PROFILE_ROUNDS,
+                    f"profile {shape}: {rec['graph_launches']} graph "
+                    f"launches in {PROFILE_ROUNDS} rounds")
+            by_call = rec["round_kernels_by_launch_call"]
+            require(not any(k.endswith("/cudaLaunchKernel") for k in by_call),
+                    f"profile {shape}: K1-K3 launched by cudaLaunchKernel "
+                    f"after the capture: {by_call}")
+            if cfg.use_kernels:
+                require(all(v == 1 for v in rec["wrapper_launches"].values()),
+                        f"profile {shape}: wrapper launches "
+                        f"{rec['wrapper_launches']}, expected one each (the "
+                        "warm-up round)")
+                require(all(by_call.get(f"{k}/cudaGraphLaunch")
+                            == rec["rounds_in_window"] for k in ROUND_KERNELS),
+                        f"profile {shape}: K1-K3 kernels {by_call} in "
+                        f"{rec['rounds_in_window']} replays, expected one "
+                        "each a replay")
 
 
 # ------------------------------------------------------------ K8 (swa)

@@ -21,6 +21,12 @@ written out ([P, L, D] gradients).  Randomness comes from the run's
 TopologyProcess`: the round then runs under its fault model (per-round
 A_i, client dropout; stragglers in the step function, which dispatches to
 :mod:`repro_torch.core.resilience.runtime`).
+
+:func:`make_gfl_step` is the eager step.  :class:`StagedStep` is the same
+round split for the round graph (:mod:`repro_torch.core.population.
+graphed`): a host stage that knows the round index, and a device body
+that reads only buffers made once a run, so a CUDA graph of the body
+replays every round.
 """
 from __future__ import annotations
 
@@ -36,7 +42,6 @@ from repro_torch.core.privacy.mechanism import (
     mechanism_for,
 )
 from repro_torch.core.privacy.noise import draw_noise
-from repro_torch.core.resilience.process import TopologyProcess
 from repro_torch.kernels import ops as kops
 
 
@@ -126,17 +131,22 @@ def gfl_round(params: torch.Tensor, batch, draws, *, A, grad_fn: Callable,
     this round runs under; stragglers keep state across rounds and live
     only in the step functions.  ``traced_step`` says the reference would
     run this round with a traced step (see :class:`RoundContext`)."""
+    # imported here, as the reference does: resilience imports this module
+    from repro_torch.core.resilience.process import TopologyProcess
+
     mech = mechanism if mechanism is not None else mechanism_for(cfg)
     alive = None
     if isinstance(A, TopologyProcess):
-        proc, i = A, int(step)
-        A = proc.realize(i).A
-        if proc.fault.client_dropout > 0:
-            from repro_torch.core.resilience.runtime import (
-                ensure_dropout_safe)
+        from repro_torch.core.resilience.runtime import (
+            ensure_dropout_safe, round_buffers, stage_round)
+        proc = A
+        dropout = proc.fault.client_dropout > 0
+        if dropout:
             ensure_dropout_safe(mech.noise_profile())
-            alive = torch.as_tensor(proc.client_alive(i, batch[0].shape[1]),
-                                    device=params.device)
+        buf = round_buffers(proc, params.device, params.shape[0],
+                            batch[0].shape[1])
+        stage_round(proc, buf, int(step), dropout=dropout, straggler=False)
+        A, alive = buf.A, (buf.alive if dropout else None)
     A = torch.as_tensor(A, dtype=torch.float32, device=params.device)
     ctx = RoundContext(step=step, traced_step=traced_step)
     psi = _client_updates(params, batch, draws, grad_fn, cfg, mech, ctx,
@@ -153,6 +163,8 @@ def make_gfl_step(A, grad_fn: Callable, cfg: GFLConfig):
     its rounds see a traced step (``traced_step=True``).  A
     :class:`TopologyProcess` for ``A`` dispatches to the resilience runtime
     (per-round A_i, client dropout, stragglers)."""
+    from repro_torch.core.resilience.process import TopologyProcess
+
     if isinstance(A, TopologyProcess):
         from repro_torch.core.resilience.runtime import (
             make_resilient_gfl_step)
@@ -167,13 +179,11 @@ def make_gfl_step(A, grad_fn: Callable, cfg: GFLConfig):
             on_device[dev] = A_host.to(dev)
         A_d = on_device[dev]
         if cfg.combine_every > 1:
-            do_combine = (state.step % cfg.combine_every
-                          == cfg.combine_every - 1)
             ctx = RoundContext(step=state.step, traced_step=True)
             psi = _client_updates(state.params, batch, draws, grad_fn, cfg,
                                   mech, ctx)
             new_params = (mech.server_combine(psi, draws, A_d, ctx)
-                          if do_combine else psi)
+                          if combines(cfg, state.step) else psi)
         else:
             new_params = gfl_round(state.params, batch, draws, A=A_d,
                                    grad_fn=grad_fn, cfg=cfg, mechanism=mech,
@@ -181,6 +191,72 @@ def make_gfl_step(A, grad_fn: Callable, cfg: GFLConfig):
         return GFLState(new_params, state.step + 1)
 
     return step
+
+
+def combines(cfg: GFLConfig, i: int) -> bool:
+    """Whether round ``i`` runs the server combination (``combine_every``;
+    the reference's ``lax.cond``)."""
+    tau = cfg.combine_every
+    return tau <= 1 or i % tau == tau - 1
+
+
+_UNSEEN = object()
+
+
+class StagedStep:
+    """The step of :func:`make_gfl_step` split for the round graph.
+
+    :meth:`stage` runs on the host and knows the round index: it reseeds
+    the run's draws for the round, checks that the fused fold's by-value
+    sigma is the run's (K2 takes it as an argument, so a graph bakes it
+    in), and returns whether the round combines, which picks the graph.
+    :meth:`body` runs on the device and reads only buffers made here once
+    a run: ``params``, the round ``counter``, the sigma table, ``A``.  It
+    writes the new params into ``params``; the executor advances the
+    counter.  Run eagerly (stage, then body) it is bitwise the eager
+    step."""
+
+    psi_age = None       # [P] int32 straggler ages (the resilient step)
+
+    def __init__(self, A, grad_fn: Callable, cfg: GFLConfig, P: int,
+                 dim: int, iters: int, device):
+        self.cfg, self.grad_fn = cfg, grad_fn
+        self.mech = mechanism_for(cfg)
+        self.params = init_state(P, dim, device=device).params
+        self.counter = torch.zeros(1, dtype=torch.int64, device=device)
+        self.A = torch.as_tensor(np.asarray(A), dtype=torch.float32
+                                 ).to(device)
+        self.sigmas = self.mech.sigma_table(iters, device)
+        self._fold = _UNSEEN
+
+    def stage(self, i: int, draws) -> bool:
+        """Host stage of round ``i``; returns whether it combines."""
+        draws.stage(i)
+        if self.cfg.use_kernels:
+            spec = self.mech.fold_spec(RoundContext(step=i, traced_step=True))
+            if self._fold is _UNSEEN:
+                self._fold = spec
+            elif spec != self._fold:
+                raise RuntimeError(
+                    f"round {i}: fold spec {spec} differs from the run's "
+                    f"{self._fold}, which the round graph holds by value")
+        return combines(self.cfg, i)
+
+    def context(self, i: int) -> RoundContext:
+        """The round's context: a scheduled sigma is the table's entry at
+        the device counter, never a host value."""
+        sigma = None
+        if self.sigmas is not None:
+            sigma = torch.index_select(self.sigmas, 0, self.counter
+                                       ).reshape(())
+        return RoundContext(step=i, sigma=sigma, traced_step=True)
+
+    def body(self, batch, draws, i: int, combine: bool) -> None:
+        ctx = self.context(i)
+        psi = _client_updates(self.params, batch, draws, self.grad_fn,
+                              self.cfg, self.mech, ctx)
+        self.params.copy_(self.mech.server_combine(psi, draws, self.A, ctx)
+                          if combine else psi)
 
 
 def init_state(P: int, dim: int, init_scale: float = 0.0, *,

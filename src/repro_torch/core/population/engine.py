@@ -7,9 +7,15 @@ minibatches and takes one :func:`~repro_torch.core.gfl.make_gfl_step`
 step — the resilience runtime's step when ``cfg.fault`` (or an explicit
 ``process``) sets a fault model.  The reference syncs the MSD to the host
 every round; the port keeps the per-round MSD and straggler ages on the
-device and copies each trace once per run.  ``scan=True`` — in the
-reference one ``lax.scan`` over the whole run — is the same loop here,
-recording every round, for the static, ``combine_every=1`` path only.
+device and copies each trace once per run.
+
+On a card both the loop and ``scan=True`` (in the reference one
+``lax.scan`` over the whole run; here the same rounds, recording every
+one, for the static, ``combine_every=1`` path only) run through the round
+graph (:mod:`repro_torch.core.population.graphed`): one round captured
+as a CUDA graph and replayed every round.  ``executor="eager"`` runs the
+rounds op by op instead (:func:`~repro_torch.core.gfl.make_gfl_step`), as
+the CPU always does.
 
 Not in this slice (they raise ``NotImplementedError`` naming their
 ROADMAP slice): the weighted path (importance sampling, availability
@@ -24,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import GFLConfig
 from repro_torch.core import gfl
+from repro_torch.core.population import graphed
 from repro_torch.core.population.cohort import CohortScheduler
 from repro_torch.core.population.population import (
     ClientPopulation,
@@ -105,20 +112,23 @@ def run_gfl_population(source, cfg: GFLConfig, *, iters: int,
                        process: Optional[TopologyProcess] = None,
                        scheduler: Optional[CohortScheduler] = None,
                        w_ref=None, scan: bool = False,
-                       draws=None) -> PopulationRunResult:
+                       draws=None, executor=None) -> PopulationRunResult:
     """Run the GFL protocol over a client population (pure path).
 
     Faults come from ``process``, else from ``cfg.fault`` over the base
     matrix (``A`` or the config's) with ``cfg.topology_seed``, as in
     ``run_gfl``.  Randomness: ``draws`` (a
     :class:`~repro_torch.draws.Draws` or a replay of the reference's
-    draws), else ``Draws(seed)`` on the population's device.  The result
-    carries a :class:`PrivacyAccountant` charged once per round at the
-    realized sampling rate."""
+    draws, which needs the eager executor), else ``Draws(seed)`` on the
+    population's device.  ``executor``: ``"graph"`` (the default on a
+    card) or ``"eager"`` (the CPU's only one).  The result carries a
+    :class:`PrivacyAccountant` charged once per round at the realized
+    sampling rate."""
     _check_slice(cfg, process is not None or cfg.fault != "none")
     pop = as_population(source)
     P, K = pop.P, pop.num_clients
     device = pop.features.device
+    executor = graphed.resolve_executor(executor, device)
     grad_fn = make_grad_fn(pop.rho)
     if scheduler is None:
         scheduler = CohortScheduler.from_config(
@@ -141,12 +151,12 @@ def run_gfl_population(source, cfg: GFLConfig, *, iters: int,
                              "combine_every=1 pure path; use scan=False")
         msd, params, gaps, ages = _run_pure_loop(
             pop, cfg, A, None, grad_fn, L, batch_size, iters, 1, w_ref_t,
-            draws)
+            draws, executor)
         msd = msd[::record_every]
     else:
         msd, params, gaps, ages = _run_pure_loop(
             pop, cfg, A, process, grad_fn, L, batch_size, iters,
-            record_every, w_ref_t, draws)
+            record_every, w_ref_t, draws, executor)
     q = np.full(iters, L / K)
     scheduler.q_history.extend(q.tolist())
     acc = mechanism_for(cfg).accountant()
@@ -158,10 +168,13 @@ def run_gfl_population(source, cfg: GFLConfig, *, iters: int,
 
 
 def _run_pure_loop(pop, cfg, A, process, grad_fn, L, batch_size, iters,
-                   record_every, w_ref_t, draws):
+                   record_every, w_ref_t, draws, executor="eager"):
     """The dense simulator's loop over the population gather.  MSD and
     straggler ages stay on the device until the run ends.  Returns
     (msd [T], params, gaps [iters] or None, ages [iters, P] or None)."""
+    if executor == "graph":
+        return _run_pure_graph(pop, cfg, A, process, grad_fn, L, batch_size,
+                               iters, record_every, w_ref_t, draws)
     step = gfl.make_gfl_step(process if process is not None else A,
                              grad_fn, cfg)
     state = gfl.init_state(pop.P, pop.dim, device=w_ref_t.device)
@@ -180,3 +193,25 @@ def _run_pure_loop(pop, cfg, A, process, grad_fn, L, batch_size, iters,
         return msd, state.params, None, None
     return (msd, state.params, np.asarray(gaps),
             torch.stack(ages).cpu().numpy())
+
+
+def _run_pure_graph(pop, cfg, A, process, grad_fn, L, batch_size, iters,
+                    record_every, w_ref_t, draws, capture=True):
+    """``_run_pure_loop`` through the round graph (``capture=False``: its
+    staged rounds run eagerly, as the CPU tests run them).  The body
+    records every round's MSD; the trace keeps every ``record_every``-th."""
+    dev = w_ref_t.device
+    if process is None:
+        step = gfl.StagedStep(A, grad_fn, cfg, pop.P, pop.dim, iters, dev)
+    else:
+        from repro_torch.core.resilience.runtime import StagedResilientStep
+        step = StagedResilientStep(process, grad_fn, cfg, pop.P, pop.dim, L,
+                                   iters, dev)
+    msd, params, ages = graphed.run_rounds(
+        step, lambda i: uniform_cohort_batch(draws, i, pop, L, batch_size),
+        draws, iters, w_ref_t, capture=capture)
+    msd = msd[::record_every].cpu().numpy()
+    if process is None or not iters:
+        return msd, params, None, None
+    gaps = np.asarray([process.realize(i).gap for i in range(iters)])
+    return msd, params, gaps, ages.cpu().numpy()

@@ -85,7 +85,10 @@ class RoundContext:
     ``client_protect`` hook.  Eager torch always knows both, so the port
     carries the reference's view along: ``traced_step`` is set where the
     reference traces the step (its jitted step function), and
-    ``sigma_traced`` where the sigma override derives from it."""
+    ``sigma_traced`` where the sigma override derives from it.  Under the
+    round graph ``sigma`` may be a 0-d f32 device tensor, the round's
+    entry of the schedule's table (:meth:`PrivacyMechanism.sigma_table`)
+    read at the graph's round counter."""
     step: Any = 0
     sigma: Any = None
     traced_step: bool = False
@@ -105,6 +108,12 @@ class PrivacyMechanism:
         if ctx is not None and ctx.sigma is not None:
             return ctx.sigma
         return self.cfg.sigma_g
+
+    def sigma_table(self, rounds: int, device) -> Optional[torch.Tensor]:
+        """The per-round sigma of rounds ``0 .. rounds - 1`` as an f32
+        [>= rounds] table on ``device``, when it changes from round to
+        round (``scheduled``); None when it is constant within a run."""
+        return None
 
     def accountant(self) -> PrivacyAccountant:
         return PrivacyAccountant.from_profile(
@@ -332,6 +341,7 @@ class ScheduledMechanism(PrivacyMechanism):
         if inner.partition(":")[0] == "scheduled":
             raise ValueError("scheduled mechanism cannot wrap itself")
         self.inner = get_mechanism(inner, cfg)
+        self._tables: Dict[torch.device, torch.Tensor] = {}
 
     @property
     def horizon(self) -> int:
@@ -346,21 +356,48 @@ class ScheduledMechanism(PrivacyMechanism):
                                   distribution=inner_prof.distribution,
                                   delta=inner_prof.delta)
 
-    def _inner_ctx(self, ctx: Optional[RoundContext]) -> RoundContext:
+    def sigma_table(self, rounds, device):
+        """``sigma_at(i)`` in f32 for i < max(rounds, horizon), made once
+        per device from the host values (grown when a run asks for more).
+        The eager rounds read their entry (a view, no copy); the round
+        graph reads it at its device round counter."""
+        if self.cfg.epsilon_target <= 0:
+            return None
+        dev = torch.device(device)
+        table = self._tables.get(dev)
+        if table is None or table.numel() < rounds:
+            n = max(rounds, self.horizon,
+                    0 if table is None else 2 * table.numel())
+            table = torch.tensor([float(self.sigma_at(i)) for i in range(n)],
+                                 dtype=torch.float32, device=dev)
+            self._tables[dev] = table
+        return table
+
+    def _inner_ctx(self, ctx: Optional[RoundContext],
+                   device=None) -> RoundContext:
+        """The inner mechanism's context: round ``ctx.step``'s sigma, the
+        staged one when the round graph gives it, else the table's entry
+        on ``device``, else (fold_spec, on the host) ``sigma_at``."""
         ctx = ctx if ctx is not None else RoundContext()
+        sigma = ctx.sigma
+        if sigma is None:
+            table = (None if device is None
+                     else self.sigma_table(int(ctx.step) + 1, device))
+            sigma = (self.sigma_at(ctx.step) if table is None
+                     else table[int(ctx.step)])
         # the reference's sigma_at is traced exactly when the schedule is on
         # and the step is traced
-        return replace(ctx, sigma=self.sigma_at(ctx.step),
+        return replace(ctx, sigma=sigma,
                        sigma_traced=(ctx.traced_step
                                      and self.cfg.epsilon_target > 0))
 
     def client_protect(self, w_clients, draws, ctx):
-        return self.inner.client_protect(w_clients, draws,
-                                         self._inner_ctx(ctx))
+        return self.inner.client_protect(
+            w_clients, draws, self._inner_ctx(ctx, w_clients.device))
 
     def client_protect_masked(self, w_clients, draws, alive, ctx):
-        return self.inner.client_protect_masked(w_clients, draws, alive,
-                                                self._inner_ctx(ctx))
+        return self.inner.client_protect_masked(
+            w_clients, draws, alive, self._inner_ctx(ctx, w_clients.device))
 
     def fold_spec(self, ctx=None):
         # a traced schedule makes the inner fold_spec return None, so the
@@ -369,7 +406,8 @@ class ScheduledMechanism(PrivacyMechanism):
         return self.inner.fold_spec(self._inner_ctx(ctx))
 
     def server_combine(self, psi, draws, A, ctx, *, cache=None, gate=None):
-        return self.inner.server_combine(psi, draws, A, self._inner_ctx(ctx),
+        return self.inner.server_combine(psi, draws, A,
+                                         self._inner_ctx(ctx, psi.device),
                                          cache=cache, gate=gate)
 
     def noise_profile(self):

@@ -5,7 +5,10 @@ Mirrors ``repro.core.privacy.noise``: the Laplace sampler draws
 in the open interval (-1/2 + 1e-7, 1/2 - 1e-7), the Gaussian one
 ``N(0, sigma**2)``.  Each sampler takes a :class:`torch.Generator` or the
 uniforms / normals drawn in advance — the parity tests pass the
-reference's own draws through the second door.
+reference's own draws through the second door.  ``sigma`` is a Python
+number or a 0-d f32 tensor on the device (a round's staged sigma); the
+constants of a round are made once per device (:func:`f32_scalar`), so a
+round copies nothing from the host.
 """
 from __future__ import annotations
 
@@ -20,8 +23,33 @@ def laplace_from_uniform(u: torch.Tensor, scale) -> torch.Tensor:
     return -scale * torch.sign(u) * torch.log1p(-2.0 * torch.abs(u))
 
 
-def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+_CONSTANTS: dict = {}
+
+
+def f32_scalar(x, device) -> torch.Tensor:
+    """``x`` as a 0-d f32 tensor on ``device``.  A tensor (a round's
+    staged sigma) passes through; a Python number is made once per
+    (device, value) and kept: made in every round it would be a
+    synchronous copy from the host each time, which a CUDA graph cannot
+    capture."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    key = (torch.device(device), float(x))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(float(x), dtype=torch.float32,
+                                           device=device)
+    return t
+
+
+def _sqrt2(device) -> torch.Tensor:
+    """f32 sqrt(2) as the reference computes it: the square root of an f32
+    2, on the device, kept per device."""
+    key = (torch.device(device), "sqrt2")
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = f32_scalar(2.0, device).sqrt()
+    return t
 
 
 def sample_laplace(shape, sigma, *, generator: torch.Generator | None = None,
@@ -38,7 +66,7 @@ def sample_laplace(shape, sigma, *, generator: torch.Generator | None = None,
         u = uniforms.to(torch.float32)
         if tuple(u.shape) != tuple(shape):
             raise ValueError(f"uniforms {tuple(u.shape)} != shape {shape}")
-    b = _f32(sigma, u.device) / _f32(2.0, u.device).sqrt()
+    b = f32_scalar(sigma, u.device) / _sqrt2(u.device)
     return laplace_from_uniform(u, b).to(dtype)
 
 
@@ -55,7 +83,7 @@ def sample_gaussian(shape, sigma, *, generator: torch.Generator | None = None,
         z = normals.to(torch.float32)
         if tuple(z.shape) != tuple(shape):
             raise ValueError(f"normals {tuple(z.shape)} != shape {shape}")
-    return (z * _f32(sigma, z.device)).to(dtype)
+    return (z * f32_scalar(sigma, z.device)).to(dtype)
 
 
 SAMPLERS = {

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.privacy.noise import f32_scalar
+
 
 def num_pairs(L: int) -> int:
     return L * (L - 1) // 2
@@ -38,8 +40,7 @@ def pair_stream_matrix(L: int, dim: int, scale, *,
         raise ValueError(f"pair normals {tuple(normals.shape)} do not match "
                          f"L={L}, dim={dim}")
     vals = (normals.to(torch.float32)
-            * torch.as_tensor(scale, dtype=torch.float32,
-                              device=normals.device)).to(dtype)
+            * f32_scalar(scale, normals.device)).to(dtype)
     lead = tuple(normals.shape[:-2])
     jj, kk = torch.triu_indices(L, L, offset=1, device=normals.device)
     S = torch.zeros(lead + (L, L, dim), dtype=dtype, device=normals.device)

@@ -107,7 +107,7 @@ def base_combination_matrix(cfg: GFLConfig, P: int) -> np.ndarray:
 def run_gfl(prob: LogisticProblem, cfg: GFLConfig, *, iters: int,
             batch_size: int = 10, seed: int = 0, record_every: int = 1,
             A: np.ndarray | None = None, process=None,
-            record_gaps: bool = False, draws=None):
+            record_gaps: bool = False, draws=None, executor=None):
     """Run the protocol on the problem's device; return (msd_trace [T],
     final params [P, D]), and with ``record_gaps`` the per-round
     ``spectral_gap(A_i)`` [iters] third.
@@ -117,7 +117,9 @@ def run_gfl(prob: LogisticProblem, cfg: GFLConfig, *, iters: int,
     resilience runtime: per-round A_i, client dropout, stragglers.  This
     IS the population engine's pure path over a dense population.
     ``draws`` replaces the run's generators (``Draws(seed)``) with, e.g.,
-    a replay of the reference's draws."""
+    a replay of the reference's draws.  ``executor``: the round graph
+    (``"graph"``, the default on a card) or ``"eager"`` (see
+    :func:`~repro_torch.core.population.engine.run_gfl_population`)."""
     from repro_torch.core.population import CohortScheduler, DensePopulation
     from repro_torch.core.population.engine import run_gfl_population
 
@@ -127,7 +129,7 @@ def run_gfl(prob: LogisticProblem, cfg: GFLConfig, *, iters: int,
     res = run_gfl_population(pop, cfg, iters=iters, batch_size=batch_size,
                              seed=seed, record_every=record_every, A=A,
                              process=process, scheduler=scheduler,
-                             draws=draws)
+                             draws=draws, executor=executor)
     if not record_gaps:
         return res.msd, res.params
     gaps = res.gaps

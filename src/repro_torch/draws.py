@@ -6,15 +6,26 @@ noise of a round are independent streams: switching ``use_kernels`` changes
 which client-level draw is made (hash-mask seeds instead of Gaussian pair
 streams) without moving the cohort or the combine noise.  Torch cannot
 reproduce threefry, so the port keeps the same structure with one
-:class:`torch.Generator` per ``(seed, round, stream)``:
+:class:`torch.Generator` per stream, reseeded for each round from
+``(seed, round, stream)``:
 
 ``cohort``   the round's client and minibatch indices;
 ``client``   mask seeds, iid client noise or Gaussian pair streams;
 ``combine``  the server-level noise.
 
+The invariant: each ``(round, stream)`` is drawn from once (the cohort's
+two ``rand`` calls are one draw), and :class:`Draws` raises on a second.
+``manual_seed`` sets a generator's Philox offset back to 0, so a reseeded
+generator draws exactly the bits a fresh one would.  That is what lets the
+round graph (:mod:`repro_torch.core.population.graphed`) replay the draws:
+its three generators are registered with the graph, :meth:`Draws.stage`
+reseeds them with round i's seeds before round i's replay, and the
+captured draws read the seeds and offsets as they stand.
+
 :class:`ReplayDraws` hands out tensors drawn in advance instead — the
 parity tests fill it with the reference's own draws, replayed from its key
-schedule, so both packages compute on the same numbers.
+schedule, so both packages compute on the same numbers.  It runs only
+under the eager executor.
 """
 from __future__ import annotations
 
@@ -31,20 +42,52 @@ STREAMS = {"cohort": 0, "client": 1, "combine": 2}
 
 
 class Draws:
-    """Generator-backed draws: each ``(round, stream)`` gets its own
-    Generator seeded from ``(seed, round, stream)``, and is drawn from once."""
+    """Generator-backed draws: one Generator per stream on the run's
+    device, reseeded with ``(seed, round, stream)``'s seed for each draw
+    (or once a round by :meth:`stage`); each ``(round, stream)`` is drawn
+    from once."""
 
     def __init__(self, seed=None, device=None):
         if seed is None:
             seed = int(os.environ.get(SEED_ENV, "0"))
         self.seed = int(seed)
         self.device = resolve_device(device)
+        self._gens = {s: torch.Generator(device=self.device) for s in STREAMS}
+        self._drawn = {s: set() for s in STREAMS}
+        self._staged = None
 
-    def generator(self, step: int, stream: str) -> torch.Generator:
+    def round_seed(self, step: int, stream: str) -> int:
+        """The seed of ``stream``'s generator in round ``step``."""
         state = np.random.SeedSequence(
             [self.seed, int(step), STREAMS[stream]]).generate_state(1, np.uint64)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(state[0]) & ((1 << 63) - 1))
+        return int(state[0]) & ((1 << 63) - 1)
+
+    def generators(self) -> tuple:
+        """The three generators, for registering with a CUDA graph."""
+        return tuple(self._gens.values())
+
+    def stage(self, step: int) -> None:
+        """Reseed every stream for round ``step`` before a replay of the
+        round graph: its captured draws read the generators as they
+        stand.  The round's draws made through this object then take the
+        generators as staged."""
+        for stream, gen in self._gens.items():
+            gen.manual_seed(self.round_seed(step, stream))
+        self._staged = int(step)
+
+    def generator(self, step: int, stream: str) -> torch.Generator:
+        """``stream``'s generator, seeded for round ``step``; raises when
+        that round already drew from the stream."""
+        step = int(step)
+        drawn = self._drawn[stream]
+        if step in drawn:
+            raise RuntimeError(
+                f"round {step} drew from the {stream!r} stream already: each "
+                "(round, stream) is drawn from once")
+        drawn.add(step)
+        gen = self._gens[stream]
+        if step != self._staged:
+            gen.manual_seed(self.round_seed(step, stream))
         return gen
 
     def cohort(self, step: int, P: int, K: int, N: int, L: int, B: int):
@@ -82,13 +125,24 @@ class ReplayDraws(Draws):
     kind one of ``cohort`` (value = (client_idx, batch_idx)),
     ``mask_seeds``, ``laplace_uniform`` or ``normal``.  Every request is
     checked against the next entry's round, stream, kind and shape, so a
-    run that asks in another order than the reference fails loudly."""
+    run that asks in another order than the reference fails loudly.  Eager
+    executor only: :meth:`generators`, which the round graph registers,
+    raises."""
 
     def __init__(self, rounds, device=None):
         self.device = resolve_device(device)
         self.seed = None
         self._queue = deque((i, s, k, v) for i, entries in enumerate(rounds)
                             for (s, k, v) in entries)
+
+    def generators(self):
+        raise RuntimeError(
+            "ReplayDraws hands out host arrays one request at a time and "
+            "cannot feed a replayed CUDA graph: run with executor='eager'")
+
+    def stage(self, step):
+        """Nothing to reseed: the draws come in their order (the staged
+        rounds run eagerly on replayed draws; a graph cannot)."""
 
     def _next(self, step, stream, kind, shape=None):
         if not self._queue:

@@ -4,15 +4,28 @@ Each wrapper dispatches on the device of its tensors: a CPU tensor goes to
 the plain version beside the kernel, a CUDA tensor launches the kernel
 (built from ``repro_torch/csrc`` on first use) or raises — there is no
 fallback.  ``LAUNCHES`` counts the kernel launches per wrapper, so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels.  A wrapper called
+under CUDA-graph capture counts at the call; the round graph
+(``core/population/graphed.py``) takes those counts back after the capture
+and adds them at every replay (:func:`count_replay`), so ``LAUNCHES``
+counts real launches either way, and ``REPLAYED`` the share of them that
+replays made.
 """
 from __future__ import annotations
 
 LAUNCHES = {"fold_norms": 0, "fold_apply": 0, "graph_combine": 0,
             "pair_streams": 0, "swa_decode": 0, "secure_agg_mean": 0,
             "clip_accum": 0, "laplace_transform": 0}
+REPLAYED = dict.fromkeys(LAUNCHES, 0)
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
-        LAUNCHES[name] = 0
+        LAUNCHES[name] = REPLAYED[name] = 0
+
+
+def count_replay(held: dict) -> None:
+    """Count one replay of a graph that holds ``held`` launches a kernel."""
+    for name, n in held.items():
+        LAUNCHES[name] += n
+        REPLAYED[name] += n

@@ -641,3 +641,119 @@ def test_kernel_bench_runs_on_the_card(cuda):
         assert K.LAUNCHES[name] > 0, name
     assert all(v > 0 for v in micro.values())
     assert all(v == v for _, v in rows)
+
+
+# --------------------------------------------- the round graph (executor)
+
+SCHEMES = ["none", "iid_dp", "hybrid", "gaussian_dp", "scheduled"]
+EVERYTHING = "links:0.2+outage:0.1+straggler:0.3,stale=2+dropout:0.3"
+
+
+def _round_graph_problem():
+    from repro_torch import rng
+    from repro_torch.core.simulate import generate_problem
+    return generate_problem(rng(0, "cuda"), P=4, K=6, N=20)
+
+
+def _round_graph_cfg(scheme, use_kernels, iters, **kw):
+    from repro_torch.configs.base import GFLConfig
+    from repro_torch.core.privacy.accountant import epsilon_at
+    return GFLConfig(num_servers=4, clients_per_server=6, clients_sampled=5,
+                     topology="ring", privacy=scheme, sigma_g=0.3, mu=0.1,
+                     grad_bound=5.0, use_kernels=use_kernels,
+                     epsilon_target=epsilon_at(iters, 0.1, 5.0, 0.3),
+                     epsilon_horizon=iters, **kw)
+
+
+def _graph_and_eager(prob, cfg, iters, **kw):
+    """(msd, params, launches, replayed) of a run under each executor."""
+    from repro_torch.core.simulate import run_gfl
+    out = {}
+    for executor in ("graph", "eager"):
+        K.reset_launches()
+        msd, params = run_gfl(prob, cfg, iters=iters, batch_size=5, seed=3,
+                              executor=executor, **kw)
+        out[executor] = (msd, params, dict(K.LAUNCHES), dict(K.REPLAYED))
+    return out
+
+
+def _assert_bitwise(out):
+    (mg, pg, lg, _), (me, pe, le, _) = out["graph"], out["eager"]
+    assert torch.equal(pg, pe)
+    assert mg.tolist() == me.tolist()
+    assert lg == le
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_round_graph_is_the_eager_executor(cuda, scheme, use_kernels):
+    """The graph replays every round after the first: params, the MSD
+    trace and the launch counts are bitwise the eager executor's, and the
+    wrappers launch K1-K3 only in the warm-up round."""
+    iters = 7
+    out = _graph_and_eager(_round_graph_problem(),
+                           _round_graph_cfg(scheme, use_kernels, iters),
+                           iters)
+    _assert_bitwise(out)
+    launches, replayed = out["graph"][2], out["graph"][3]
+    for name in ("fold_norms", "fold_apply", "graph_combine"):
+        if launches[name]:
+            assert launches[name] == iters
+            assert launches[name] - replayed[name] == 1
+
+
+@pytest.mark.parametrize("fault,tau,scheme", [
+    ("none", 2, "hybrid"), ("none", 3, "iid_dp"), ("none", 2, "scheduled"),
+    (EVERYTHING, 1, "none"), (EVERYTHING, 1, "iid_dp"),
+    (EVERYTHING, 1, "hybrid"), (EVERYTHING, 1, "gaussian_dp"),
+    (EVERYTHING, 1, "scheduled"), (EVERYTHING, 2, "hybrid"),
+    ("links:0.0+dropout:0.0", 1, "hybrid")])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_round_graph_combine_every_and_faults(cuda, fault, tau, scheme,
+                                              use_kernels):
+    """combine_every > 1 (a graph that combines and one that does not) and
+    faulted runs (A_i, masks staged, straggler state in the graph)."""
+    iters = 9
+    cfg = _round_graph_cfg(scheme, use_kernels, iters, fault=fault,
+                           combine_every=tau, topology_seed=7)
+    _assert_bitwise(_graph_and_eager(_round_graph_problem(), cfg, iters,
+                                     record_every=2))
+
+
+def test_round_graph_scan(cuda):
+    from repro_torch.core.population.engine import run_gfl_population
+    prob = _round_graph_problem()
+    cfg = _round_graph_cfg("hybrid", True, 6)
+    runs = [run_gfl_population(prob, cfg, iters=6, batch_size=5, seed=4,
+                               record_every=2, scan=True, executor=ex)
+            for ex in ("graph", "eager")]
+    assert torch.equal(runs[0].params, runs[1].params)
+    assert runs[0].msd.tolist() == runs[1].msd.tolist()
+
+
+def test_round_graph_memory_is_flat(cuda):
+    """Twenty runs, each capturing its round graph and freeing it at the
+    end, leave the allocated memory where the first left it."""
+    from repro_torch.core.simulate import run_gfl
+    prob = _round_graph_problem()
+    cfg = _round_graph_cfg("hybrid", True, 4)
+    run_gfl(prob, cfg, iters=4, batch_size=5, seed=1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    for seed in range(20):
+        run_gfl(prob, cfg, iters=4, batch_size=5, seed=seed)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
+
+
+def test_round_graph_refuses_replayed_draws(cuda):
+    import numpy as np
+    from repro_torch.core.simulate import run_gfl
+    from repro_torch.draws import ReplayDraws
+    prob = _round_graph_problem()
+    draws = ReplayDraws([[("cohort", "cohort", (np.zeros((4, 5), int),
+                                                np.zeros((4, 5, 5), int)))]],
+                        device="cuda")
+    with pytest.raises(RuntimeError, match="executor='eager'"):
+        run_gfl(prob, _round_graph_cfg("none", False, 1), iters=1,
+                batch_size=5, draws=draws)

@@ -105,7 +105,41 @@ Phases, each printing JSON lines:
              launched at most once a round, no K1-K3 kernel after its
              capture may come from a cudaLaunchKernel, and the wrappers
              may launch K1-K3 only in the warm-up round.
-9. swa     — K8 swa_decode against its plain version at the serving shapes
+9. population — the population engine's weighted path at the demo's full
+             size (examples/population_demo.py: P=8, K=10^5 virtual
+             clients a server, L=20, N=100, M=2, 120 rounds, hypercube,
+             hybrid, a lazy synthetic:hetero population).  First one
+             weighted fold (K1 + K2 through ops.round_fold) at (8, 20, 2)
+             and (8, 20, 4096) in every mode, importance weights spread
+             over 1e-3 .. 1e3 before the clip and a third of the clients
+             dropped, against round_fold_ref (atol 1e-5, sq rtol 1e-5),
+             twice bitwise equal.  Then `launch/population_demo.py`'s run
+             as a user calls it, its launch counts set to 0 just before:
+             K1-K3 launched, from replays.  Then each of its three cohort
+             specs (uniform; uniform + diurnal trace; importance + the
+             trace), kernels on and off, under the round graph and the
+             eager executor: params, MSD, q, the IS state bitwise equal,
+             the same launch counts (K1-K3 > 0 with kernels on, the
+             wrappers launching only in the warm-up round), q in (0, 1],
+             finite MSD, and the run's amplified epsilon equal to the one
+             recomputed from its q trace.  The same for "everything on"
+             (synthetic:mixture, importance + diurnal trace,
+             links:0.2+dropout:0.3) under hybrid and iid_dp, 60 rounds,
+             every realized A_i mixing; a dirichlet:0.3 population built
+             from the config (K=1000) under both trace specs, with and
+             without that fault, and simulate.run_gfl_importance on the
+             gfl-logreg problem, each graph against eager.  Then a
+             weighted round's time
+             (importance + trace, kernels on): steady wall ms a round (the
+             difference of a 130- and a 30-round run) and the profiler's
+             busy, ops and launch calls, under both executors, and the
+             host stage's ms a round with the availability realization's
+             apart.  Last `python -m repro_torch.launch.population_scale`
+             at its defaults (P=8, L=10, 100 rounds, K = 50, 10^3, 10^5,
+             scan=True under the round graph) in its own process:
+             client-steps/s and peak bytes, each below the dense [P, K, N,
+             M] f32 bytes (or 8 MiB where those are smaller).
+10. swa    — K8 swa_decode against its plain version at the serving shapes
              (B, H, KV, C, Dh) = (4, 32, 32, 2047, 96) bf16,
              (4, 32, 32, 1064, 96) bf16, (4, 9, 3, 1064, 64) bf16 and f32,
              (2, 8, 4, 1000, 64) f32 and (32, 32, 32, 2047, 96) bf16 (805 MB
@@ -117,7 +151,7 @@ Phases, each printing JSON lines:
              finds them cold; a CUDA graph captured at nvalid = C/3 and
              replayed at C; and a stall probe at the phi3 shapes (the
              kernel beside its loads-only build, built here).
-10. serve  — phi3-mini-3.8b at full width (32 layers, d 3072, bf16, random
+11. serve  — phi3-mini-3.8b at full width (32 layers, d 3072, bf16, random
              weights from seed 0) through repro_torch.launch.serve.generate:
              request A, 4 x 4096-token prompts + 32 greedy tokens (ring of
              2047 slots, wrapped); request B, 4 x 1000 + 32 (1064 slots,
@@ -695,7 +729,8 @@ def one_op(torch, fn, kernel, name, calls=50, tries=TRACE_TRIES):
             return {"device_ms": rec["device_ms"],
                     "device_ops_per_call": rec["device_ops_per_call"]}
         emit({"phase": "kernels", "retrace": attempt + 1, "of": name,
-              "device_ops": n, "calls": calls, "names": rec["device_ops"]})
+              "device_ops": n, "calls": calls, "names": rec["device_ops"],
+              "markers": rec["markers"]})
     require(False, f"{name}: {n} device ops in {calls} calls "
             f"({rec['device_ops']}) in each of {tries} traces, expected "
             "the kernel alone, once a call")
@@ -711,7 +746,10 @@ def profile_calls(torch, fn, calls, kernel):
     (``torch.cuda._sleep``'s ``spin_kernel``), two before and three after,
     and only the device ops between the first and the last marker are
     read: the profiler has been seen to drop one kernel record at the edge
-    of a window, and a dropped marker costs nothing."""
+    of a window, and a dropped marker costs nothing.  With fewer than two
+    marker records left, every other device op of the trace is read: the
+    calls are all it holds.
+    ``markers`` counts the marker records found."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -730,7 +768,10 @@ def profile_calls(torch, fn, calls, kernel):
     device = [e for e in prof.events()
               if str(getattr(e, "device_type", "")).endswith("CUDA")]
     marks = [e.time_range.start for e in device if "spin_kernel" in e.name]
-    lo, hi = (min(marks), max(marks)) if len(marks) >= 2 else (0, -1)
+    # with fewer than two marker records left, the trace's other device
+    # ops are still the calls' alone (the warm-up ran before it)
+    lo, hi = ((min(marks), max(marks)) if len(marks) >= 2
+              else (float("-inf"), float("inf")))
     dev = dev_all = 0.0
     names = set()
     n_ops = 0
@@ -744,7 +785,8 @@ def profile_calls(torch, fn, calls, kernel):
         if kernel in evt.name:
             dev += us
     ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    return {"calls": calls, "host_ms_per_call": host * 1e3 / calls,
+    return {"calls": calls, "markers": len(marks),
+            "host_ms_per_call": host * 1e3 / calls,
             "device_ms": dev / 1e3 / calls,
             "device_ms_all_ops": dev_all / 1e3 / calls,
             "device_ops_per_call": n_ops / calls,
@@ -1215,8 +1257,9 @@ def phase_main(torch):
             emit({"phase": "main", "scheme": scheme, "combine_every": 2,
                   "use_kernels": use_kernels, "graph_is_eager": True,
                   "launches": graph[3]})
-    graph_memory(torch, prob, replace(base, privacy="hybrid",
-                                      use_kernels=True))
+    for use_kernels in (True, False):
+        graph_memory(torch, prob, replace(base, privacy="hybrid",
+                                          use_kernels=use_kernels))
     return totals, prob
 
 
@@ -1229,6 +1272,7 @@ def graph_memory(torch, prob, cfg, runs=GRAPH_CYCLES):
         timed_run(torch, prob, cfg, 20, seed)
     after = torch.cuda.memory_allocated()
     emit({"phase": "main", "graph_cycles": runs,
+          "use_kernels": cfg.use_kernels,
           "memory_allocated_before": base, "memory_allocated_after": after})
     require(after == base, f"{runs} round-graph runs left {after - base} "
             "bytes allocated")
@@ -1534,44 +1578,61 @@ STEADY_ROUNDS = (100, 600)  # wall a round: the difference of two runs
 STEADY_REPEATS = 3
 
 
-def steady_ms(torch, prob, cfg, executor) -> float:
+def steady_ms(torch, run, executor, rounds=STEADY_ROUNDS) -> float:
     """Wall ms a round in steady state, without the profiler: the median
-    over STEADY_REPEATS of the difference of a long and a short run over
-    their difference in rounds, so the round graph's warm-up and capture
-    (and the eager run's first round) cancel."""
+    over STEADY_REPEATS of the difference of a long and a short run
+    (``run(iters, executor)``) over their difference in rounds, so the
+    round graph's warm-up and capture (and the eager run's first round)
+    cancel."""
     import statistics
 
-    short, long_ = STEADY_ROUNDS
+    short, long_ = rounds
     diffs = []
     for _ in range(STEADY_REPEATS):
-        walls = [timed_run(torch, prob, cfg, n, 2, executor)[2]
-                 for n in (short, long_)]
+        walls = []
+        for n in (short, long_):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(n, executor)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
         diffs.append((walls[1] - walls[0]) * 1e3 / (long_ - short))
     return statistics.median(diffs)
 
 
-def profile_run(torch, prob, cfg, executor, rounds=PROFILE_ROUNDS) -> dict:
-    """torch.profiler over one ``rounds``-round run.  For the round graph
+def gfl_runner(prob, cfg):
+    """``run(iters, executor)`` of ``run_gfl`` on ``prob`` (seed 2)."""
+    from repro_torch.core.simulate import run_gfl
+
+    def run(iters, executor):
+        return run_gfl(prob, cfg, iters=iters, batch_size=10, seed=2,
+                       executor=executor)
+    return run
+
+
+def profile_run(torch, run, executor, rounds=PROFILE_ROUNDS) -> dict:
+    """torch.profiler over one ``rounds``-round ``run(iters, executor)``.  For the round graph
     the window opens at the first ``cudaGraphLaunch`` (after the warm-up
     round and the capture) and a round is a replay; eagerly it opens at
     the run's first device op.  It closes at the last device op's end.
     Per round: the window's length, device busy ms and ops, host launch
     calls by name, and the K1-K3 device kernels by the host call that
     launched them (CUPTI's correlation id: ``cudaLaunchKernel`` or
-    ``cudaGraphLaunch``); the idle share is the window's.  The tracer
+    ``cudaGraphLaunch``); the idle share is the window's.  Under the graph,
+    the host's share: its time from the end of one ``cudaGraphLaunch`` to
+    the start of the next (the round's stage), over the span from the
+    first replay's start to the last's.  The tracer
     lengthens small kernels, so busy time here can exceed a round's
     wall time measured without it (``steady_ms``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import kernels as K
-    from repro_torch.core.simulate import run_gfl
 
-    run_gfl(prob, cfg, iters=5, batch_size=10, seed=2, executor=executor)
+    run(5, executor)
     torch.cuda.synchronize()
     K.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run_gfl(prob, cfg, iters=rounds, batch_size=10, seed=2,
-                executor=executor)
+        run(rounds, executor)
         torch.cuda.synchronize()
     wrapper_calls = {k: K.LAUNCHES[k] - K.REPLAYED[k] for k in ROUND_KERNELS}
     events = list(prof.events())
@@ -1586,6 +1647,13 @@ def profile_run(torch, prob, cfg, executor, rounds=PROFILE_ROUNDS) -> dict:
           else min(e.time_range.start for e in device))
     hi = max(e.time_range.end for e in device)
     n = len(graph_launches) if executor == "graph" else rounds
+    # the host between replays: from the end of one cudaGraphLaunch to the
+    # start of the next (the round's host stage), over those replays' span
+    replays = sorted((e.time_range.start, e.time_range.end) for e in calls
+                     if e.name == "cudaGraphLaunch")
+    host_share = (sum(b[0] - a[1] for a, b in zip(replays, replays[1:]))
+                  / (replays[-1][0] - replays[0][0])
+                  if len(replays) > 1 else None)
     by_call = {e.id: e.name for e in calls}
     launch_calls = {name: 0 for name in LAUNCH_CALLS}
     for e in calls:
@@ -1609,6 +1677,7 @@ def profile_run(torch, prob, cfg, executor, rounds=PROFILE_ROUNDS) -> dict:
             "launch_calls_per_round": {k: v / n for k, v in
                                        launch_calls.items()} if n else None,
             "round_kernels_by_launch_call": k13,
+            "host_share_between_replays": host_share,
             "wrapper_launches": wrapper_calls}
 
 
@@ -1630,8 +1699,8 @@ def phase_profile(torch, prob):
               ("fig2", fig2_config(0.2, "hybrid"))]
     for shape, cfg in shapes:
         for executor in ("graph", "eager"):
-            rec = profile_run(torch, prob, cfg, executor)
-            wall = steady_ms(torch, prob, cfg, executor)
+            rec = profile_run(torch, gfl_runner(prob, cfg), executor)
+            wall = steady_ms(torch, gfl_runner(prob, cfg), executor)
             emit({"phase": "profile", "scheme": "hybrid", "shape": shape,
                   "clients_sampled": cfg.clients_sampled,
                   "use_kernels": cfg.use_kernels, "executor": executor,
@@ -1657,6 +1726,404 @@ def phase_profile(torch, prob):
                         f"profile {shape}: K1-K3 kernels {by_call} in "
                         f"{rec['rounds_in_window']} replays, expected one "
                         "each a replay")
+
+
+# ------------------------------------------------------------ population
+
+POP_ITERS = 120                 # examples/population_demo.py's rounds
+POP_EVERYTHING = ("synthetic:mixture",
+                  "importance,floor=0.2+trace:diurnal,period=24,min=0.2",
+                  "links:0.2+dropout:0.3")
+POP_EVERYTHING_ITERS = 60
+POP_DIRICHLET = ("dirichlet:0.3", 1000)    # spec, K: the pool is P K 20
+POP_STEADY_ROUNDS = (30, 130)
+POP_STAGE_ROUNDS = 100
+# (P, L, D, topology): the demo's weighted rounds (hypercube, L = 20), a
+# wide row at the demo's P and L, and the bench's rounds (ring, L = 10)
+POP_FOLD_SHAPES = [(8, 20, 2, "hypercube"), (8, 20, 4096, "hypercube"),
+                   (8, 10, 2, "ring")]
+POP_ONOFF_ROUNDS = 10       # rounds whose MSD kernels on and off must share
+POP_FOLD_SIGMA = 0.2
+
+
+def pop_run(torch, pop, cfg, iters, w_ref, executor=None, seed=1):
+    """(result, wall s, launches, replayed) of one ``run_gfl_population``,
+    its launch counts set to 0 just before (``pop`` None: built from
+    ``cfg.population``)."""
+    from repro_torch import kernels as K
+    from repro_torch.core.population import run_gfl_population
+
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_gfl_population(pop, cfg, iters=iters, batch_size=10,
+                             seed=seed, w_ref=w_ref, executor=executor,
+                             device="cuda")
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(K.LAUNCHES), dict(K.REPLAYED)
+
+
+def require_pop_graph_is_eager(torch, what, graph, eager, cfg) -> dict:
+    """A population run under the round graph against the eager executor on
+    the same seed: params, MSD, q, the IS state and the gaps bitwise
+    equal, the same launch counts, the wrappers launching K1-K3 only in the
+    warm-up round; q in (0, 1], finite MSD, and the run's amplified epsilon
+    equal to the one recomputed from its q trace."""
+    import numpy as np
+    from repro_torch.core.privacy.mechanism import mechanism_for
+
+    res_g, wall_g, launches_g, replayed = graph
+    res_e, wall_e, launches_e, _ = eager
+    same = (bool(torch.equal(res_g.params, res_e.params))
+            and res_g.msd.tolist() == res_e.msd.tolist()
+            and res_g.q.tolist() == res_e.q.tolist())
+    if res_g.scheduler.is_state is not None:
+        same = same and all(bool(torch.equal(a, b)) for a, b in zip(
+            res_g.scheduler.is_state, res_e.scheduler.is_state))
+    if res_g.gaps is not None:
+        same = same and bool(np.array_equal(res_g.gaps, res_e.gaps))
+    require(same, f"population {what}: the round graph differs from the "
+            "eager executor")
+    require(launches_g == launches_e,
+            f"population {what}: launches {launches_g} under the graph, "
+            f"{launches_e} eagerly")
+    for name in ROUND_KERNELS:
+        calls = launches_g[name] - replayed[name]
+        require(calls <= 1 and (calls > 0) == (launches_g[name] > 0),
+                f"population {what}: {name} launched by its wrapper {calls} "
+                "times under the graph, expected once (the warm-up round)")
+    require(bool(np.all(np.isfinite(res_g.msd))),
+            f"population {what}: non-finite MSD")
+    require(bool(np.all((res_g.q > 0) & (res_g.q <= 1))),
+            f"population {what}: q outside (0, 1]")
+    acc = mechanism_for(cfg).accountant()
+    for qi in res_g.q:
+        acc.advance(1, q=float(qi))
+    eps_amp = res_g.accountant.amplified_epsilon()
+    require(eps_amp == acc.amplified_epsilon(),
+            f"population {what}: amplified epsilon {eps_amp} against "
+            f"{acc.amplified_epsilon()} from the q trace")
+    return {"wall_s": wall_g, "wall_s_eager": wall_e,
+            "msd_tail": float(np.mean(res_g.msd[-max(len(res_g.msd) // 10,
+                                                      1):])),
+            "q_mean": float(res_g.q.mean()), "q_max": float(res_g.q.max()),
+            "epsilon": res_g.accountant.epsilon(),
+            "epsilon_amplified": eps_amp, "launches": launches_g,
+            "replayed": replayed}
+
+
+def require_pop_kernels_are_plain(torch, cohort, on, off) -> dict:
+    """The same seed's run with the kernels (K1-K3) and without them (the
+    reference's ops): the MSD of the first POP_ONOFF_ROUNDS rounds within
+    rtol 1e-4.  Where the draws do not read the sampler's feedback (no
+    importance sampler), the final params within atol 1e-4 too; under
+    importance sampling norms that differ in the last bits may, rarely,
+    tip a later draw across a CDF step, after which the runs part."""
+    import numpy as np
+
+    n = POP_ONOFF_ROUNDS
+    msd_rel = float(np.max(np.abs(on.msd[:n] / off.msd[:n] - 1)))
+    require(msd_rel <= 1e-4, f"population {cohort}: the MSD of the first "
+            f"{n} rounds with the kernels and without differ by {msd_rel} "
+            "(relative)")
+    rec = {"kernels_against_plain": {"msd_rel_err_first_rounds": msd_rel,
+                                     "rounds": n}}
+    if off.scheduler.is_state is None:
+        err = float((on.params - off.params).abs().max())
+        require(err <= 1e-4, f"population {cohort}: final params with the "
+                f"kernels and without differ by {err}")
+        rec["kernels_against_plain"]["params_max_abs_err"] = err
+    return rec
+
+
+def importance_check(torch) -> None:
+    """``simulate.run_gfl_importance`` on the gfl-logreg problem (P=10,
+    K=50, N=100, L=50, kernels on) under both executors: bitwise equal,
+    finite, K1-K3 launched."""
+    import numpy as np
+    from dataclasses import replace
+    from repro_torch import kernels as K, rng
+    from repro_torch.configs import gfl_logreg
+    from repro_torch.core.simulate import generate_problem, run_gfl_importance
+
+    prob = generate_problem(rng(0, "cuda"), P=10, K=50, N=100, M=2)
+    cfg = replace(gfl_logreg.GFL, use_kernels=True)
+    out = {}
+    for executor in ("graph", "eager"):
+        K.reset_launches()
+        out[executor] = (*run_gfl_importance(prob, cfg, iters=200,
+                                             seed=1, executor=executor),
+                         dict(K.LAUNCHES))
+    (msd_g, p_g, l_g), (msd_e, p_e, l_e) = out["graph"], out["eager"]
+    require(bool(torch.equal(p_g, p_e)) and msd_g.tolist() == msd_e.tolist()
+            and l_g == l_e, "run_gfl_importance: the round graph differs "
+            "from the eager executor")
+    require(bool(np.all(np.isfinite(msd_g)))
+            and all(l_g[k] > 0 for k in ROUND_KERNELS),
+            f"run_gfl_importance: MSD finite {np.isfinite(msd_g).all()}, "
+            f"launches {l_g}")
+    emit({"phase": "population", "entry": "run_gfl_importance",
+          "msd_tail": float(np.mean(msd_g[-20:])), "launches": l_g,
+          "graph_is_eager": True})
+
+
+def pop_scale_rows(torch):
+    """``python -m repro_torch.launch.population_scale`` at its defaults,
+    as a user runs it (its own process: its peak bytes are its run's):
+    every K's row, its peak below the dense budget (the entry asserts it
+    too and exits non-zero)."""
+    import csv
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "repro_torch.launch.population_scale"],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=600)
+    require(out.returncode == 0, "population_scale exited "
+            f"{out.returncode}: {out.stderr[-2000:]}")
+    lines = [ln for ln in out.stdout.splitlines() if not ln.startswith("#")]
+    header, *rows = csv.reader(lines[:4])
+    rows = [dict(zip(header, r)) for r in rows]
+    for r in rows:
+        require(int(r["peak_bytes"]) < int(r["budget_bytes"]),
+                f"population_scale K={r['virtual_K']}: peak "
+                f"{r['peak_bytes']} bytes, budget {r['budget_bytes']}")
+        emit({"phase": "population", "bench": "population_scale", **r})
+    emit({"phase": "population", "bench": "population_scale",
+           "seconds": time.perf_counter() - t0, "tail": lines[4:]})
+    return rows
+
+
+def pop_fold_check(torch, gen) -> float:
+    """K1 + K2 through ``ops.round_fold`` on the weighted path's inputs:
+    importance weights spread over 1e-3 .. 1e3 before the clip, about a
+    third of the clients dropped (survivor fold and noise weights), in
+    every mode, against ``round_fold_ref`` on the same inputs (psi atol
+    1e-5, sq rtol 1e-5); launched once a call, twice bitwise equal.  Then
+    K3 (``ops.graph_combine``) on that psi with the path's combination
+    matrix and a homomorphic noise term, against ``graph_combine_ref``
+    (atol 1e-5)."""
+    from dataclasses import replace
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import gfl_logreg
+    from repro_torch.core import gfl
+    from repro_torch.core.simulate import base_combination_matrix
+    from repro_torch.kernels import ops, ref
+
+    worst = 0.0
+    for P, L, D, topology in POP_FOLD_SHAPES:
+        A = torch.as_tensor(base_combination_matrix(
+            replace(gfl_logreg.GFL, num_servers=P, topology=topology), P),
+            dtype=torch.float32, device="cuda")
+        w = torch.randn((P, D), generator=gen, device="cuda")
+        g = 3 * torch.randn((P, L, D), generator=gen, device="cuda")
+        pre_w = 10.0 ** (6 * torch.rand((P, L), generator=gen,
+                                        device="cuda") - 3)
+        alive = torch.rand((P, L), generator=gen, device="cuda") > 0.3
+        alive[:, 0] = True
+        fold_w, noise_w = gfl._survivor_weights(alive)
+        noise = 0.3 * torch.randn((P, L, D), generator=gen, device="cuda")
+        gn = POP_FOLD_SIGMA * torch.randn((P, D), generator=gen,
+                                          device="cuda")
+        seeds = torch.arange(P, device="cuda", dtype=torch.int64) * 7919 + 3
+        for mode in ("none", "laplace", "mask"):
+            kw = dict(mu=0.1, bound=10.0, pre_w=pre_w, fold_w=fold_w,
+                      noise_w=noise_w, mode=mode, sigma=POP_FOLD_SIGMA,
+                      seeds=seeds if mode == "mask" else None,
+                      noise=noise if mode == "laplace" else None)
+            before = dict(K.LAUNCHES)
+            (psi, sq), again = (ops.round_fold(w, g, **kw)
+                                for _ in range(2))
+            out = ops.graph_combine(A, psi, gn)
+            torch.cuda.synchronize()
+            require(bool(torch.equal(psi, again[0]))
+                    and bool(torch.equal(sq, again[1])),
+                    f"weighted fold {mode}: two runs differ")
+            require(all(K.LAUNCHES[k] - before[k] == n for k, n in
+                        (("fold_norms", 2), ("fold_apply", 2),
+                         ("graph_combine", 1))),
+                    f"weighted fold {mode}: K1/K2/K3 not launched once a "
+                    "call")
+            want_psi, want_sq = ref.round_fold_ref(w, g, **kw)
+            name = f"weighted fold {mode} ({P}, {L}, {D})"
+            err = check_close(torch, name, psi, want_psi, torch.float32)
+            check_close(torch, f"{name} sq", sq, want_sq, torch.float32,
+                        norms=True)
+            err_k3 = check_close(torch, f"{name} combine ({topology})", out,
+                                 ref.graph_combine_ref(A.T, psi, gn),
+                                 torch.float32)
+            worst = max(worst, err, err_k3)
+            emit({"phase": "population", "check": "weighted_fold",
+                  "shape": [P, L, D], "topology": topology, "mode": mode,
+                  "max_abs_err": err, "combine_max_abs_err": err_k3,
+                  "pre_w_range": [float(pre_w.min()), float(pre_w.max())],
+                  "alive": int(alive.sum())})
+    return worst
+
+
+def pop_host_stage(torch, pop, cfg) -> dict:
+    """Host ms a round of the weighted round's host stage
+    (``StagedWeightedStep.stage``: availability [P, K] and the dropout mask
+    realized in numpy and staged through pinned slots, A_i, the draws
+    reseeded) and of the availability realization alone."""
+    from repro_torch.core.population import CohortScheduler
+    from repro_torch.core.population.engine import StagedWeightedStep
+    from repro_torch.core.resilience import TopologyProcess
+    from repro_torch.core.simulate import base_combination_matrix, make_grad_fn
+    from repro_torch.draws import Draws
+
+    A = base_combination_matrix(cfg, pop.P)
+    proc = (None if cfg.fault == "none" else
+            TopologyProcess(A, cfg.fault, seed=cfg.topology_seed))
+    sched = CohortScheduler.from_config(cfg)
+    sched.place("cuda")
+    step = StagedWeightedStep(pop, cfg, sched, proc, A,
+                              make_grad_fn(pop.rho), 10, POP_STAGE_ROUNDS,
+                              torch.device("cuda"))
+    draws = Draws(3, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(POP_STAGE_ROUNDS):
+        step.stage(i, draws)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) * 1e3 / POP_STAGE_ROUNDS
+    t0 = time.perf_counter()
+    for i in range(POP_STAGE_ROUNDS):
+        sched.availability(i)
+    avail_ms = (time.perf_counter() - t0) * 1e3 / POP_STAGE_ROUNDS
+    return {"host_stage_ms_per_round": stage_ms,
+            "availability_ms_per_round": avail_ms}
+
+
+def phase_population(torch):
+    """The population engine's weighted path at the demo's full size (P=8,
+    K=10^5, L=20, N=100, 120 rounds, hypercube, hybrid): the demo entry as
+    a user runs it, its three cohort specs under both executors with
+    kernels on and off, "everything on", a weighted round's time and host
+    stage, the weighted fold, and the bench's K sweep."""
+    from dataclasses import replace
+
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.core.population import (estimate_w_ref,
+                                             population_from_spec)
+    from repro_torch.launch import population_demo as demo
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    fold_err = pop_fold_check(torch, gen)
+    # the entry, counts from 0 just before
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rows, eps = demo.run(device="cuda")
+    torch.cuda.synchronize()
+    launches, replayed = dict(K.LAUNCHES), dict(K.REPLAYED)
+    emit({"phase": "population", "entry": "population_demo",
+          "seconds": time.perf_counter() - t0,
+          "rows": [(c, t, q) for c, t, q, _ in rows], **eps,
+          "launches": launches, "replayed": replayed})
+    for name in ROUND_KERNELS:
+        require(launches[name] > 0 and replayed[name] > 0,
+                f"population_demo: {name} launched {launches[name]} times, "
+                f"{replayed[name]} from replays")
+    for cohort, tail, q_mean, _ in rows:
+        require(bool(np.isfinite(tail)) and 0 < q_mean <= 1,
+                f"population_demo {cohort}: tail {tail}, q {q_mean}")
+    base = demo.base_config()
+    pop = population_from_spec(base, device="cuda")
+    w_ref = estimate_w_ref(pop, sample_clients=64, iters=1500)
+    for cohort in demo.COHORTS:
+        runs = {}
+        for use_kernels in (True, False):
+            cfg = replace(base, cohort=cohort, use_kernels=use_kernels)
+            what = f"{cohort}, use_kernels {use_kernels}"
+            graph = pop_run(torch, pop, cfg, POP_ITERS, w_ref)
+            rec = require_pop_graph_is_eager(
+                torch, what, graph,
+                pop_run(torch, pop, cfg, POP_ITERS, w_ref, "eager"), cfg)
+            if use_kernels:
+                for name in ROUND_KERNELS:
+                    require(rec["launches"][name] > 0,
+                            f"population {what}: {name} never launched")
+            runs[use_kernels] = graph[0]
+            emit({"phase": "population", "cohort": cohort,
+                  "use_kernels": use_kernels, "iters": POP_ITERS,
+                  "graph_is_eager": True, **rec})
+        emit({"phase": "population", "cohort": cohort,
+              **require_pop_kernels_are_plain(torch, cohort, runs[True],
+                                              runs[False])})
+    population, cohort, fault = POP_EVERYTHING
+    pop_mix = population_from_spec(replace(base, population=population),
+                                   device="cuda")
+    w_mix = estimate_w_ref(pop_mix, sample_clients=64, iters=1500)
+    for scheme in ("hybrid", "iid_dp"):
+        for use_kernels in (True, False):
+            cfg = replace(base, population=population, cohort=cohort,
+                          fault=fault, privacy=scheme,
+                          use_kernels=use_kernels, topology_seed=7)
+            what = f"everything on, {scheme}, use_kernels {use_kernels}"
+            graph = pop_run(torch, pop_mix, cfg, POP_EVERYTHING_ITERS, w_mix)
+            rec = require_pop_graph_is_eager(
+                torch, what, graph,
+                pop_run(torch, pop_mix, cfg, POP_EVERYTHING_ITERS, w_mix,
+                        "eager"), cfg)
+            require(bool(np.all(graph[0].gaps < 1.0)),
+                    f"population {what}: a realized A_i does not mix")
+            emit({"phase": "population", "everything_on": True,
+                  "scheme": scheme, "use_kernels": use_kernels,
+                  "spec": POP_EVERYTHING, "iters": POP_EVERYTHING_ITERS,
+                  "graph_is_eager": True, **rec})
+    # the other ways in: a Dirichlet population built from the config,
+    # and run_gfl_importance on the gfl-logreg problem
+    population, K_d = POP_DIRICHLET
+    for cohort in demo.COHORTS[1:]:
+        for fault_d in ("none", fault):
+            cfg = replace(base, clients_per_server=K_d,
+                          population=population, cohort=cohort,
+                          fault=fault_d)
+            what = f"{population} K={K_d}, {cohort}, fault {fault_d}"
+            rec = require_pop_graph_is_eager(
+                torch, what,
+                pop_run(torch, None, cfg, POP_EVERYTHING_ITERS, None),
+                pop_run(torch, None, cfg, POP_EVERYTHING_ITERS, None,
+                        "eager"), cfg)
+            emit({"phase": "population", "population": population,
+                  "clients_per_server": K_d, "cohort": cohort,
+                  "fault": fault_d, "graph_is_eager": True, **rec})
+    importance_check(torch)
+    # a weighted round's time: the demo's importance + trace spec
+    cfg = replace(base, cohort=demo.COHORTS[2])
+
+    def run(iters, executor):
+        return pop_run(torch, pop, cfg, iters, w_ref, executor, seed=2)
+
+    timing = {}
+    for executor in ("graph", "eager"):
+        rec = profile_run(torch, run, executor)
+        wall = steady_ms(torch, run, executor, POP_STEADY_ROUNDS)
+        timing[executor] = (wall, rec)
+        emit({"phase": "population", "timing": cfg.cohort,
+              "executor": executor, "wall_ms_per_round": wall,
+              "busy_over_wall": rec["device_busy_ms_per_round"] / wall,
+              **rec})
+    stage = pop_host_stage(torch, pop, cfg)
+    traced = timing["graph"][1]
+    require(traced["host_share_between_replays"] is not None,
+            "population timing: no two replays in the traced graph run")
+    emit({"phase": "population", "timing": cfg.cohort, **stage,
+          "host_share_of_traced_graph_round":
+              traced["host_share_between_replays"],
+          "stage_alone_over_graph_round_wall":
+              stage["host_stage_ms_per_round"] / timing["graph"][0],
+          "graph_ms_per_round": timing["graph"][0],
+          "eager_ms_per_round": timing["eager"][0]})
+    scale = pop_scale_rows(torch)
+    return {"launches": launches, "fold_err": fold_err,
+            "client_steps_per_sec_K1e5":
+                float(scale[-1]["client_steps_per_sec"])}
 
 
 # ------------------------------------------------------------ K8 (swa)
@@ -2076,6 +2543,7 @@ def main() -> int:
         phase_resilience(torch, prob)
         phase_profile(torch, prob)
         del prob
+        phase_population(torch)
         swa_row = phase_swa(torch)
         launches["swa_decode"] = phase_serve(torch)
     except SmokeFailure as exc:

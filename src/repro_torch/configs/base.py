@@ -4,10 +4,10 @@ field (names, defaults, ``resolved_head_dim``, ``subquadratic`` and
 
 :class:`ModelConfig` and its sub-configs are pure data; the port runs the
 dense GQA family (``repro_torch.models``), and the registry raises for the
-rest.  :class:`GFLConfig` fields the engines do not run (``fault``,
-non-dense ``population``, non-uniform ``cohort``, ``async_spec``,
-``telemetry``, ``sanitize``) are kept so a config round-trips, and the
-engines raise ``NotImplementedError`` when one is set.
+rest.  :class:`GFLConfig` fields the engines do not run yet
+(``async_spec``, ``telemetry``, ``sanitize``, and the mesh knobs) are kept
+so a config round-trips, and the engines raise ``NotImplementedError``
+when one is set.
 """
 from __future__ import annotations
 
@@ -26,9 +26,9 @@ class GFLConfig:
                                      # hypercube | expander
     topology_seed: int = 0           # seed for randomized graph families
     torus_rows: int = 0              # torus row count; 0 -> near-square auto
-    fault: str = "none"              # resilience fault spec (later slice)
-    population: str = "dense"        # client-population spec (dense only)
-    cohort: str = "uniform"          # cohort-scheduler spec (uniform only)
+    fault: str = "none"              # resilience fault spec
+    population: str = "dense"        # client-population spec
+    cohort: str = "uniform"          # cohort-scheduler spec
     async_spec: str = "none"         # event-driven executor (later slice)
     data_seed: int = 0               # seed of the lazy population generator
     privacy: str = "hybrid"          # registry key into

@@ -1,6 +1,7 @@
 """State carried across from the reference, through numpy.
 
-The reference's ``GFLState``, ``LogisticProblem`` and model param pytrees
+The reference's ``GFLState``, ``LogisticProblem``, model param pytrees,
+importance-sampler ``ISState`` and Dirichlet pools with their index tables
 hold jax arrays; a caller passes them here as numpy arrays (``np.asarray``,
 ``jax.tree.map(np.asarray, params)``) and gets the port's own types on
 ``device``, so both packages compute on the same numbers.  No jax is
@@ -88,3 +89,34 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig,
          for part in ("ln1", "attn", "ln2", "mlp")}
         for i in range(n)]
     return params
+
+
+def is_state_from_numpy(norm_est, counts, device=None):
+    """The importance sampler's state from the reference's ``ISState``
+    (``norm_est`` [P, K] f32, ``counts`` [P, K] int32)."""
+    from repro_torch.core.sampling import ISState
+    norm_est, counts = np.asarray(norm_est), np.asarray(counts)
+    if norm_est.shape != counts.shape or norm_est.ndim != 2:
+        raise ValueError(f"IS state shapes {norm_est.shape} and "
+                         f"{counts.shape}: expected two equal [P, K]")
+    dev = resolve_device(device)
+    return ISState(_tensor(norm_est, dev),
+                   torch.tensor(counts.astype(np.int32), device=dev))
+
+
+def dirichlet_population_from_numpy(pool_h, pool_g, index, *,
+                                    alpha: float = 0.5, rho: float = 0.01,
+                                    device=None):
+    """A :class:`DirichletPopulation` on the reference's pool ([n, M],
+    [n]) and its index table ``index`` [P, K, N], taken as it is (no new
+    split)."""
+    from repro_torch.core.population.population import DirichletPopulation
+    dev = resolve_device(device)
+    index = np.asarray(index)
+    if index.ndim != 3:
+        raise ValueError(f"index table of shape {index.shape}: expected "
+                         "[P, K, N]")
+    return DirichletPopulation.from_index(
+        _tensor(pool_h, dev), _tensor(pool_g, dev),
+        torch.tensor(index.astype(np.int64), device=dev), alpha=alpha,
+        rho=rho)

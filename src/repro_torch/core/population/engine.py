@@ -1,25 +1,40 @@
-"""Population executor, pure path (port of
+"""Streaming population-scale executor for the GFL protocol (port of
 ``repro.core.population.engine``).
 
-The pure path is the dense simulator's loop: each round draws the cohort
-(L clients per server without replacement, B samples each), gathers its
-minibatches and takes one :func:`~repro_torch.core.gfl.make_gfl_step`
-step — the resilience runtime's step when ``cfg.fault`` (or an explicit
-``process``) sets a fault model.  The reference syncs the MSD to the host
-every round; the port keeps the per-round MSD and straggler ages on the
-device and copies each trace once per run.
+Per round only the sampled ``[P, L]`` cohort is materialized
+(``ClientPopulation.gather``), so memory and compute do not grow with the
+population size K.  Two paths:
 
-On a card both the loop and ``scan=True`` (in the reference one
-``lax.scan`` over the whole run; here the same rounds, recording every
-one, for the static, ``combine_every=1`` path only) run through the round
-graph (:mod:`repro_torch.core.population.graphed`): one round captured
-as a CUDA graph and replayed every round.  ``executor="eager"`` runs the
-rounds op by op instead (:func:`~repro_torch.core.gfl.make_gfl_step`), as
-the CPU always does.
+**Pure path** (``CohortScheduler.pure``: uniform sampler, always-available
+trace): the dense simulator's loop.  Each round draws the cohort (L
+clients per server without replacement, B samples each), gathers its
+minibatches and takes one :func:`~repro_torch.core.gfl.make_gfl_step` step
+— the resilience runtime's step when ``cfg.fault`` (or an explicit
+``process``) sets a fault model.
 
-Not in this slice (they raise ``NotImplementedError`` naming their
-ROADMAP slice): the weighted path (importance sampling, availability
-traces, and faults there), lazy populations, telemetry and the sanitizer.
+**Weighted path** (importance sampling and/or an availability trace):
+cohorts are drawn WITH replacement from the scheduler's effective
+probabilities and each client's update carries the unbiased 1/(K pi)
+weight of [23] (:mod:`repro_torch.core.sampling`), applied before the
+sensitivity clip; the observed gradient norms feed the sampler's running
+estimates.  Mid-round dropout goes through the fused fold's survivor
+weights or the mechanism's dropout-safe ``client_protect_masked`` hook;
+link faults realize A_i from the ``TopologyProcess`` each round.
+Stragglers (which need the runtime's psi cache) and ``scan=True`` are
+pure-path only and raise ``ValueError``, as in the reference.
+
+The reference syncs the MSD (and a weighted round's q) to the host every
+round; the port keeps the per-round MSD, q and straggler ages on the
+device and copies each trace once per run.  On a card both paths run
+through the round graph (:mod:`repro_torch.core.population.graphed`):
+one round captured as a CUDA graph and replayed every round (the weighted
+round as :class:`StagedWeightedStep`; ``scan=True``, in the reference one
+``lax.scan`` over the whole run, is the same rounds of the pure path,
+static topology and ``combine_every=1`` only).  ``executor="eager"`` runs
+the same stage and body op by op instead, as the CPU always does.
+
+Not in this slice (they raise ``NotImplementedError`` naming their ROADMAP
+slice): the event engine (``async_spec``), telemetry and the sanitizer.
 """
 from __future__ import annotations
 
@@ -31,14 +46,23 @@ import torch
 from repro_torch.configs.base import GFLConfig
 from repro_torch.core import gfl
 from repro_torch.core.population import graphed
-from repro_torch.core.population.cohort import CohortScheduler
+from repro_torch.core.population.cohort import (
+    CohortScheduler,
+    CohortSelection,
+)
 from repro_torch.core.population.population import (
     ClientPopulation,
     DensePopulation,
+    population_from_spec,
 )
-from repro_torch.core.privacy.mechanism import mechanism_for
+from repro_torch.core.privacy.mechanism import RoundContext, mechanism_for
 from repro_torch.core.resilience.process import TopologyProcess
-from repro_torch.core.simulate import base_combination_matrix, make_grad_fn
+from repro_torch.core.resilience.runtime import ensure_dropout_safe
+from repro_torch.core.simulate import (
+    _solve_global,
+    base_combination_matrix,
+    make_grad_fn,
+)
 from repro_torch.draws import Draws
 
 
@@ -59,41 +83,57 @@ def uniform_cohort_batch(draws, step: int, pop: ClientPopulation, L: int,
     return pop.gather(client_idx, batch_idx)
 
 
-def as_population(source) -> ClientPopulation:
+def as_population(source, cfg: Optional[GFLConfig] = None,
+                  device=None) -> ClientPopulation:
+    """The engine's data source: a ClientPopulation passes through, a
+    materialized LogisticProblem is wrapped dense, None builds the
+    population named by ``cfg.population`` on ``device``."""
     if isinstance(source, ClientPopulation):
         return source
+    if source is None:
+        if cfg is None:
+            raise ValueError("a population built from the config needs cfg")
+        return population_from_spec(cfg, device=device)
     if hasattr(source, "features") and hasattr(source, "labels"):
         return DensePopulation.from_problem(source)
-    raise NotImplementedError(
-        f"population source {type(source).__name__}: only a materialized "
-        "problem or a DensePopulation is ported (lazy populations: ROADMAP "
-        "slice 3)")
+    raise TypeError(f"cannot interpret {type(source).__name__} as a "
+                    "client population")
+
+
+def estimate_w_ref(pop: ClientPopulation, *, sample_clients: int = 32,
+                   seed: int = 0, iters: int = 2000) -> torch.Tensor:
+    """Monte-Carlo reference minimizer for lazy populations: gather a
+    uniform client subsample (``sample_clients`` a server, drawn without
+    replacement by a numpy Generator seeded with ``seed``, in O(C) at any
+    K) with every sample of each, and solve its strongly-convex empirical
+    risk to machine precision (exact when sample_clients >= K)."""
+    C = min(sample_clients, pop.num_clients)
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.choice(pop.num_clients, C, replace=False)
+                    for _ in range(pop.P)])
+    N = pop.samples_per_client
+    client_idx = torch.from_numpy(idx).to(pop.device)
+    bidx = torch.arange(N, device=pop.device).expand(pop.P, C, N)
+    h, g = pop.gather(client_idx, bidx)
+    return _solve_global(h, g, pop.rho, iters=iters)
 
 
 class PopulationRunResult(NamedTuple):
     """Trajectory of one population-engine run.  ``gaps`` / ``staleness``
     are the resilience runtime's realizations when a fault process drives
-    the run (None otherwise): ``spectral_gap(A_i)`` every round, and the
-    per-server straggler psi ages after every round."""
+    the run (None otherwise): ``spectral_gap(A_i)`` every round, and, on
+    the pure path, the per-server straggler psi ages after every round."""
     msd: np.ndarray            # centroid MSD vs w_ref, every record_every
     params: torch.Tensor       # final [P, D] per-server models
     q: np.ndarray              # realized per-round sampling rate
-    scheduler: CohortScheduler
+    scheduler: CohortScheduler  # carries the IS state and q ledger
     gaps: Optional[np.ndarray] = None        # [iters] realized spectral gaps
     staleness: Optional[np.ndarray] = None   # [iters, P] straggler psi ages
     accountant: Optional[object] = None   # PrivacyAccountant at realized q
 
 
-def _check_slice(cfg: GFLConfig, faulted: bool) -> None:
-    if faulted and cfg.cohort != "uniform":
-        raise NotImplementedError(
-            f"a fault process (GFLConfig.fault={cfg.fault!r}) on the weighted "
-            f"path (cohort={cfg.cohort!r}) is not ported yet (ROADMAP slice "
-            "3: weighted path)")
+def _check_slice(cfg: GFLConfig) -> None:
     unported = {
-        "cohort": (cfg.cohort, "uniform", "ROADMAP slice 3: weighted path"),
-        "population": (cfg.population, "dense",
-                       "ROADMAP slice 3: lazy populations"),
         "async_spec": (cfg.async_spec, "none",
                        "ROADMAP slice 4: the event engine"),
         "telemetry": (cfg.telemetry, "off", "ROADMAP slice 5: telemetry"),
@@ -112,23 +152,28 @@ def run_gfl_population(source, cfg: GFLConfig, *, iters: int,
                        process: Optional[TopologyProcess] = None,
                        scheduler: Optional[CohortScheduler] = None,
                        w_ref=None, scan: bool = False,
-                       draws=None, executor=None) -> PopulationRunResult:
-    """Run the GFL protocol over a client population (pure path).
+                       draws=None, executor=None,
+                       device=None) -> PopulationRunResult:
+    """Run the GFL protocol over a (virtual) client population.
 
-    Faults come from ``process``, else from ``cfg.fault`` over the base
-    matrix (``A`` or the config's) with ``cfg.topology_seed``, as in
-    ``run_gfl``.  Randomness: ``draws`` (a
-    :class:`~repro_torch.draws.Draws` or a replay of the reference's
-    draws, which needs the eager executor), else ``Draws(seed)`` on the
-    population's device.  ``executor``: ``"graph"`` (the default on a
-    card) or ``"eager"`` (the CPU's only one).  The result carries a
-    :class:`PrivacyAccountant` charged once per round at the realized
-    sampling rate."""
-    _check_slice(cfg, process is not None or cfg.fault != "none")
-    pop = as_population(source)
+    ``source``: a :class:`ClientPopulation`, a materialized
+    ``LogisticProblem`` (wrapped dense), or None (built from
+    ``cfg.population`` on ``device``).  The cohort comes from
+    ``cfg.cohort`` (or an explicit ``scheduler``), faults from ``process``,
+    else from ``cfg.fault`` over the base matrix (``A`` or the config's)
+    with ``cfg.topology_seed``, as in ``run_gfl``.  A lazy population's
+    ``w_ref`` is estimated (:func:`estimate_w_ref`) unless given.
+    Randomness: ``draws`` (a :class:`~repro_torch.draws.Draws` or a replay
+    of the reference's draws, which needs the eager executor), else
+    ``Draws(seed)`` on the population's device.  ``executor``:
+    ``"graph"`` (the default on a card) or ``"eager"`` (the CPU's only
+    one).  The result carries a :class:`PrivacyAccountant` charged once
+    per round at that round's realized sampling rate."""
+    _check_slice(cfg)
+    pop = as_population(source, cfg, device)
     P, K = pop.P, pop.num_clients
-    device = pop.features.device
-    executor = graphed.resolve_executor(executor, device)
+    dev = pop.device
+    executor = graphed.resolve_executor(executor, dev)
     grad_fn = make_grad_fn(pop.rho)
     if scheduler is None:
         scheduler = CohortScheduler.from_config(
@@ -136,16 +181,26 @@ def run_gfl_population(source, cfg: GFLConfig, *, iters: int,
     L = scheduler.L
     if w_ref is None:
         w_ref = pop.w_ref
-    w_ref_t = torch.as_tensor(w_ref, dtype=torch.float32, device=device)
+    if w_ref is None:
+        # a lazy population carries no minimizer: estimate one, so the
+        # MSD is a mean-square deviation and not a distance to the origin
+        w_ref = estimate_w_ref(pop)
+    w_ref_t = torch.as_tensor(w_ref, dtype=torch.float32, device=dev)
     if process is None and cfg.fault != "none":
         base = A if A is not None else base_combination_matrix(cfg, P)
         process = TopologyProcess(base, cfg.fault, seed=cfg.topology_seed)
     if A is None:
         A = base_combination_matrix(cfg, P)
     if draws is None:
-        draws = Draws(seed, device)
+        draws = Draws(seed, dev)
 
-    if scan:
+    gaps = ages = None
+    if not scheduler.pure:
+        msd, params, q, gaps = _run_weighted(
+            pop, cfg, scheduler, A, process, grad_fn, batch_size, iters,
+            w_ref_t, draws, executor, scan)
+        msd = msd[::record_every]
+    elif scan:
         if process is not None or cfg.combine_every > 1:
             raise ValueError("scan executor supports the static-topology, "
                              "combine_every=1 pure path; use scan=False")
@@ -157,7 +212,8 @@ def run_gfl_population(source, cfg: GFLConfig, *, iters: int,
         msd, params, gaps, ages = _run_pure_loop(
             pop, cfg, A, process, grad_fn, L, batch_size, iters,
             record_every, w_ref_t, draws, executor)
-    q = np.full(iters, L / K)
+    if scheduler.pure:
+        q = np.full(iters, L / K)
     scheduler.q_history.extend(q.tolist())
     acc = mechanism_for(cfg).accountant()
     acc.sampling_rate = L / K
@@ -165,6 +221,133 @@ def run_gfl_population(source, cfg: GFLConfig, *, iters: int,
         acc.advance(1, q=float(qi))
     return PopulationRunResult(msd, params, q, scheduler, gaps=gaps,
                                staleness=ages, accountant=acc)
+
+
+# ------------------------------------------------------- the weighted path
+
+
+def _weighted_round(params: torch.Tensor, sel: CohortSelection, A, draws,
+                    ctx: RoundContext, combine: bool, *, pop, cfg, mech,
+                    grad_fn, use_alive: bool):
+    """One weighted round (the reference's ``_make_weighted_round``):
+    returns (new params [P, D], the sampler's feedback norms [P, L])."""
+    h, g = pop.gather(sel.client_idx, sel.batch_idx)
+    grads = gfl._client_grads(params, (h, g), grad_fn)
+    alive = sel.alive if use_alive else None
+    fold_w, noise_w = gfl._survivor_weights(alive)
+    # fused: the importance weights before the clip (pre_w), the survivors
+    # as fold weights with the noise/masks at their mean
+    fused = gfl._fused_client_fold(params, grads, draws, cfg, mech, ctx,
+                                   pre_w=sel.weights, fold_w=fold_w,
+                                   noise_w=noise_w)
+    if fused is not None:
+        psi, sq = fused
+        # the feedback is the unweighted clipped norm, from K1's sums
+        norms = torch.sqrt(sq)
+        if cfg.grad_bound > 0:
+            norms = torch.clamp(norms, max=cfg.grad_bound)
+    else:
+        # the weight goes on BEFORE the sensitivity clip: each client's
+        # step stays inside the mu*B ball the noise calibration assumes
+        step_g = gfl.clip_to_bound(sel.weights[..., None] * grads,
+                                   cfg.grad_bound)
+        clipped = gfl.clip_to_bound(grads, cfg.grad_bound)
+        w_clients = params[:, None, :] - cfg.mu * step_g
+        norms = torch.linalg.vector_norm(clipped, dim=-1)
+        psi = (mech.client_protect_masked(w_clients, draws, alive, ctx)
+               if use_alive else mech.client_protect(w_clients, draws, ctx))
+    new = mech.server_combine(psi, draws, A, ctx) if combine else psi
+    return new, norms
+
+
+class StagedWeightedStep(gfl.StagedStep):
+    """The weighted round split for the round graph; the eager executor
+    runs the same stage and body, op by op.
+
+    :meth:`stage` (host) realizes the round's availability [P, K] (skipped
+    under the ``always`` trace, whose mask never changes), the dropout
+    mask [P, L] and, under link faults, A_i, and copies them into the
+    step's buffers through pinned slots (:class:`graphed.PinnedCopies`);
+    then the draws are reseeded.
+    :meth:`body` (device) reads only those buffers, the params, the IS
+    state and the counter: sampling probabilities, effective
+    probabilities, the weighted draw, the weights, the gather, the
+    gradients, K1/K2 (or the reference path), K3, the IS update in place,
+    and the round's q at the counter into ``q``."""
+
+    def __init__(self, pop: ClientPopulation, cfg: GFLConfig,
+                 scheduler: CohortScheduler, process, A, grad_fn,
+                 batch_size: int, iters: int, device):
+        super().__init__(A, grad_fn, cfg, pop.P, pop.dim, iters, device)
+        self.pop, self.scheduler, self.process = pop, scheduler, process
+        self.batch_size = batch_size
+        self.use_alive = scheduler.fault.client_dropout > 0
+        self.topology = process is not None and not process.static
+        self.A = self.A.clone()
+        self.avail = torch.ones((pop.P, pop.num_clients), dtype=torch.bool,
+                                device=device)
+        self.alive = (torch.ones((pop.P, scheduler.L), dtype=torch.bool,
+                                 device=device) if self.use_alive else None)
+        self.q = torch.zeros(iters, dtype=torch.float64, device=device)
+        self.copies = graphed.PinnedCopies()
+
+    def stage(self, i: int, draws) -> bool:
+        if not self.scheduler.trace.always_on:
+            self.copies.copy(self.avail, self.scheduler.availability(i))
+        if self.use_alive:
+            self.copies.copy(self.alive, self.scheduler.client_alive(i))
+        if self.topology:
+            self.copies.copy(self.A, self.process.realize(i).A)
+        return super().stage(i, draws)
+
+    def body(self, batch, draws, i: int, combine: bool) -> None:
+        ctx = self.context(i)
+        sel = self.scheduler.weighted(
+            draws, i, self.avail, self.alive,
+            N=self.pop.samples_per_client, batch_size=self.batch_size)
+        new, norms = _weighted_round(
+            self.params, sel, self.A, draws, ctx, combine, pop=self.pop,
+            cfg=self.cfg, mech=self.mech, grad_fn=self.grad_fn,
+            use_alive=self.use_alive)
+        self.params.copy_(new)
+        self.scheduler.observe(sel.client_idx, norms)
+        self.q.index_copy_(0, self.counter, sel.q.reshape(1))
+
+
+def _run_weighted(pop, cfg, scheduler, A, process, grad_fn, batch_size,
+                  iters, w_ref_t, draws, executor, scan):
+    """The weighted loop (importance sampling and/or an availability
+    trace), with the reference's refusals: :class:`StagedWeightedStep`'s
+    rounds, replayed from the round graph or, with ``executor="eager"``,
+    staged and run op by op.  Returns (msd [iters], params, q [iters],
+    gaps [iters] or None)."""
+    if scan:
+        raise ValueError(
+            "scan executor supports only the pure cohort path (uniform "
+            "sampler, always trace); weighted cohorts need per-round host "
+            "realizations — use scan=False")
+    if process is not None and process.fault.straggler > 0:
+        raise ValueError(
+            "straggler faults need the resilience runtime's psi cache and "
+            "are only supported on the pure cohort path (uniform sampler, "
+            "always trace); drop the straggler: component or use "
+            "cohort='uniform'")
+    if scheduler.fault.client_dropout > 0:
+        ensure_dropout_safe(mechanism_for(cfg).noise_profile(),
+                            where="population cohort dropout")
+    dev = w_ref_t.device
+    scheduler.place(dev)
+    step = StagedWeightedStep(pop, cfg, scheduler, process, A, grad_fn,
+                              batch_size, iters, dev)
+    msd, params, _ = graphed.run_rounds(step, None, draws, iters, w_ref_t,
+                                        capture=executor == "graph")
+    q = step.q
+    gaps = (None if process is None else
+            np.asarray([process.realize(i).gap for i in range(iters)]))
+    return msd.cpu().numpy(), params, q.cpu().numpy(), gaps
+
+
+# ----------------------------------------------------------- the pure path
 
 
 def _run_pure_loop(pop, cfg, A, process, grad_fn, L, batch_size, iters,

@@ -16,7 +16,12 @@ reseeds the three generators of the run's draws, which are registered
 with the graph (a replay reads their seeds and offsets as they stand),
 copies a fault process's A_i and masks into the step's buffers, and picks
 the graph: with ``combine_every > 1`` there are two, one that combines and
-one that does not (the reference's ``lax.cond``).  The body reads only
+one that does not (the reference's ``lax.cond``).  The population
+engine's weighted round (``engine.StagedWeightedStep``) stages its
+availability [P, K] and dropout masks too, through pinned slots
+(:class:`PinnedCopies`), and its body draws its own cohort from the
+probabilities it computes, records the round's q, and updates the
+sampler's state in place.  The body reads only
 buffers made once a run (params, the round counter, the sigma table, A,
 the straggler cache and ages), writes the new params, records the MSD and
 the straggler ages at the counter into [T] and [T, P] buffers, and
@@ -33,8 +38,9 @@ or replay that fails raises: nothing here runs the eager executor instead.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import kernels as K
@@ -57,12 +63,13 @@ def resolve_executor(executor, device: torch.device) -> str:
     return executor
 
 
-def run_rounds(step: gfl.StagedStep, draw_batch: Callable, draws,
+def run_rounds(step: gfl.StagedStep, draw_batch: Optional[Callable], draws,
                iters: int, w_ref: torch.Tensor, *, capture: bool = True):
     """Run ``iters`` rounds of ``step``; ``draw_batch(i)`` draws round i's
-    cohort batch from ``draws``.  With ``capture`` the body is replayed
-    from CUDA graphs, else it runs eagerly (stage, then body: what the
-    graph holds, runnable on the CPU).  Returns (MSD [iters], params
+    cohort batch from ``draws`` (None: the body draws its own, as the
+    weighted round does from its probabilities).  With ``capture`` the
+    body is replayed from CUDA graphs, else it runs eagerly (stage, then
+    body: what the graph holds, runnable on the CPU).  Returns (MSD [iters], params
     [P, D], straggler ages [iters, P] or None), on the device."""
     dev = step.params.device
     msd = torch.zeros(iters, dtype=torch.float32, device=dev)
@@ -71,7 +78,8 @@ def run_rounds(step: gfl.StagedStep, draw_batch: Callable, draws,
                         dtype=step.psi_age.dtype, device=dev))
 
     def body(i: int, combine: bool) -> None:
-        step.body(draw_batch(i), draws, i, combine)
+        step.body(None if draw_batch is None else draw_batch(i), draws, i,
+                  combine)
         dev_msd = ((gfl.centroid(step.params) - w_ref) ** 2).sum()
         msd.index_copy_(0, step.counter, dev_msd.reshape(1))
         if ages is not None:
@@ -90,7 +98,7 @@ def _replay_rounds(body: Callable, step: gfl.StagedStep, draws,
                    iters: int) -> None:
     gens = draws.generators()        # ReplayDraws raises: eager only
     dev = step.params.device
-    side = torch.cuda.Stream(dev)
+    side = _capture_stream(dev)
     main = torch.cuda.current_stream(dev)
     graphs: dict = {}
     try:
@@ -115,6 +123,20 @@ def _replay_rounds(body: Callable, step: gfl.StagedStep, draws,
         graphs.clear()                # the graphs and their pools go
 
 
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The device's one stream for warm-up rounds and captures, made once
+    a process.  cuBLAS keeps a workspace for every stream that runs a
+    matmul (32 MiB a stream on Hopper) for the life of the process; a new
+    stream a run would add one each run with the kernels off."""
+    stream = _CAPTURE_STREAMS.get(device)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
 def _capture(fn: Callable, gens, stream) -> tuple:
     """(graph, kernel launches it holds) of ``fn`` captured on ``stream``,
     with the draws' generators registered."""
@@ -128,3 +150,38 @@ def _capture(fn: Callable, gens, stream) -> tuple:
     for k, n in held.items():          # a capture launches nothing
         K.LAUNCHES[k] -= n
     return graph, held
+
+
+class PinnedCopies:
+    """Host arrays into a step's device buffers before a replay, through
+    pinned slots.  A copy from pageable memory is synchronous: it waits
+    for the replay before it and holds the host.  From a pinned slot it is
+    queued behind that replay and the host goes on to stage the next
+    round.  The weighted round stages its [P, K] availability so; the
+    faulted pure round's few hundred bytes (``runtime.stage_round``) are
+    copied from pageable memory, which measured faster for them.  Each buffer has two slots, used in turn;
+    a slot is written again only once the copy out of it has run (its
+    event).  On the CPU the copy is a plain ``copy_``."""
+
+    SLOTS = 2
+
+    def __init__(self):
+        self._rings: dict = {}
+
+    def copy(self, dst: torch.Tensor, array: np.ndarray) -> None:
+        src = torch.from_numpy(np.ascontiguousarray(array))
+        if dst.device.type != "cuda":
+            dst.copy_(src)
+            return
+        ring = self._rings.get(dst.data_ptr())
+        if ring is None:
+            ring = self._rings[dst.data_ptr()] = [0, [
+                (torch.empty(dst.shape, dtype=dst.dtype, pin_memory=True),
+                 torch.cuda.Event()) for _ in range(self.SLOTS)]]
+        turn, slots = ring
+        slot, done = slots[turn % self.SLOTS]
+        ring[0] = turn + 1
+        done.synchronize()          # the copy out of this slot has run
+        slot.copy_(src)
+        dst.copy_(slot, non_blocking=True)
+        done.record()

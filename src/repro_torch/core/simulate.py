@@ -139,6 +139,25 @@ def run_gfl(prob: LogisticProblem, cfg: GFLConfig, *, iters: int,
     return res.msd, res.params, gaps
 
 
+def run_gfl_importance(prob: LogisticProblem, cfg: GFLConfig, *, iters: int,
+                       batch_size: int = 10, seed: int = 0, draws=None,
+                       executor=None):
+    """GFL with importance-sampled clients ([22], [23]): clients drawn with
+    probability proportional to their running gradient-norm estimates,
+    updates reweighted by 1/(K pi_k) to stay unbiased.  Returns (msd
+    trace, final params).  The population engine's weighted round over
+    the dense problem with an ``importance`` cohort (one implementation,
+    as in the reference)."""
+    from dataclasses import replace
+
+    from repro_torch.core.population import run_gfl_population
+
+    res = run_gfl_population(prob, replace(cfg, cohort="importance"),
+                             iters=iters, batch_size=batch_size, seed=seed,
+                             draws=draws, executor=executor)
+    return res.msd, res.params
+
+
 def run_schemes(seed: int = 0, *, iters: int = 500, sigma_g: float = 0.2,
                 P: int = 10, K: int = 50, L: int = 0, mu: float = 0.1,
                 repeats: int = 3, topology: str = "full",

@@ -9,7 +9,9 @@ reproduce threefry, so the port keeps the same structure with one
 :class:`torch.Generator` per stream, reseeded for each round from
 ``(seed, round, stream)``:
 
-``cohort``   the round's client and minibatch indices;
+``cohort``   the round's client and minibatch indices (uniform without
+             replacement on the pure path; weighted, with replacement, on
+             the population engine's weighted path);
 ``client``   mask seeds, iid client noise or Gaussian pair streams;
 ``combine``  the server-level noise.
 
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import SEED_ENV, resolve_device
+from repro_torch.core.sampling import sample_clients
 from repro_torch.core.privacy.noise import LAPLACE_U_HI, LAPLACE_U_LO
 
 STREAMS = {"cohort": 0, "client": 1, "combine": 2}
@@ -100,6 +103,20 @@ class Draws:
         batch_idx = torch.argsort(keys, dim=2, stable=True)[..., :B]
         return client_idx, batch_idx
 
+    def weighted_cohort(self, step: int, probs: torch.Tensor, N: int, L: int,
+                        B: int):
+        """(client_idx [P, L], batch_idx [P, L, B]): per server L clients
+        WITH replacement from ``probs`` [P, K] (the inverse CDF of
+        :func:`~repro_torch.core.sampling.sample_clients`), per client B
+        samples without replacement; one draw of the ``cohort`` stream."""
+        gen = self.generator(step, "cohort")
+        P = probs.shape[0]
+        u = torch.rand((P, L), generator=gen, device=self.device)
+        client_idx = sample_clients(probs, u)
+        keys = torch.rand((P, L, N), generator=gen, device=self.device)
+        batch_idx = torch.argsort(keys, dim=2, stable=True)[..., :B]
+        return client_idx, batch_idx
+
     def mask_seeds(self, step: int, P: int) -> torch.Tensor:
         """[P] per-server hash-mask seeds in [0, 2^31 - 1) (int64)."""
         gen = self.generator(step, "client")
@@ -122,7 +139,8 @@ class ReplayDraws(Draws):
     """Draws made in advance, handed out in the order the run asks for them.
 
     ``rounds[i]`` lists round i's draws as ``(stream, kind, value)`` with
-    kind one of ``cohort`` (value = (client_idx, batch_idx)),
+    kind one of ``cohort`` or ``weighted_cohort`` (value = (client_idx,
+    batch_idx)),
     ``mask_seeds``, ``laplace_uniform`` or ``normal``.  Every request is
     checked against the next entry's round, stream, kind and shape, so a
     run that asks in another order than the reference fails loudly.  Eager
@@ -164,6 +182,16 @@ class ReplayDraws(Draws):
         ci, bi = self._next(step, "cohort", "cohort")
         if np.shape(ci) != (P, L) or np.shape(bi) != (P, L, B):
             raise RuntimeError("replay shape: cohort")
+        return self._tensor(ci, torch.int64), self._tensor(bi, torch.int64)
+
+    def weighted_cohort(self, step, probs, N, L, B):
+        ci, bi = self._next(step, "cohort", "weighted_cohort")
+        P, K = probs.shape
+        if np.shape(ci) != (P, L) or np.shape(bi) != (P, L, B):
+            raise RuntimeError("replay shape: weighted cohort")
+        if not (0 <= np.min(ci) and np.max(ci) < K and 0 <= np.min(bi)
+                and np.max(bi) < N):
+            raise RuntimeError("replay range: weighted cohort")
         return self._tensor(ci, torch.int64), self._tensor(bi, torch.int64)
 
     def mask_seeds(self, step, P):

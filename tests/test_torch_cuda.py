@@ -746,6 +746,22 @@ def test_round_graph_memory_is_flat(cuda):
     assert torch.cuda.memory_allocated() == base
 
 
+def test_round_graph_memory_is_flat_with_kernels_off(cuda):
+    """The same with the kernels off: the combine's torch.matmul makes
+    cuBLAS keep a workspace for the stream it runs on, so every run must
+    capture on the one stream it captured on before."""
+    from repro_torch.core.simulate import run_gfl
+    prob = _round_graph_problem()
+    cfg = _round_graph_cfg("hybrid", False, 4)
+    run_gfl(prob, cfg, iters=4, batch_size=5, seed=1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    for seed in range(20):
+        run_gfl(prob, cfg, iters=4, batch_size=5, seed=seed)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
+
+
 def test_round_graph_refuses_replayed_draws(cuda):
     import numpy as np
     from repro_torch.core.simulate import run_gfl
@@ -757,3 +773,141 @@ def test_round_graph_refuses_replayed_draws(cuda):
     with pytest.raises(RuntimeError, match="executor='eager'"):
         run_gfl(prob, _round_graph_cfg("none", False, 1), iters=1,
                 batch_size=5, draws=draws)
+
+
+# ------------------------------------------- the population's weighted path
+
+WEIGHTED = {"importance": "importance,floor=0.2",
+            "trace": "uniform+trace:diurnal,period=6,min=0.3",
+            "both": "importance,floor=0.2+trace:devclass,slow=0.5,p=0.3"}
+
+
+def _weighted_cfg(scheme, use_kernels, cohort, fault="none", tau=1):
+    from repro_torch.configs.base import GFLConfig
+    return GFLConfig(num_servers=4, clients_per_server=500,
+                     clients_sampled=6, topology="ring", privacy=scheme,
+                     sigma_g=0.3, mu=0.1, grad_bound=5.0,
+                     use_kernels=use_kernels, cohort=WEIGHTED[cohort],
+                     fault=fault, combine_every=tau, topology_seed=7,
+                     population="synthetic:mixture,clusters=3",
+                     epsilon_target=200.0, epsilon_horizon=9)
+
+
+def _weighted_runs(cfg, iters=9):
+    from repro_torch.core.population import run_gfl_population
+    out = {}
+    for executor in ("graph", "eager"):
+        K.reset_launches()
+        res = run_gfl_population(None, cfg, iters=iters, batch_size=5,
+                                 seed=3, executor=executor, device="cuda")
+        out[executor] = (res, dict(K.LAUNCHES), dict(K.REPLAYED))
+    return out
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("cohort,fault,tau", [
+    ("importance", "none", 1), ("trace", "links:0.2+dropout:0.3", 1),
+    ("both", "dropout:0.3", 2)])
+def test_weighted_round_graph_is_the_eager_executor(cuda, scheme,
+                                                    use_kernels, cohort,
+                                                    fault, tau):
+    """The weighted round under the round graph: params, MSD, q, the IS
+    state, the gaps and the launch counts bitwise the eager executor's;
+    the wrappers launch K1-K3 only in each graph's warm-up round."""
+    import numpy as np
+    out = _weighted_runs(_weighted_cfg(scheme, use_kernels, cohort, fault,
+                                       tau))
+    (rg, lg, replayed), (re, le, _) = out["graph"], out["eager"]
+    assert torch.equal(rg.params, re.params)
+    assert rg.msd.tolist() == re.msd.tolist()
+    assert rg.q.tolist() == re.q.tolist()
+    assert ((rg.q > 0) & (rg.q <= 1)).all()
+    if rg.scheduler.is_state is not None:
+        for a, b in zip(rg.scheduler.is_state, re.scheduler.is_state):
+            assert torch.equal(a, b)
+    assert (rg.gaps is None) == (re.gaps is None)
+    if rg.gaps is not None:
+        assert np.array_equal(rg.gaps, re.gaps)
+    assert lg == le
+    for name in ("fold_norms", "fold_apply", "graph_combine"):
+        if lg[name]:
+            assert lg[name] - replayed[name] <= tau
+
+
+def test_duplicate_index_update_is_deterministic(cuda):
+    """Clients repeat within rows (K = 3, L = 64): the last slot wins, the
+    same on every run and as on the CPU."""
+    from repro_torch.core import sampling as IS
+    idx = torch.randint(0, 3, (8, 64), generator=cuda, device="cuda")
+    norms = 10 * torch.rand((8, 64), generator=cuda, device="cuda")
+    runs = [IS.update_norm_estimates(IS.init_is_state(8, 3, "cuda"), idx,
+                                     norms) for _ in range(2)]
+    assert torch.equal(runs[0].norm_est, runs[1].norm_est)
+    assert torch.equal(runs[0].counts, runs[1].counts)
+    cpu = IS.update_norm_estimates(IS.init_is_state(8, 3), idx.cpu(),
+                                   norms.cpu())
+    torch.testing.assert_close(runs[0].norm_est.cpu(), cpu.norm_est,
+                               atol=1e-6, rtol=0)
+    assert torch.equal(runs[0].counts.cpu(), cpu.counts)
+    last = idx[:, -1]
+    want = 0.7 + 0.3 * norms[:, -1]
+    assert torch.equal(runs[0].norm_est.gather(1, last[:, None])[:, 0],
+                       want)
+
+
+def test_weighted_draw_at_1e5_clients_with_a_mask(cuda):
+    """K = 10^5, P = 8, L = 20, half the clients unavailable: every pick
+    available, the same picks as the CPU's inverse CDF on the same
+    uniforms and probabilities (f64 on both)."""
+    from repro_torch.core import sampling as IS
+    P, Kn, L = 8, 100_000, 20
+    est = 5 * torch.rand((P, Kn), generator=cuda, device="cuda")
+    avail = torch.rand((P, Kn), generator=cuda, device="cuda") < 0.5
+    probs = IS.sampling_probs(IS.ISState(est, est.int())) * avail
+    probs = probs / probs.sum(dim=1, keepdim=True)
+    u = torch.rand((P, L), generator=cuda, device="cuda")
+    idx = IS.sample_clients(probs, u)
+    assert avail.gather(1, idx).all()
+    assert torch.equal(idx.cpu(), IS.sample_clients(probs.cpu(), u.cpu()))
+
+
+def test_weighted_round_graph_memory_is_flat(cuda):
+    from repro_torch.core.population import run_gfl_population
+    cfg = _weighted_cfg("hybrid", True, "both", "links:0.2+dropout:0.3")
+    run_gfl_population(None, cfg, iters=4, batch_size=5, seed=1,
+                       device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    for seed in range(20):
+        run_gfl_population(None, cfg, iters=4, batch_size=5, seed=seed,
+                           device="cuda")
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
+
+
+def test_synthetic_population_hash_bits_match_the_cpu(cuda):
+    """The gather's labels (hash bits) are the CPU's exactly; its features
+    (Box-Muller in float64, one cast) within 1e-6."""
+    from repro_torch.core.population import SyntheticPopulation
+    idx = torch.randint(0, 10 ** 9, (8, 20), generator=cuda, device="cuda")
+    bidx = torch.randint(0, 100, (8, 20, 10), generator=cuda, device="cuda")
+    for mode in ("iid", "hetero", "mixture"):
+        gpu = SyntheticPopulation(8, 10 ** 9, mode=mode, device="cuda")
+        cpu = SyntheticPopulation(8, 10 ** 9, mode=mode, device="cpu")
+        hg, gg = gpu.gather(idx, bidx)
+        hc, gc_ = cpu.gather(idx.cpu(), bidx.cpu())
+        assert torch.equal(gg.cpu(), gc_)
+        torch.testing.assert_close(hg.cpu(), hc, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("fault", ["none", "links:0.2+dropout:0.3"])
+def test_weighted_round_graph_over_a_dirichlet_population(cuda, fault):
+    from dataclasses import replace
+    cfg = replace(_weighted_cfg("hybrid", True, "both", fault),
+                  clients_per_server=60, population="dirichlet:0.3,pool=4000")
+    out = _weighted_runs(cfg, iters=7)
+    (rg, lg, _), (re, le, _) = out["graph"], out["eager"]
+    assert torch.equal(rg.params, re.params)
+    assert rg.msd.tolist() == re.msd.tolist() and lg == le
+    assert lg["fold_apply"] == 7

@@ -186,16 +186,22 @@ def test_replay_rejects_out_of_order_requests():
     ("population", "synthetic:iid"), ("async_spec", "async"),
     ("telemetry", "memory"), ("sanitize", True)])
 def test_unported_options_raise(field, value, problem):
-    """Options of later slices raise, naming their slice.  Faults run on
-    the pure path; on the weighted path (a non-uniform cohort) they wait
-    for slice 3, and the message names the fault, not only the cohort."""
+    """Options of later slices raise, naming their slice.  Faults, weighted
+    cohorts and lazy populations (slice 3) run now: a fault on the
+    weighted path, an importance cohort, a population built from its
+    spec."""
+    from repro_torch.core.population import run_gfl_population
     kw = {field: value}
-    match = "ROADMAP slice"
     if field == "fault":
         kw["cohort"] = "importance"
-        match = r"fault process .*links:0\.1.* weighted path.*ROADMAP slice 3"
     cfg = GFLConfig(**_cfg_kw("none", **kw))
-    with pytest.raises(NotImplementedError, match=match):
+    if field in ("fault", "cohort", "population"):
+        source = None if field == "population" else problem
+        res = run_gfl_population(source, cfg, iters=2, batch_size=5,
+                                 device="cpu")
+        assert np.isfinite(res.msd).all() and res.msd.shape == (2,)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
         run_gfl(problem, cfg, iters=1, batch_size=5)
 
 

@@ -71,6 +71,17 @@ def test_import_check_covers_the_experiment_and_resilience_slice():
               "repro_torch.launch.resilience_demo"}
     assert slice_ <= set(_port_modules())
 
+def test_import_check_covers_the_population_slice():
+    slice_ = {"repro_torch.core.sampling",
+              "repro_torch.data.partition",
+              "repro_torch.core.population.population",
+              "repro_torch.core.population.cohort",
+              "repro_torch.core.population.engine",
+              "repro_torch.launch.population_demo",
+              "repro_torch.launch.population_scale"}
+    assert slice_ <= set(_port_modules())
+
+
 def test_importing_the_port_leaves_jax_out():
     mods = _port_modules()
     code = ("import sys\n"

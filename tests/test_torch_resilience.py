@@ -320,26 +320,31 @@ def test_masked_hooks_match_reference(scheme):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 
-def _register_unsafe():
+@pytest.fixture
+def unsafe_mechanism():
+    """A mechanism that does not declare dropout safety, registered for
+    one test and then removed, so no other test (``list_mechanisms``)
+    sees it."""
     name = "_test_unsafe_masks_torch"
-    if name not in _REGISTRY:
-        @register_mechanism(name)
-        class UnsafeMasks(PrivacyMechanism):
-            def noise_profile(self):
-                return NoiseProfile(distribution="laplace", client_sigma=1.0,
-                                    server_sigma=0.0,
-                                    client_cancels_exactly=True,
-                                    server_cancels_exactly=True,
-                                    client_dropout_safe=False)
-    return name
+
+    @register_mechanism(name)
+    class UnsafeMasks(PrivacyMechanism):
+        def noise_profile(self):
+            return NoiseProfile(distribution="laplace", client_sigma=1.0,
+                                server_sigma=0.0,
+                                client_cancels_exactly=True,
+                                server_cancels_exactly=True,
+                                client_dropout_safe=False)
+    yield name
+    del _REGISTRY[name]
 
 
-def test_ensure_dropout_safe_refuses_undeclared(problem):
+def test_ensure_dropout_safe_refuses_undeclared(problem, unsafe_mechanism):
     with pytest.raises(ValueError, match="client_dropout_safe"):
         ensure_dropout_safe(NoiseProfile("laplace", 1.0, 1.0, True, True))
     ensure_dropout_safe(NoiseProfile("laplace", 1.0, 1.0, True, True,
                                      client_dropout_safe=True))
-    name = _register_unsafe()
+    name = unsafe_mechanism
     cfg = GFLConfig(**_kw("dropout:0.3", scheme=name))
     A = combination_matrix("ring", P)
     with pytest.raises(ValueError, match="client_dropout_safe"):
@@ -531,15 +536,23 @@ def test_scan_with_a_process_raises(problem):
 
 
 def test_fault_on_the_weighted_path_names_slice_3(problem):
+    """Faults on the weighted path (slice 3) run: A_i realized each round
+    from cfg.fault, or from an explicit process, with the gaps of its
+    trajectory; stragglers there raise as in the reference."""
     cfg = GFLConfig(**_kw("links:0.2", cohort="importance"))
-    with pytest.raises(NotImplementedError,
-                       match=r"fault process .*links:0\.2.*ROADMAP slice 3"):
-        run_gfl_population(problem, cfg, iters=1, batch_size=5)
-    # an explicit process on the weighted path names the fault too
+    res = run_gfl_population(problem, cfg, iters=3, batch_size=5)
+    ref = ref_process.TopologyProcess(ref_combination("ring", P),
+                                      "links:0.2", seed=cfg.topology_seed)
+    assert np.array_equal(res.gaps, ref.gap_trajectory(3))
     cfg = GFLConfig(**_kw("none", cohort="importance"))
     proc = TopologyProcess(combination_matrix("ring", P), "links:0.2",
                            seed=0)
-    with pytest.raises(NotImplementedError, match="fault process"):
+    res = run_gfl_population(problem, cfg, iters=3, batch_size=5,
+                             process=proc)
+    assert np.array_equal(res.gaps, proc.gap_trajectory(3))
+    proc = TopologyProcess(combination_matrix("ring", P), "straggler:0.2",
+                           seed=0)
+    with pytest.raises(ValueError, match="straggler"):
         run_gfl_population(problem, cfg, iters=1, batch_size=5, process=proc)
 
 

@@ -139,7 +139,40 @@ Phases, each printing JSON lines:
              scan=True under the round graph) in its own process:
              client-steps/s and peak bytes, each below the dense [P, K, N,
              M] f32 bytes (or 8 MiB where those are smaller).
-10. swa    — K8 swa_decode against its plain version at the serving shapes
+10. events — the event engine (run_gfl_async) at the reference docs'
+             configuration (docs/async.md) at the population demo's size:
+             P=8, K=10^5 virtual synthetic:hetero clients a server, N=100,
+             M=2, hypercube, hybrid,
+             async:buffer=8,latency=lognorm:0.5,max_stale=4 (8 events a
+             server a tick), 500 ticks.  First the event fold: K1 + K2
+             through ops.round_fold with per-event bases [P, E, D],
+             staleness fold weights, a third of the events invalid and
+             importance weights over 1e-3 .. 1e3, at (P, E, D) = (8, 8, 2),
+             (8, 6, 509) and (8, 8, 4096) in every mode against
+             round_fold_ref (atol 1e-5), then K3's gate/cache variant at
+             the all-zero, a mixed and the all-one gate against
+             graph_combine_ref of the selected psi; each twice bitwise
+             equal.  Then the sync limit on the gfl-logreg problem
+             (async:buffer=10, L=10, 500 ticks): bitwise
+             run_gfl_population under the round graph.  Then the full-size
+             run under uniform + diurnal trace (the docs' run), importance
+             + the trace, and uniform + the trace under links:0.2: the
+             tick graph bitwise the eager executor and the loop bitwise
+             scan=True (params, MSD, flush, q, staleness, event and drop
+             schedules, gaps), kernels on against off (the first 10 ticks'
+             MSD within rtol 1e-4, final params within atol 1e-4), K1-K3
+             launched once a tick and after the warm-up tick only from
+             replays, a tick that flushes a strict subset of the servers,
+             and the amplified epsilon equal to the one recomputed from
+             (flushed, q).  Then the tick's time (the docs' run, kernels
+             on): steady wall ms a tick under both executors (the
+             difference of a 600- and a 100-tick run) and the profiler's
+             busy, ops, launch calls and host share between replays;
+             events a second.  Last `python -m
+             repro_torch.launch.async_throughput` at its defaults (P=8,
+             K=400, rate 8, 150 ticks, buffers 4/8/16 x max_stale 2/4 and
+             the sync row) in its own process.
+11. swa    — K8 swa_decode against its plain version at the serving shapes
              (B, H, KV, C, Dh) = (4, 32, 32, 2047, 96) bf16,
              (4, 32, 32, 1064, 96) bf16, (4, 9, 3, 1064, 64) bf16 and f32,
              (2, 8, 4, 1000, 64) f32 and (32, 32, 32, 2047, 96) bf16 (805 MB
@@ -151,7 +184,7 @@ Phases, each printing JSON lines:
              finds them cold; a CUDA graph captured at nvalid = C/3 and
              replayed at C; and a stall probe at the phi3 shapes (the
              kernel beside its loads-only build, built here).
-11. serve  — phi3-mini-3.8b at full width (32 layers, d 3072, bf16, random
+12. serve  — phi3-mini-3.8b at full width (32 layers, d 3072, bf16, random
              weights from seed 0) through repro_torch.launch.serve.generate:
              request A, 4 x 4096-token prompts + 32 greedy tokens (ring of
              2047 slots, wrapped); request B, 4 x 1000 + 32 (1064 slots,
@@ -165,8 +198,21 @@ Phases, each printing JSON lines:
              A profiler trace whose launch count is off (K8 a layer and
              step here, one op a call of K1 and K2 above) is taken again,
              up to three traces: the profiler has been seen to lose one
-             kernel record in a trace.  Every profiled window is fenced
-             by marker kernels, and only the ops between them count.
+             kernel record in a trace.  Every profiler window is fenced
+             on the device by three marker kernels at each end, each
+             launched on an idle device, and the host idles 50 ms at
+             each end: the profiler moves device records onto the host's
+             clock with an offset, one for a whole trace, that has been
+             seen milliseconds off, and drops a record that then falls
+             outside the window.  A one-op trace (K1, K2, K5, K6) reads
+             only the ops between the markers, and is taken again, up to
+             eight traces, while it kept no marker at one end (each
+             printed as a `broken_fence` line).  Longer traces (profile,
+             events, serve) hold their own counts instead.  Windows are
+             measured on one clock each (device records against device
+             records).  A `profiler` line at the end reports the offsets
+             (a marker's start less its launch call's) over the run's
+             traces.
 
 Tolerances: f32 outputs within atol 1e-5 of the plain version (the
 reference's parity contract, docs/kernels.md); fold_norms' f32 sums within
@@ -213,6 +259,7 @@ The line before the last is the kernel table as JSON; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -301,6 +348,17 @@ SERVE_REQUESTS = (("A", 4, 4096), ("B", 4, 1000))   # name, batch, prompt
 SERVE_NEW_TOKENS = 32
 SERVE_PROFILE_STEPS = 3
 TRACE_TRIES = 3       # traces of a launch count before it fails
+# Profiler windows.  torch.profiler keeps a device record only if its
+# times, moved onto the host's clock, fall inside the window, and that
+# move is off by an offset, one for a whole trace, that has been seen
+# milliseconds off (chip_trace_probe.py).  So the host idles TRACE_PAD_S
+# at each edge of a window, the device idle
+TRACE_PAD_S = 0.05
+TRACE_MARKERS = 3       # marker kernels at each end of a traced window
+TRACE_LOST_TRIES = 8    # traces taken while the profiler breaks the fence
+TRACE_OFFSETS: list = []   # each trace's offset, µs (None: not measured)
+# over the run: traces, fenced ones taken again, unfenced ones kept broken
+TRACE_COUNTS = {"traces": 0, "broken_fences": 0, "unfenced_broken": 0}
 
 
 def emit(obj) -> None:
@@ -730,10 +788,96 @@ def one_op(torch, fn, kernel, name, calls=50, tries=TRACE_TRIES):
                     "device_ops_per_call": rec["device_ops_per_call"]}
         emit({"phase": "kernels", "retrace": attempt + 1, "of": name,
               "device_ops": n, "calls": calls, "names": rec["device_ops"],
-              "markers": rec["markers"]})
+              **{k: rec[k] for k in ("markers", "device_records",
+                                     "launch_calls")}})
     require(False, f"{name}: {n} device ops in {calls} calls "
             f"({rec['device_ops']}) in each of {tries} traces, expected "
             "the kernel alone, once a call")
+
+
+@contextlib.contextmanager
+def device_trace(torch):
+    """torch.profiler (host and CUDA) over the block, fenced on the device
+    by ``TRACE_MARKERS`` marker kernels (``torch.cuda._sleep``'s
+    ``spin_kernel``) at each end, each launched on an idle device: the
+    host idles ``TRACE_PAD_S`` seconds after the window opens, and after the
+    block it synchronises, launches the trailing markers, synchronises and
+    idles again before the window closes.  Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pad_s = TRACE_PAD_S
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(pad_s)
+        for _ in range(TRACE_MARKERS):
+            torch.cuda._sleep(1)
+        yield prof
+        torch.cuda.synchronize()
+        for _ in range(TRACE_MARKERS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        time.sleep(pad_s)
+
+
+def is_device(evt) -> bool:
+    return str(getattr(evt, "device_type", "")).endswith("CUDA")
+
+
+def traced(torch, block, what, fenced=True):
+    """``block()`` under ``device_trace``.  The fence's markers are the
+    trace's first and last ``TRACE_MARKERS`` host ``cudaLaunch*`` calls
+    (host records are all kept); it is whole when a device record of a
+    leading marker and one of a trailing marker came back.  The offset
+    that moves device records onto the host's clock is one for a whole
+    trace, so a whole fence holds every device record launched between
+    its ends; a broken one says the profiler dropped records at that
+    edge, and with ``fenced`` the trace is taken again, at most
+    ``TRACE_LOST_TRIES`` traces.  Traces of thousands of device records,
+    after earlier profiling in the process, have been seen to lose their
+    leading markers in every take, with the offset near zero and any pad:
+    their callers hold their own counts (``fenced=False``).  A marker
+    starts on an idle device within microseconds of its launch, so the
+    least of the markers' starts less their launch calls' is the offset
+    (``TRACE_OFFSETS``).  Returns ``{"prof", "events", "device"`` (the
+    device records but the markers), ``"lo", "hi"`` (the first leading
+    marker record's start and the last trailing one's, on the device
+    clock; None where none came back), ``"marker_ids", "markers"`` (how
+    many marker records came back), ``"value"`` (the block's)}."""
+    for attempt in range(TRACE_LOST_TRIES):
+        with device_trace(torch) as prof:
+            value = block()
+        events = list(prof.events())
+        TRACE_COUNTS["traces"] += 1
+        launches = sorted((e for e in events
+                           if e.name.startswith("cudaLaunch")),
+                          key=lambda e: e.time_range.start)
+        at = {e.id: e.time_range.start for e in launches}
+        lead = {e.id for e in launches[:TRACE_MARKERS]}
+        trail = {e.id for e in launches[-TRACE_MARKERS:]}
+        marks = [e for e in events if is_device(e)
+                 and "spin_kernel" in e.name and e.id in lead | trail]
+        lo = [e.time_range.start for e in marks if e.id in lead]
+        hi = [e.time_range.start for e in marks if e.id in trail]
+        offset = min((e.time_range.start - at[e.id] for e in marks),
+                     default=None)
+        TRACE_OFFSETS.append(offset)
+        if (lo and hi) or not fenced:
+            TRACE_COUNTS["unfenced_broken"] += not (lo and hi)
+            return {"prof": prof, "events": events,
+                    "device": [e for e in events if is_device(e)
+                               and "spin_kernel" not in e.name],
+                    "lo": min(lo, default=None), "hi": max(hi, default=None),
+                    "marker_ids": lead | trail, "markers": len(marks),
+                    "value": value}
+        TRACE_COUNTS["broken_fences"] += 1
+        emit({"phase": "profiler", "broken_fence": attempt + 1, "of": what,
+              "leading_markers": len(lo), "trailing_markers": len(hi),
+              "device_records": sum(map(is_device, events)),
+              "launch_calls": len(launches), "offset_us": offset})
+        time.sleep(0.5)
+    require(False, f"{what}: the profiler dropped every marker record at "
+            f"one end of each of {TRACE_LOST_TRIES} traces")
 
 
 def profile_calls(torch, fn, calls, kernel):
@@ -742,41 +886,24 @@ def profile_calls(torch, fn, calls, kernel):
     inside), the device time per call of the kernels whose name holds
     ``kernel`` and of every device op, and host self time by op.
 
-    The calls are fenced on the device by marker kernels
-    (``torch.cuda._sleep``'s ``spin_kernel``), two before and three after,
-    and only the device ops between the first and the last marker are
-    read: the profiler has been seen to drop one kernel record at the edge
-    of a window, and a dropped marker costs nothing.  With fewer than two
-    marker records left, every other device op of the trace is read: the
-    calls are all it holds.
-    ``markers`` counts the marker records found."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            torch.cuda._sleep(1)
+    The trace is ``traced``'s: only the device ops between its fence's
+    first and last marker records are read.  ``markers`` counts the marker
+    records found, ``device_records`` every device record and
+    ``launch_calls`` the host's ``cudaLaunch*`` calls."""
+    def block():
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
-        host = time.perf_counter() - t0
-        for _ in range(3):
-            torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-    device = [e for e in prof.events()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    marks = [e.time_range.start for e in device if "spin_kernel" in e.name]
-    # with fewer than two marker records left, the trace's other device
-    # ops are still the calls' alone (the warm-up ran before it)
-    lo, hi = ((min(marks), max(marks)) if len(marks) >= 2
-              else (float("-inf"), float("inf")))
+        return time.perf_counter() - t0
+
+    fn()
+    tr = traced(torch, block, f"{kernel}: {calls} calls")
+    events, host, lo, hi = tr["events"], tr["value"], tr["lo"], tr["hi"]
     dev = dev_all = 0.0
     names = set()
     n_ops = 0
-    for evt in device:
-        if "spin_kernel" in evt.name or not lo < evt.time_range.start < hi:
+    for evt in tr["device"]:
+        if not lo < evt.time_range.start < hi:
             continue
         us = evt.time_range.elapsed_us()
         dev_all += us
@@ -784,8 +911,12 @@ def profile_calls(torch, fn, calls, kernel):
         names.add(evt.name[:60])
         if kernel in evt.name:
             dev += us
-    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
-    return {"calls": calls, "markers": len(marks),
+    ops = sorted(tr["prof"].key_averages(),
+                 key=lambda e: -e.self_cpu_time_total)
+    return {"calls": calls, "markers": tr["markers"],
+            "device_records": sum(map(is_device, events)),
+            "launch_calls": sum(e.name.startswith("cudaLaunch")
+                                for e in events),
             "host_ms_per_call": host * 1e3 / calls,
             "device_ms": dev / 1e3 / calls,
             "device_ms_all_ops": dev_all / 1e3 / calls,
@@ -1574,6 +1705,7 @@ ROUND_KERNEL_SYMBOLS = {"fold_norms": ("norms_rows", "norms_split"),
                         "fold_apply": ("fold_apply_kernel",),
                         "graph_combine": ("combine_kernel",)}
 PROFILE_ROUNDS = 50
+TOP_KERNELS = 8       # device kernels a profile names, by time
 STEADY_ROUNDS = (100, 600)  # wall a round: the difference of two runs
 STEADY_REPEATS = 3
 
@@ -1616,35 +1748,49 @@ def profile_run(torch, run, executor, rounds=PROFILE_ROUNDS) -> dict:
     round and the capture) and a round is a replay; eagerly it opens at
     the run's first device op.  It closes at the last device op's end.
     Per round: the window's length, device busy ms and ops, host launch
-    calls by name, and the K1-K3 device kernels by the host call that
-    launched them (CUPTI's correlation id: ``cudaLaunchKernel`` or
+    calls by name, the TOP_KERNELS device kernels that take the most time
+    (name, µs and ops a round), and the K1-K3 device kernels by the host
+    call that launched them (CUPTI's correlation id: ``cudaLaunchKernel`` or
     ``cudaGraphLaunch``); the idle share is the window's.  Under the graph,
     the host's share: its time from the end of one ``cudaGraphLaunch`` to
     the start of the next (the round's stage), over the span from the
     first replay's start to the last's.  The tracer
     lengthens small kernels, so busy time here can exceed a round's
-    wall time measured without it (``steady_ms``)."""
-    from torch.profiler import ProfilerActivity, profile
+    wall time measured without it (``steady_ms``).  Device records and
+    host calls are each compared on their own clock (the profiler moves
+    the device's onto the host's with an offset that can be milliseconds
+    off, see ``traced``): the device window opens at the first device
+    op of the first replay (or of the run), and host calls are counted
+    from the first ``cudaGraphLaunch`` (eagerly, all of them: the trace
+    holds the run alone).  The trace is ``traced``'s, unfenced (the
+    K1-K3 counts a replay are the phases' gates); its markers are left
+    out of every count."""
     from repro_torch import kernels as K
 
-    run(5, executor)
-    torch.cuda.synchronize()
-    K.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def block():
+        K.reset_launches()
         run(rounds, executor)
-        torch.cuda.synchronize()
+
+    run(5, executor)
+    tr = traced(torch, block, f"profile: {rounds} {executor} rounds",
+                fenced=False)
     wrapper_calls = {k: K.LAUNCHES[k] - K.REPLAYED[k] for k in ROUND_KERNELS}
-    events = list(prof.events())
-    device = [e for e in events
-              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    events, device = tr["events"], tr["device"]
     require(bool(device), f"profile: no device op in the trace of {rounds} "
             f"{executor} rounds")
-    calls = [e for e in events if e.name in LAUNCH_CALLS]
+    calls = [e for e in events if e.name in LAUNCH_CALLS
+             and e.id not in tr["marker_ids"]]
     graph_launches = [e.time_range.start for e in calls
                       if e.name == "cudaGraphLaunch"]
-    lo = (min(graph_launches) if executor == "graph" and graph_launches
-          else min(e.time_range.start for e in device))
+    by_call = {e.id: e.name for e in calls}
+    # the device window on the device's clock, host calls on the host's
+    first = min(e.time_range.start for e in device)
+    if executor == "graph" and graph_launches:
+        lo = min((e.time_range.start for e in device
+                  if by_call.get(e.id) == "cudaGraphLaunch"), default=first)
+        host_lo = min(graph_launches)
+    else:
+        lo, host_lo = first, float("-inf")    # the trace holds the run alone
     hi = max(e.time_range.end for e in device)
     n = len(graph_launches) if executor == "graph" else rounds
     # the host between replays: from the end of one cudaGraphLaunch to the
@@ -1654,17 +1800,19 @@ def profile_run(torch, run, executor, rounds=PROFILE_ROUNDS) -> dict:
     host_share = (sum(b[0] - a[1] for a, b in zip(replays, replays[1:]))
                   / (replays[-1][0] - replays[0][0])
                   if len(replays) > 1 else None)
-    by_call = {e.id: e.name for e in calls}
     launch_calls = {name: 0 for name in LAUNCH_CALLS}
     for e in calls:
-        if e.time_range.start >= lo:
+        if e.time_range.start >= host_lo:
             launch_calls[e.name] += 1
-    busy, ops, k13 = 0.0, 0, {}
+    busy, ops, k13, by_name = 0.0, 0, {}, {}
     for e in device:
         if e.time_range.start < lo:
             continue
         busy += e.time_range.elapsed_us()
         ops += 1
+        t_ops = by_name.setdefault(e.name[:80], [0.0, 0])
+        t_ops[0] += e.time_range.elapsed_us()
+        t_ops[1] += 1
         for k, symbols in ROUND_KERNEL_SYMBOLS.items():
             if any(sym in e.name for sym in symbols):
                 via = by_call.get(e.id, "unlinked")
@@ -1678,7 +1826,13 @@ def profile_run(torch, run, executor, rounds=PROFILE_ROUNDS) -> dict:
                                        launch_calls.items()} if n else None,
             "round_kernels_by_launch_call": k13,
             "host_share_between_replays": host_share,
-            "wrapper_launches": wrapper_calls}
+            "wrapper_launches": wrapper_calls,
+            # the device kernels that take the most time: (name, us and
+            # ops a round)
+            "top_device_kernels": [
+                (name, t / n, c / n) for name, (t, c) in sorted(
+                    by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]]
+            if n else None}
 
 
 def phase_profile(torch, prob):
@@ -2126,6 +2280,367 @@ def phase_population(torch):
                 float(scale[-1]["client_steps_per_sec"])}
 
 
+# ---------------------------------------------------------------- events
+
+# the reference docs' configuration (docs/async.md) at the population
+# demo's scale: P=8, K=10^5, N=100, M=2, hypercube, hybrid
+EV_P, EV_K = 8, 100_000
+EV_TICKS = 500
+EV_SPEC = "async:buffer=8,latency=lognorm:0.5,max_stale=4"
+EV_DIURNAL = "trace:diurnal,period=24,min=0.2"
+# (name, cohort, fault): the docs' run, importance sampling, link faults
+EV_CASES = (("uniform+trace", "uniform+" + EV_DIURNAL, "none"),
+            ("importance+trace", "importance,floor=0.2+" + EV_DIURNAL,
+             "none"),
+            ("uniform+trace, links", "uniform+" + EV_DIURNAL, "links:0.2"))
+EV_FOLD_SHAPES = [(8, 8, 2), (8, 6, 509), (8, 8, 4096)]   # (P, E, D)
+EV_FOLD_SIGMA = 0.2
+EV_ONOFF_TICKS = 10     # ticks whose MSD kernels on and off must share
+EV_SYNC = ("async:buffer=10", 10, 500)   # spec, clients_sampled, ticks
+EV_STEADY_TICKS = (100, 600)
+
+
+def events_config(cohort, fault="none", use_kernels=True):
+    from repro_torch.configs.base import GFLConfig
+    return GFLConfig(num_servers=EV_P, clients_per_server=EV_K,
+                     topology="hypercube", privacy="hybrid", sigma_g=0.2,
+                     mu=0.1, grad_bound=10.0, population="synthetic:hetero",
+                     cohort=cohort, fault=fault, async_spec=EV_SPEC,
+                     use_kernels=use_kernels, topology_seed=7)
+
+
+def event_fold_check(torch, gen) -> float:
+    """The event tick's fold, K1 + K2 through ``ops.round_fold``, on its
+    inputs: per-event bases [P, E, D] (the stale snapshots), staleness
+    weights 1/(1 + age)^0.5 as ``fold_w``, about a third of the events
+    invalid (fold weight 0, ``noise_w`` = valid / n_valid), importance
+    weights spread over 1e-3 .. 1e3 as ``pre_w``, in every mode against
+    ``round_fold_ref`` (psi atol 1e-5, sq rtol 1e-5), launched once a
+    call, twice bitwise equal.  Then K3's gate/cache variant on that psi
+    with the hypercube's matrix and a homomorphic noise term, at the
+    all-zero, a mixed and the all-one gate, against ``graph_combine_ref``
+    of the selected psi (the kernels-off order: select, then combine),
+    twice bitwise equal."""
+    from dataclasses import replace
+
+    from repro_torch import kernels as K
+    from repro_torch.core.events import staleness_weights
+    from repro_torch.core.simulate import base_combination_matrix
+    from repro_torch.kernels import ops, ref
+
+    worst = 0.0
+    for P, E, D in EV_FOLD_SHAPES:
+        A = torch.as_tensor(base_combination_matrix(
+            replace(events_config("uniform"), num_servers=P), P),
+            dtype=torch.float32, device="cuda")
+        w = torch.randn((P, E, D), generator=gen, device="cuda")
+        g = 3 * torch.randn((P, E, D), generator=gen, device="cuda")
+        pre_w = 10.0 ** (6 * torch.rand((P, E), generator=gen,
+                                        device="cuda") - 3)
+        valid = torch.rand((P, E), generator=gen, device="cuda") > 1 / 3
+        valid[:, 0] = True
+        ages = torch.randint(0, 5, (P, E), generator=gen, device="cuda")
+        fold_w = staleness_weights(ages, 0.5) * valid
+        noise_w = valid.float() / valid.sum(dim=1, keepdim=True)
+        noise = 0.3 * torch.randn((P, E, D), generator=gen, device="cuda")
+        seeds = torch.arange(P, device="cuda", dtype=torch.int64) * 7919 + 5
+        for mode in ("none", "laplace", "mask"):
+            kw = dict(mu=0.1, bound=10.0, pre_w=pre_w, fold_w=fold_w,
+                      noise_w=noise_w, mode=mode, sigma=EV_FOLD_SIGMA,
+                      seeds=seeds if mode == "mask" else None,
+                      noise=noise if mode == "laplace" else None)
+            before = dict(K.LAUNCHES)
+            (psi, sq), again = (ops.round_fold(w, g, **kw) for _ in range(2))
+            torch.cuda.synchronize()
+            require(bool(torch.equal(psi, again[0]))
+                    and bool(torch.equal(sq, again[1])),
+                    f"event fold {mode}: two runs differ")
+            require(all(K.LAUNCHES[k] - before[k] == 2
+                        for k in ("fold_norms", "fold_apply")),
+                    f"event fold {mode}: K1/K2 not launched once a call")
+            want_psi, want_sq = ref.round_fold_ref(w, g, **kw)
+            name = f"event fold {mode} ({P}, {E}, {D})"
+            err = check_close(torch, name, psi, want_psi, torch.float32)
+            check_close(torch, f"{name} sq", sq, want_sq, torch.float32,
+                        norms=True)
+            worst = max(worst, err)
+            emit({"phase": "events", "check": "event_fold",
+                  "shape": [P, E, D], "mode": mode, "max_abs_err": err,
+                  "pre_w_range": [float(pre_w.min()), float(pre_w.max())],
+                  "valid": int(valid.sum())})
+        cache = torch.randn((P, D), generator=gen, device="cuda")
+        gn = EV_FOLD_SIGMA * torch.randn((P, D), generator=gen,
+                                         device="cuda")
+        mixed = (torch.arange(P, device="cuda") % 3 == 0).float()
+        for label, gate in (("zero", torch.zeros(P, device="cuda")),
+                            ("mixed", mixed),
+                            ("one", torch.ones(P, device="cuda"))):
+            before = K.LAUNCHES["graph_combine"]
+            out = twice_equal(torch, f"event combine gate {label}",
+                              lambda: ops.graph_combine(A, psi, gn,
+                                                        cache=cache,
+                                                        gate=gate))
+            require(K.LAUNCHES["graph_combine"] - before == 2,
+                    f"event combine gate {label}: K3 not launched once a "
+                    "call")
+            want = ref.graph_combine_ref(A.T, ops.apply_gate(psi, gate,
+                                                             cache), gn)
+            err = check_close(torch, f"event combine gate {label} "
+                              f"({P}, {D})", out, want, torch.float32)
+            worst = max(worst, err)
+            emit({"phase": "events", "check": "event_combine_gate",
+                  "shape": [P, D], "gate": label, "max_abs_err": err})
+    return worst
+
+
+def ev_run(torch, pop, cfg, ticks, w_ref, executor=None, scan=False,
+           seed=1):
+    """(result, wall s, launches, replayed) of one ``run_gfl_async``, its
+    launch counts set to 0 just before."""
+    from repro_torch import kernels as K
+    from repro_torch.core.events import run_gfl_async
+
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_gfl_async(pop, cfg, ticks=ticks, batch_size=10, seed=seed,
+                        w_ref=w_ref, executor=executor, scan=scan,
+                        device="cuda")
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, dict(K.LAUNCHES), dict(K.REPLAYED)
+
+
+EV_FIELDS = ("flushed", "q", "staleness", "events", "dropped_stale")
+
+
+def require_event_runs_equal(torch, what, a, b) -> None:
+    """Two event runs bitwise equal: params, MSD, the schedules, gaps."""
+    import numpy as np
+
+    same = (bool(torch.equal(a.params, b.params))
+            and a.msd.tolist() == b.msd.tolist()
+            and all(np.array_equal(getattr(a, f), getattr(b, f))
+                    for f in EV_FIELDS)
+            and (a.gaps is None) == (b.gaps is None)
+            and (a.gaps is None or np.array_equal(a.gaps, b.gaps)))
+    require(same, f"events {what}: the runs differ")
+
+
+def check_event_run(torch, what, run, cfg) -> dict:
+    """One kernels-on graph run's own gates: K1-K3 launched, after the
+    warm-up tick only from replays; finite MSD; a tick that flushes a
+    strict subset of the servers; q only on flushes and in (0, 1]; the
+    amplified epsilon equal to the one recomputed from (flushed, q)."""
+    import numpy as np
+    from repro_torch.core.privacy.mechanism import mechanism_for
+
+    res, wall, launches, replayed = run
+    for name in ROUND_KERNELS:
+        require(launches[name] == EV_TICKS
+                and launches[name] - replayed[name] == 1,
+                f"events {what}: {name} launched {launches[name]} times, "
+                f"{replayed[name]} from replays, in {EV_TICKS} ticks")
+    require(bool(np.all(np.isfinite(res.msd))),
+            f"events {what}: non-finite MSD")
+    per_tick = res.flushed.sum(axis=1)
+    subset = int(((per_tick > 0) & (per_tick < EV_P)).sum())
+    require(subset > 0, f"events {what}: no tick flushes a strict subset "
+            "of the servers")
+    q = res.q
+    require(bool(np.all((q[res.flushed] > 0) & (q[res.flushed] <= 1)))
+            and bool(np.all(q[~res.flushed] == 0)),
+            f"events {what}: q outside (0, 1] on a flush or set without one")
+    acc = mechanism_for(cfg).async_accountant(EV_P)
+    acc.record_schedule(res.flushed, res.q)
+    eps = res.accountant.amplified_epsilon()
+    require(eps == acc.amplified_epsilon(),
+            f"events {what}: amplified epsilon {eps} against "
+            f"{acc.amplified_epsilon()} from (flushed, q)")
+    events = int(res.events.sum())
+    return {"wall_s": wall, "events_folded": events,
+            "events_per_sec_run": events / wall,
+            "ticks_flushing_a_strict_subset": subset,
+            "releases_per_server": res.flushed.sum(axis=0).tolist(),
+            "mean_staleness": float(res.staleness.mean()),
+            "dropped_stale": int(res.dropped_stale.sum()),
+            "msd_tail": float(np.mean(res.msd[-50:])),
+            "epsilon": res.accountant.epsilon(),
+            "epsilon_amplified": eps, "launches": launches,
+            "replayed": replayed}
+
+
+def event_sync_limit(torch) -> None:
+    """The sync limit on the gfl-logreg problem (``async:buffer=10``,
+    ``clients_sampled=10``, 500 ticks, kernels on): ``run_gfl_async`` is
+    bitwise ``run_gfl_population``, both under the round graph."""
+    from dataclasses import replace
+
+    from repro_torch import rng
+    from repro_torch.configs import gfl_logreg
+    from repro_torch.core.events import run_gfl_async
+    from repro_torch.core.population import run_gfl_population
+    from repro_torch.core.simulate import generate_problem
+
+    spec, L, ticks = EV_SYNC
+    base = gfl_logreg.GFL
+    prob = generate_problem(rng(0, "cuda"), P=base.num_servers,
+                            K=base.clients_per_server,
+                            N=gfl_logreg.SAMPLES_PER_CLIENT,
+                            M=gfl_logreg.DIM, rho=gfl_logreg.RHO)
+    cfg = replace(base, async_spec=spec, clients_sampled=L,
+                  use_kernels=True)
+    a = run_gfl_async(prob, cfg, ticks=ticks, batch_size=10, seed=1)
+    p = run_gfl_population(prob, cfg, iters=ticks, batch_size=10, seed=1)
+    require(bool(torch.equal(a.params, p.params))
+            and a.msd.tolist() == p.msd.tolist() and bool(a.flushed.all()),
+            "events sync limit: run_gfl_async differs from "
+            "run_gfl_population")
+    emit({"phase": "events", "sync_limit": spec, "clients_sampled": L,
+          "ticks": ticks, "bitwise_run_gfl_population": True,
+          "msd_tail": float(a.msd[-50:].mean())})
+
+
+def event_host_stage(torch, pop, cfg, ticks=POP_STAGE_ROUNDS) -> dict:
+    """Host ms a tick of the event tick's host stage
+    (``StagedEventTick.stage``: the draws reseeded, the tick's arrivals
+    realized in numpy and copied pageable) and of its parts alone."""
+    from repro_torch.core.events import engine, parse_async_spec
+    from repro_torch.core.population.cohort import parse_trace_spec
+    from repro_torch.core.simulate import base_combination_matrix, make_grad_fn
+    from repro_torch.draws import Draws
+
+    spec = parse_async_spec(cfg.async_spec)
+    step = engine.StagedEventTick(
+        pop, cfg, spec, parse_trace_spec(cfg.cohort.partition("trace:")[2]),
+        None, None, base_combination_matrix(cfg, pop.P),
+        make_grad_fn(pop.rho), 10, ticks, torch.device("cuda"),
+        seed=cfg.topology_seed)
+    draws = Draws(3, "cuda")
+    u, ages = step.queue.realize(0)
+
+    def ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(ticks):
+            fn(i)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / ticks
+
+    return {"host_stage_ms_per_tick": ms(lambda i: step.stage(i, draws)),
+            "reseed_ms": ms(draws.stage),
+            "realize_ms": ms(step.queue.realize),
+            "two_copies_ms": ms(lambda i: (
+                step.u.copy_(torch.from_numpy(u)),
+                step.ages.copy_(torch.from_numpy(ages))))}
+
+
+def async_throughput_rows(torch):
+    """``python -m repro_torch.launch.async_throughput`` at its defaults,
+    as a user runs it, in its own process: every row's events a second."""
+    import csv
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "repro_torch.launch.async_throughput"],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=600)
+    require(out.returncode == 0, "async_throughput exited "
+            f"{out.returncode}: {out.stderr[-2000:]}")
+    lines = [ln for ln in out.stdout.splitlines() if not ln.startswith("#")]
+    header, *rows = csv.reader(lines)
+    rows = [dict(zip(header, r)) for r in rows]
+    require(len(rows) == 7 and rows[0]["config"] == "sync",
+            f"async_throughput: rows {[r['config'] for r in rows]}")
+    for r in rows:
+        require(float(r["events_per_sec"]) > 0
+                and float(r["msd_final"]) == float(r["msd_final"]),
+                f"async_throughput {r['config']}: {r}")
+        emit({"phase": "events", "bench": "async_throughput", **r})
+    emit({"phase": "events", "bench": "async_throughput",
+          "seconds": time.perf_counter() - t0})
+    return rows
+
+
+def phase_events(torch) -> dict:
+    """The event engine at full size (module docstring, phase 10).  The
+    K1-K3 launches it returns are those of its kernels-on runs of the three
+    cases (graph, eager and scan), each counted from 0 just before."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.core.population import (estimate_w_ref,
+                                             population_from_spec)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    fold_err = event_fold_check(torch, gen)
+    event_sync_limit(torch)
+    pop = population_from_spec(events_config("uniform"), device="cuda")
+    w_ref = estimate_w_ref(pop, sample_clients=64, iters=1500)
+    totals = dict.fromkeys(ROUND_KERNELS, 0)
+    for name, cohort, fault in EV_CASES:
+        cfg = events_config(cohort, fault)
+        graph = ev_run(torch, pop, cfg, EV_TICKS, w_ref)
+        rec = check_event_run(torch, name, graph, cfg)
+        for k in ROUND_KERNELS:
+            totals[k] += graph[2][k]
+        eager = ev_run(torch, pop, cfg, EV_TICKS, w_ref, "eager")
+        require_event_runs_equal(torch, f"{name}: graph against eager",
+                                 graph[0], eager[0])
+        require(graph[2] == eager[2], f"events {name}: launches "
+                f"{graph[2]} under the graph, {eager[2]} eagerly")
+        scan = ev_run(torch, pop, cfg, EV_TICKS, w_ref, scan=True)
+        require_event_runs_equal(torch, f"{name}: loop against scan",
+                                 graph[0], scan[0])
+        for k in ROUND_KERNELS:
+            totals[k] += eager[2][k] + scan[2][k]
+        off = ev_run(torch, pop, events_config(cohort, fault, False),
+                     EV_TICKS, w_ref)[0]
+        on = graph[0]
+        if name == EV_CASES[0][0]:
+            events_a_tick = float(on.events.sum()) / EV_TICKS
+        n = EV_ONOFF_TICKS
+        msd_rel = float(np.max(np.abs(on.msd[:n] / off.msd[:n] - 1)))
+        p_err = float((on.params - off.params).abs().max())
+        require(msd_rel <= 1e-4 and p_err <= PARAMS_ATOL,
+                f"events {name}: kernels on against off: MSD of the first "
+                f"{n} ticks {msd_rel} (relative), final params {p_err}")
+        emit({"phase": "events", "case": name, "cohort": cohort,
+              "fault": fault, "spec": EV_SPEC, "ticks": EV_TICKS,
+              "graph_is_eager": True, "loop_is_scan": True,
+              "wall_s_eager": eager[1], "wall_s_scan": scan[1],
+              "kernels_against_plain": {"msd_rel_err_first_ticks": msd_rel,
+                                        "params_max_abs_err": p_err},
+              **rec})
+    # the tick's time: the docs' run (uniform + diurnal), kernels on
+    cfg = events_config(EV_CASES[0][1])
+
+    def run(ticks, executor):
+        return ev_run(torch, pop, cfg, ticks, w_ref, executor)
+
+    timing = {}
+    for executor in ("graph", "eager"):
+        rec = profile_run(torch, run, executor)
+        wall = steady_ms(torch, run, executor, EV_STEADY_TICKS)
+        timing[executor] = wall
+        emit({"phase": "events", "timing": cfg.cohort, "executor": executor,
+              "wall_ms_per_tick": wall,
+              "busy_over_wall": rec["device_busy_ms_per_round"] / wall,
+              "events_per_tick": events_a_tick,
+              "events_per_sec_steady": events_a_tick / wall * 1e3, **rec})
+    emit({"phase": "events", "timing": cfg.cohort,
+          **event_host_stage(torch, pop, cfg),
+          "graph_ms_per_tick": timing["graph"],
+          "eager_ms_per_tick": timing["eager"]})
+    rows = async_throughput_rows(torch)
+    K.reset_launches()
+    return {"launches": totals, "fold_err": fold_err,
+            "graph_ms_per_tick": timing["graph"],
+            "eager_ms_per_tick": timing["eager"],
+            "bench_rows": len(rows)}
+
+
 # ------------------------------------------------------------ K8 (swa)
 
 
@@ -2362,32 +2877,36 @@ def decode_profile(torch, model, toks, cache, steps, tries=TRACE_TRIES):
     """torch.profiler over ``steps`` decode steps (already warm).  A trace
     whose K8 count is not one a layer and step is taken again, up to
     ``tries`` traces (the profiler has been seen to lose one kernel
-    record of thousands); every trace must be free of softmax and SDPA."""
-    from torch.profiler import ProfilerActivity, profile
-
+    record of thousands); every trace must be free of softmax and SDPA.
+    The trace is ``traced``'s, unfenced (the K8 count is the gate); its
+    markers are not counted."""
     want = steps * model.cfg.num_layers
-    for attempt in range(tries):
+    state = {"toks": toks, "cache": cache}
+
+    def block():
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, state["cache"] = model.decode_step(state["toks"],
+                                                       state["cache"])
+            state["toks"] = logits.argmax(-1)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                logits, cache = model.decode_step(toks, cache)
-                toks = logits.argmax(-1)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        return time.perf_counter() - t0
+
+    for attempt in range(tries):
+        tr = traced(torch, block, f"serve: {steps} decode steps",
+                    fenced=False)
+        prof, wall = tr["prof"], tr["value"]
         busy, k8, k8_n, count, by_name = 0.0, 0.0, 0, 0, {}
-        for evt in prof.events():
-            if str(getattr(evt, "device_type", "")).endswith("CUDA"):
-                us = evt.time_range.elapsed_us()
-                busy += us
-                count += 1
-                tot = by_name.setdefault(evt.name[:60], [0.0, 0])
-                tot[0] += us
-                tot[1] += 1
-                if "swa_decode" in evt.name:
-                    k8 += us
-                    k8_n += 1
+        for evt in tr["device"]:
+            us = evt.time_range.elapsed_us()
+            busy += us
+            count += 1
+            tot = by_name.setdefault(evt.name[:60], [0.0, 0])
+            tot[0] += us
+            tot[1] += 1
+            if "swa_decode" in evt.name:
+                k8 += us
+                k8_n += 1
         host_ops = {e.key for e in prof.key_averages()}
         banned = sorted(n for n in host_ops | set(by_name)
                         if "softmax" in n.lower() or "scaled_dot_product" in n)
@@ -2544,6 +3063,7 @@ def main() -> int:
         phase_profile(torch, prob)
         del prob
         phase_population(torch)
+        ev = phase_events(torch)
         swa_row = phase_swa(torch)
         launches["swa_decode"] = phase_serve(torch)
     except SmokeFailure as exc:
@@ -2552,6 +3072,8 @@ def main() -> int:
     for name in kb_errs:
         launches[name] = kb_launches[name]
         errs[name] = kb_errs[name]
+    for name, n in ev["launches"].items():     # the event phase's K1-K3
+        launches[name] += n
     table = []
     main_t = timings[MAIN_SHAPE]
     for name, (source, replaces, key) in KERNELS.items():
@@ -2567,6 +3089,11 @@ def main() -> int:
                       "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                       "bound_by": rec["bound_by"],
                       "library_ms": rec["library_ms"]})
+    known = [o for o in TRACE_OFFSETS if o is not None]
+    emit({"phase": "profiler", **TRACE_COUNTS,
+          "offset_us_least": min(known, default=None),
+          "offset_us_most": max(known, default=None),
+          "traces_off_by_over_1ms": sum(abs(o) > 1e3 for o in known)})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "power": smi})
     print(smi, flush=True)          # card name and power limit, nvidia-smi

@@ -4,10 +4,11 @@ field (names, defaults, ``resolved_head_dim``, ``subquadratic`` and
 
 :class:`ModelConfig` and its sub-configs are pure data; the port runs the
 dense GQA family (``repro_torch.models``), and the registry raises for the
-rest.  :class:`GFLConfig` fields the engines do not run yet
-(``async_spec``, ``telemetry``, ``sanitize``, and the mesh knobs) are kept
-so a config round-trips, and the engines raise ``NotImplementedError``
-when one is set.
+rest.  ``GFLConfig.async_spec`` is read by the event engine
+(``repro_torch.core.events``).  :class:`GFLConfig` fields the engines do
+not run yet (``telemetry``, ``sanitize``, and the mesh knobs) are kept so a
+config round-trips, and the engines raise ``NotImplementedError`` when one
+is set.
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ class GFLConfig:
     fault: str = "none"              # resilience fault spec
     population: str = "dense"        # client-population spec
     cohort: str = "uniform"          # cohort-scheduler spec
-    async_spec: str = "none"         # event-driven executor (later slice)
+    async_spec: str = "none"         # event-driven executor spec
+                                     # (repro_torch.core.events)
     data_seed: int = 0               # seed of the lazy population generator
     privacy: str = "hybrid"          # registry key into
                                      # repro_torch.core.privacy.mechanism

@@ -33,8 +33,11 @@ round as :class:`StagedWeightedStep`; ``scan=True``, in the reference one
 static topology and ``combine_every=1`` only).  ``executor="eager"`` runs
 the same stage and body op by op instead, as the CPU always does.
 
-Not in this slice (they raise ``NotImplementedError`` naming their ROADMAP
-slice): the event engine (``async_spec``), telemetry and the sanitizer.
+``cfg.async_spec`` is ignored here, as in the reference: the event engine
+(:func:`repro_torch.core.events.run_gfl_async`) reads it, and at its sync
+limit runs this module's pure path.  Not in this slice (they raise
+``NotImplementedError`` naming their ROADMAP slice): telemetry and the
+sanitizer.
 """
 from __future__ import annotations
 
@@ -133,9 +136,9 @@ class PopulationRunResult(NamedTuple):
 
 
 def _check_slice(cfg: GFLConfig) -> None:
+    # ``async_spec`` is the event engine's (``repro_torch.core.events``):
+    # the synchronous engine ignores it, as the reference does
     unported = {
-        "async_spec": (cfg.async_spec, "none",
-                       "ROADMAP slice 4: the event engine"),
         "telemetry": (cfg.telemetry, "off", "ROADMAP slice 5: telemetry"),
         "sanitize": (cfg.sanitize, False, "ROADMAP slice 5: sanitizer"),
     }

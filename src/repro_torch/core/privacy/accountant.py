@@ -34,8 +34,9 @@ realized rates; ``amplified_epsilon()`` / ``amplified_delta()`` read the
 amplified ledger, and q = 1 reproduces the unamplified curve exactly.
 
 Carried over from the reference's pure-python module unchanged in its
-arithmetic (the tests hold every curve exactly equal); the telemetry emit
-and the per-server async ledger come with later slices.
+arithmetic (the tests hold every curve exactly equal), with the per-server
+ledger of the event engine (:class:`AsyncAccountant`); the telemetry emit
+comes with a later slice.
 """
 from __future__ import annotations
 
@@ -315,3 +316,90 @@ class PrivacyAccountant:
                                               self.delta)
         return sigma_for_epsilon(horizon, self.mu, self.grad_bound,
                                  eps_target)
+
+
+# ------------------------------------------------- per-server async ledger --
+
+
+@dataclass
+class AsyncAccountant:
+    """Per-server release ledgers for the event-driven executor.
+
+    Once servers stop releasing in lockstep (repro_torch.core.events), "the"
+    epsilon of the run is no longer one composed curve: each server
+    releases at ITS OWN realized cadence and realized sampling rate q, and
+    the privacy surface is per-server (cf. the topology-dependent
+    decentralized bounds of arXiv:2312.07956).  This extension keeps one
+    :class:`PrivacyAccountant` per server, advances server p's ledger only
+    on the ticks p actually flushed (``record_round`` /
+    ``record_schedule`` consume the ``(flushed, q)`` schedule an
+    :class:`~repro_torch.core.events.engine.AsyncRunResult` carries), and
+    reports the worst server's spend as the headline number.
+
+    The synchronous lockstep schedule — every server flushing every tick
+    at the same q — is a pinned special case: every per-server ledger then
+    equals the scalar accountant's, so ``epsilon()`` /
+    ``amplified_epsilon()`` reproduce the synchronous curves exactly
+    (unit-pinned in tests/test_torch_events.py).
+    """
+    servers: list
+
+    @classmethod
+    def from_profile(cls, profile, mu: float, grad_bound: float, P: int
+                     ) -> "AsyncAccountant":
+        """One ledger per server, each configured like
+        :meth:`PrivacyAccountant.from_profile`."""
+        ledgers = [PrivacyAccountant.from_profile(profile, mu, grad_bound)
+                   for _ in range(P)]
+        for p, acc in enumerate(ledgers):
+            acc.owner = f"server{p}"
+        return cls(ledgers)
+
+    @property
+    def P(self) -> int:
+        return len(self.servers)
+
+    @property
+    def releases(self) -> list:
+        """Per-server release counts so far."""
+        return [acc.step for acc in self.servers]
+
+    def record_round(self, flushed, q=None) -> None:
+        """Advance the ledgers of the servers that flushed this tick.
+
+        ``flushed``: [P] bool; ``q``: [P] realized per-flush sampling
+        rates (entries of non-flushing servers ignored; None charges each
+        ledger's default rate)."""
+        for p, did in enumerate(flushed):
+            if did:
+                qp = None if q is None else float(q[p])
+                if qp is not None and qp <= 0.0:
+                    qp = None   # schedule rows store 0 for "no flush"
+                self.servers[p].advance(1, q=qp)
+
+    def record_schedule(self, flushed, q=None) -> None:
+        """Record a whole run's [T, P] release schedule (the
+        ``AsyncRunResult.flushed`` / ``.q`` arrays)."""
+        for t in range(len(flushed)):
+            self.record_round(flushed[t], None if q is None else q[t])
+
+    def per_server_epsilon(self) -> list:
+        return [acc.epsilon() for acc in self.servers]
+
+    def epsilon(self) -> float:
+        """Worst-server composed epsilon (0 with no servers/releases)."""
+        eps = self.per_server_epsilon()
+        return max(eps) if eps else 0.0
+
+    def amplified_epsilon(self) -> float:
+        """Worst-server composed epsilon under subsampling amplification,
+        against each server's own realized q history."""
+        eps = [acc.amplified_epsilon() for acc in self.servers]
+        return max(eps) if eps else 0.0
+
+    def amplified_delta(self) -> float:
+        return max((acc.amplified_delta() for acc in self.servers),
+                   default=0.0)
+
+    def delta_spent(self) -> float:
+        return max((acc.delta_spent() for acc in self.servers), default=0.0)

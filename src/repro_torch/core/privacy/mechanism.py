@@ -31,6 +31,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.core.privacy.accountant import (
+    AsyncAccountant,
     PrivacyAccountant,
     scheduled_sigma_at,
 )
@@ -118,6 +119,12 @@ class PrivacyMechanism:
     def accountant(self) -> PrivacyAccountant:
         return PrivacyAccountant.from_profile(
             self.noise_profile(), self.cfg.mu, self.cfg.grad_bound)
+
+    def async_accountant(self, P: int) -> AsyncAccountant:
+        """Per-server ledgers for event-driven (non-lockstep) release
+        schedules — see :class:`AsyncAccountant` and docs/async.md."""
+        return AsyncAccountant.from_profile(
+            self.noise_profile(), self.cfg.mu, self.cfg.grad_bound, P)
 
     def client_protect(self, w_clients: torch.Tensor, draws,
                        ctx: RoundContext) -> torch.Tensor:

@@ -90,11 +90,13 @@ def _solve_global(features: torch.Tensor, labels: torch.Tensor, rho: float,
 
 
 def make_grad_fn(rho: float) -> Callable:
-    """Per-client gradients of Q: (params [P, D], (h [P, L, B, M],
+    """Per-client gradients of Q: (params [P, D], or one model a client
+    [P, L, D] as the event engine's stale snapshots, (h [P, L, B, M],
     gamma [P, L, B])) -> [P, L, D]."""
     def grad_fn(params, batch):
         h, gamma = batch
-        return _logistic_grad(params[:, None, :], h, gamma, rho)
+        w = params[:, None, :] if params.dim() == 2 else params
+        return _logistic_grad(w, h, gamma, rho)
     return grad_fn
 
 

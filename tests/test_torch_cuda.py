@@ -911,3 +911,87 @@ def test_weighted_round_graph_over_a_dirichlet_population(cuda, fault):
     assert torch.equal(rg.params, re.params)
     assert rg.msd.tolist() == re.msd.tolist() and lg == le
     assert lg["fold_apply"] == 7
+
+
+# --------------------------------------------------------- the event engine
+
+EVENTS = {"diurnal": ("uniform+trace:diurnal,period=6,min=0.3",
+                      "async:buffer=8,latency=lognorm:0.7,max_stale=3,"
+                      "rate=6", "none"),
+          "importance": ("importance,floor=0.2+trace:devclass,slow=0.5,"
+                         "p=0.3", "async:buffer=10,latency=exp:1.0,"
+                                  "max_stale=2,rate=8", "links:0.3")}
+
+
+def _event_cfg(scheme, use_kernels, case):
+    from repro_torch.configs.base import GFLConfig
+    cohort, spec, fault = EVENTS[case]
+    return GFLConfig(num_servers=4, clients_per_server=500, topology="ring",
+                     privacy=scheme, sigma_g=0.3, mu=0.1, grad_bound=5.0,
+                     use_kernels=use_kernels, cohort=cohort, async_spec=spec,
+                     fault=fault, topology_seed=7,
+                     population="synthetic:mixture,clusters=3",
+                     epsilon_target=200.0, epsilon_horizon=9)
+
+
+def _event_runs(cfg, ticks=9, **kw):
+    from repro_torch.core.events import run_gfl_async
+    out = {}
+    for executor in ("graph", "eager"):
+        K.reset_launches()
+        res = run_gfl_async(None, cfg, ticks=ticks, batch_size=5, seed=3,
+                            executor=executor, device="cuda", **kw)
+        out[executor] = (res, dict(K.LAUNCHES), dict(K.REPLAYED))
+    return out
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("case", list(EVENTS))
+def test_event_tick_graph_is_the_eager_executor(cuda, scheme, use_kernels,
+                                                case):
+    """The event tick under the round graph: params, MSD, the flush, q,
+    staleness, event and drop schedules and the launch counts bitwise the
+    eager executor's; the wrappers launch K1-K3 only in the warm-up tick;
+    ``scan=True`` is bitwise the loop."""
+    import numpy as np
+    cfg = _event_cfg(scheme, use_kernels, case)
+    out = _event_runs(cfg)
+    (rg, lg, replayed), (re, le, _) = out["graph"], out["eager"]
+    assert torch.equal(rg.params, re.params)
+    assert rg.msd.tolist() == re.msd.tolist()
+    for field in ("flushed", "q", "staleness", "events", "dropped_stale"):
+        assert np.array_equal(getattr(rg, field), getattr(re, field))
+    assert lg == le
+    for name in ("fold_norms", "fold_apply", "graph_combine"):
+        if lg[name]:
+            assert lg[name] == 9 and lg[name] - replayed[name] == 1
+    scan = _event_runs(cfg, scan=True)["graph"][0]
+    assert torch.equal(scan.params, rg.params)
+    assert scan.msd.tolist() == rg.msd.tolist()
+    assert np.array_equal(scan.flushed, rg.flushed)
+
+
+def test_event_sync_limit_is_run_gfl_population_on_the_card(cuda):
+    from repro_torch.core.events import run_gfl_async
+    from repro_torch.core.population import run_gfl_population
+    prob = _round_graph_problem()
+    cfg = _round_graph_cfg("hybrid", True, 6, async_spec="async:buffer=5")
+    a = run_gfl_async(prob, cfg, ticks=6, batch_size=5, seed=3)
+    p = run_gfl_population(prob, cfg, iters=6, batch_size=5, seed=3)
+    assert torch.equal(a.params, p.params) and a.msd.tolist() == p.msd.tolist()
+
+
+def test_event_tick_graph_memory_is_flat(cuda):
+    """Twenty runs of ``run_gfl_async``, each capturing its tick graph and
+    freeing it, leave the allocated memory where the first left it."""
+    from repro_torch.core.events import run_gfl_async
+    cfg = _event_cfg("hybrid", True, "importance")
+    run_gfl_async(None, cfg, ticks=4, batch_size=5, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    for seed in range(20):
+        run_gfl_async(None, cfg, ticks=4, batch_size=5, seed=seed,
+                      device="cuda")
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base

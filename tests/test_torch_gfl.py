@@ -189,13 +189,14 @@ def test_unported_options_raise(field, value, problem):
     """Options of later slices raise, naming their slice.  Faults, weighted
     cohorts and lazy populations (slice 3) run now: a fault on the
     weighted path, an importance cohort, a population built from its
-    spec."""
+    spec; so does an async spec (slice 4), which the synchronous engine
+    ignores, as the reference's does (the event engine reads it)."""
     from repro_torch.core.population import run_gfl_population
     kw = {field: value}
     if field == "fault":
         kw["cohort"] = "importance"
     cfg = GFLConfig(**_cfg_kw("none", **kw))
-    if field in ("fault", "cohort", "population"):
+    if field in ("fault", "cohort", "population", "async_spec"):
         source = None if field == "population" else problem
         res = run_gfl_population(source, cfg, iters=2, batch_size=5,
                                  device="cpu")

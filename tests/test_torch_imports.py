@@ -82,6 +82,15 @@ def test_import_check_covers_the_population_slice():
     assert slice_ <= set(_port_modules())
 
 
+def test_import_check_covers_the_event_slice():
+    slice_ = {"repro_torch.core.events.spec",
+              "repro_torch.core.events.queue",
+              "repro_torch.core.events.buffer",
+              "repro_torch.core.events.engine",
+              "repro_torch.launch.async_throughput"}
+    assert slice_ <= set(_port_modules())
+
+
 def test_importing_the_port_leaves_jax_out():
     mods = _port_modules()
     code = ("import sys\n"

@@ -172,7 +172,31 @@ Phases, each printing JSON lines:
              repro_torch.launch.async_throughput` at its defaults (P=8,
              K=400, rate 8, 150 ticks, buffers 4/8/16 x max_stale 2/4 and
              the sync row) in its own process.
-11. swa    — K8 swa_decode against its plain version at the serving shapes
+11. observe — the cross-cutting layer on the card, at the main path's
+             full size (gfl-logreg, P=10, K=50, N=100, M=2, L=50,
+             hybrid, kernels on), under the round graph.  Telemetry on (a
+             memory session) against off, bitwise in params and MSD: the
+             pure path's loop and scan, 500 rounds; the weighted path at
+             population_demo's (8, 10^5, 20), 20 rounds; the event engine
+             at the docs' run, 100 ticks, loop and scan.  The streams
+             complete: step rows (where the engine taps them) and round
+             rows one a round, no NaN, privacy records one a release,
+             one kernel record per K1-K3 op a wrapper launched; a
+             profile_phase around a first and a second run of one shape
+             reads retraces >= 1 and then 0, with peak_bytes.  The off
+             graph unchanged: the main hybrid round's device ops a replay
+             through profile_run within PR 18's band (72.5-77.5; PERF.md
+             section 5: 73-77) and within half an op of the profile
+             phase's reading, and the on graph's beside it.  Sanitize
+             mode: the ledger cross-check on the three engines, each run
+             bitwise its run without it; a NaN w_ref raises SanitizerError after
+             a run whose rounds were replayed; a ledger one release short
+             raises.  Checkpoints: the final device params, the weighted
+             run's ISState and a bf16 tensor saved and loaded back,
+             bitwise and on the card.  Prints the steady wall a round
+             with telemetry off and on under the graph as name,value
+             lines with the card's name and power limit.
+12. swa    — K8 swa_decode against its plain version at the serving shapes
              (B, H, KV, C, Dh) = (4, 32, 32, 2047, 96) bf16,
              (4, 32, 32, 1064, 96) bf16, (4, 9, 3, 1064, 64) bf16 and f32,
              (2, 8, 4, 1000, 64) f32 and (32, 32, 32, 2047, 96) bf16 (805 MB
@@ -184,7 +208,7 @@ Phases, each printing JSON lines:
              finds them cold; a CUDA graph captured at nvalid = C/3 and
              replayed at C; and a stall probe at the phi3 shapes (the
              kernel beside its loads-only build, built here).
-12. serve  — phi3-mini-3.8b at full width (32 layers, d 3072, bf16, random
+13. serve  — phi3-mini-3.8b at full width (32 layers, d 3072, bf16, random
              weights from seed 0) through repro_torch.launch.serve.generate:
              request A, 4 x 4096-token prompts + 32 greedy tokens (ring of
              2047 slots, wrapped); request B, 4 x 1000 + 32 (1064 slots,
@@ -1863,6 +1887,8 @@ def phase_profile(torch, prob):
                   **rec})
             if executor != "graph":
                 continue
+            if shape == "main":
+                PROFILED["main"] = rec["device_ops_per_round"]
             require(0 < rec["graph_launches"] <= PROFILE_ROUNDS,
                     f"profile {shape}: {rec['graph_launches']} graph "
                     f"launches in {PROFILE_ROUNDS} rounds")
@@ -2641,6 +2667,261 @@ def phase_events(torch) -> dict:
             "bench_rows": len(rows)}
 
 
+# ------------------------------------------------------------ observe
+
+OBS_ITERS = 500          # the main path's rounds
+OBS_PROFILE_ITERS = 300  # a shape no earlier run captured: the retrace check
+OBS_POP_ITERS = 20
+OBS_EV_TICKS = 100
+OBS_OFF_OPS = (72.5, 77.5)   # PR 18's 73-77 device ops a replay, rounded
+OBS_OPS_TOL = 0.5        # ops a replay: the off graph against the profile's
+PROFILED: dict = {}      # the profile phase's main hybrid graph reading
+
+
+def observed(torch, fn, profile=False):
+    """(result, records by stream) of ``fn()`` under a memory session that
+    writes no file."""
+    from repro_torch.telemetry import MemorySink, session
+    with session([MemorySink()], trace_path="", profile=profile) as sess:
+        out = fn()
+    torch.cuda.synchronize()
+    by = {}
+    for r in sess.memory_records():
+        by.setdefault(r["stream"], []).append(r)
+    return out, by
+
+
+def require_streams(what, recs, rounds, releases, step_rows, wrapper) -> dict:
+    """The streams of one observed run are complete."""
+    import math
+
+    def finite(rows):
+        return all(not (isinstance(v, float) and math.isnan(v))
+                   for r in rows for v in r.values())
+
+    require(len(recs.get("round", [])) == rounds and finite(recs["round"]),
+            f"observe {what}: {len(recs.get('round', []))} round records "
+            f"for {rounds} rounds, or a NaN")
+    require(len(recs.get("step", [])) == (rounds if step_rows else 0)
+            and finite(recs.get("step", [])),
+            f"observe {what}: {len(recs.get('step', []))} step records")
+    require(len(recs.get("privacy", [])) == releases,
+            f"observe {what}: {len(recs.get('privacy', []))} privacy "
+            f"records for {releases} releases")
+    ops = [r["op"] for r in recs.get("kernel", [])]
+    for name in ROUND_KERNELS:
+        require(ops.count(name) == (1 if wrapper[name] else 0),
+                f"observe {what}: {ops.count(name)} kernel records of "
+                f"{name}, launched {wrapper[name]} times by its wrapper")
+    return {k: len(v) for k, v in recs.items()}
+
+
+def observe_pair(torch, what, run, cfg, equal, step_rows, releases) -> dict:
+    """``run(cfg)`` with telemetry off, then on: bitwise ``equal``, and
+    the streams of the on run complete."""
+    from dataclasses import replace
+    from repro_torch import kernels as K
+
+    off = run(cfg)
+    K.reset_launches()
+    on, recs = observed(torch, lambda: run(replace(cfg, telemetry="memory")))
+    wrapper = {k: K.LAUNCHES[k] - K.REPLAYED[k] for k in ROUND_KERNELS}
+    require(equal(off, on), f"observe {what}: telemetry on is not bitwise "
+            "the run with it off")
+    rounds = len(on.msd)
+    counts = require_streams(what, recs, rounds, releases(on), step_rows,
+                             wrapper)
+    return {"case": what, "rounds": rounds, "bitwise": True,
+            "records": counts, "wrapper_launches": wrapper,
+            "replayed": dict(K.REPLAYED)}
+
+
+def phase_observe(torch, smi) -> dict:
+    """Telemetry, sanitize mode and checkpoints on the card, under the round
+    graph (module docstring, phase 11)."""
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+    from repro_torch import kernels as K, rng
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import gfl_logreg
+    from repro_torch.core.events import run_gfl_async
+    from repro_torch.core.population import (estimate_w_ref,
+                                             population_from_spec,
+                                             run_gfl_population)
+    from repro_torch.core.simulate import generate_problem
+    from repro_torch.launch import population_demo as demo
+    from repro_torch.sanitize import ReleaseLedger, SanitizerError
+    from repro_torch.telemetry import profile_phase
+
+    t0 = time.perf_counter()
+    base = replace(gfl_logreg.GFL, privacy="hybrid", use_kernels=True)
+    prob = generate_problem(rng(0, "cuda"), P=base.num_servers,
+                            K=base.clients_per_server,
+                            N=gfl_logreg.SAMPLES_PER_CLIENT,
+                            M=gfl_logreg.DIM, rho=gfl_logreg.RHO)
+
+    def same(a, b):
+        return bool(torch.equal(a.params, b.params)) and \
+            a.msd.tolist() == b.msd.tolist()
+
+    def same_events(a, b):
+        return same(a, b) and all(np.array_equal(getattr(a, f),
+                                                 getattr(b, f))
+                                  for f in EV_FIELDS)
+
+    cases = []
+    for scan in (False, True):
+        def pure(cfg, scan=scan):
+            return run_gfl_population(prob, cfg, iters=OBS_ITERS,
+                                      batch_size=10, seed=5, scan=scan)
+        cases.append(observe_pair(
+            torch, f"pure, scan={scan}", pure, base, same, True,
+            lambda r: r.accountant.step))
+    pure_res = pure(base)
+    # the weighted path at population_demo's size
+    wbase = replace(demo.base_config(), cohort=demo.COHORTS[2])
+    pop = population_from_spec(wbase, device="cuda")
+    w_ref = estimate_w_ref(pop, sample_clients=64, iters=1500)
+
+    def weighted(cfg):
+        return run_gfl_population(pop, cfg, iters=OBS_POP_ITERS,
+                                  batch_size=10, seed=5, w_ref=w_ref)
+    cases.append(observe_pair(torch, "weighted", weighted, wbase, same,
+                              False, lambda r: r.accountant.step))
+    w_res = weighted(wbase)
+    # the event engine at the docs' run, loop and scan
+    ebase = events_config(EV_CASES[0][1])
+    epop = population_from_spec(events_config("uniform"), device="cuda")
+    e_ref = estimate_w_ref(epop, sample_clients=64, iters=1500)
+    for scan in (False, True):
+        def events(cfg, scan=scan):
+            return run_gfl_async(epop, cfg, ticks=OBS_EV_TICKS,
+                                 batch_size=10, seed=5, w_ref=e_ref,
+                                 scan=scan)
+        cases.append(observe_pair(
+            torch, f"events, scan={scan}", events, ebase, same_events, scan,
+            lambda r: int(r.flushed.sum())))
+    for case in cases:
+        emit({"phase": "observe", **case})
+
+    # a first and a second run of one shape under the phase profiler
+    def twice():
+        for name in ("first", "second"):
+            with profile_phase(name):
+                run_gfl_population(prob, base, iters=OBS_PROFILE_ITERS,
+                                   batch_size=10, seed=6)
+    _, recs = observed(torch, twice, profile=True)
+    prof = {r["phase"]: r for r in recs.get("profile", [])
+            if r["phase"] in ("first", "second")}
+    require(len(prof) == 2
+            and prof["first"]["retraces"] >= 1
+            and prof["second"]["retraces"] == 0
+            and all("peak_bytes" in r for r in prof.values()),
+            f"observe: profile records {prof}")
+    emit({"phase": "observe", "profile": {
+        k: {f: r[f] for f in ("wall_s", "compile_s", "execute_s",
+                              "callback_s", "retraces", "compiles",
+                              "peak_bytes")} for k, r in prof.items()}})
+
+    # the off graph is today's; the on graph beside it
+    from repro_torch.core.simulate import run_gfl
+
+    def runner(cfg, on):
+        def run(iters, executor):
+            if not on:
+                return run_gfl(prob, cfg, iters=iters, batch_size=10,
+                               seed=2, executor=executor)
+            return observed(torch, lambda: run_gfl(
+                prob, replace(cfg, telemetry="memory"), iters=iters,
+                batch_size=10, seed=2, executor=executor))[0]
+        return run
+
+    rec_off = profile_run(torch, runner(base, False), "graph")
+    rec_on = profile_run(torch, runner(base, True), "graph")
+    ops_off = rec_off["device_ops_per_round"]
+    lo, hi = OBS_OFF_OPS             # the graph before telemetry
+    require(lo <= ops_off <= hi, f"observe: the telemetry-off main round "
+            f"has {ops_off} device ops a replay, not {lo}-{hi}")
+    if "main" in PROFILED:           # the profile phase ran: its reading
+        near = abs(ops_off - PROFILED["main"]) <= OBS_OPS_TOL
+        require(near, f"observe: the telemetry-off main round has {ops_off} "
+                f"device ops a replay, the profile phase {PROFILED['main']}")
+    wall_off = steady_ms(torch, runner(base, False), "graph")
+    wall_on = steady_ms(torch, runner(base, True), "graph")
+    emit({"phase": "observe", "graph_ops_per_replay_off": ops_off,
+          "graph_ops_per_replay_profile_phase": PROFILED.get("main"),
+          "graph_ops_per_replay_on": rec_on["device_ops_per_round"],
+          "busy_ms_per_round_off": rec_off["device_busy_ms_per_round"],
+          "busy_ms_per_round_on": rec_on["device_busy_ms_per_round"],
+          "wall_ms_per_round_off": wall_off,
+          "wall_ms_per_round_on": wall_on})
+    print(f"observe/card,{smi}", flush=True)
+    print(f"observe/graph_round_ms_telemetry_off,{wall_off}", flush=True)
+    print(f"observe/graph_round_ms_telemetry_on,{wall_on}", flush=True)
+
+    # sanitize mode on the three engines, and its plants
+    sane = [pure(replace(base, sanitize=True)),
+            weighted(replace(wbase, sanitize=True)),
+            events(replace(ebase, sanitize=True))]
+    e_res = events(ebase)
+    require(same(sane[0], pure_res) and same(sane[1], w_res)
+            and same_events(sane[2], e_res),
+            "observe: sanitize mode changed a run")
+    K.reset_launches()
+    try:
+        run_gfl_population(prob, replace(base, sanitize=True),
+                           iters=OBS_ITERS, batch_size=10, seed=5,
+                           w_ref=torch.full((gfl_logreg.DIM,), float("nan"),
+                                            device="cuda"))
+        raised = False
+    except SanitizerError:
+        raised = True
+    require(raised and K.REPLAYED["fold_apply"] >= OBS_ITERS - 1,
+            f"observe: a NaN w_ref did not raise SanitizerError after "
+            f"{K.REPLAYED['fold_apply']} replayed rounds")
+    short = ReleaseLedger()
+    short.record_release(sane[0].accountant.step)
+    short.charge_from(sane[0].accountant)
+    short.cross_check()
+    short.record_release()
+    try:
+        short.cross_check()
+        raised = False
+    except SanitizerError:
+        raised = True
+    require(raised, "observe: a ledger one release short did not raise")
+
+    # checkpoints round-trip on the card
+    bf16 = torch.randn(64, 96, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(3)
+                       ).to(torch.bfloat16)
+    tree = {"params": sane[0].params, "is_state": w_res.scheduler.is_state,
+            "bf16": bf16}
+    with tempfile.TemporaryDirectory() as tmp:
+        save_checkpoint(tmp + "/ck", tree, step=OBS_ITERS)
+        like = {"params": torch.zeros_like(tree["params"]),
+                "is_state": type(tree["is_state"])(
+                    *(torch.zeros_like(t) for t in tree["is_state"])),
+                "bf16": torch.zeros_like(bf16)}
+        back, step = load_checkpoint(tmp + "/ck", like)
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    pairs = [(back["params"], tree["params"]), (back["bf16"], bf16)]
+    pairs += list(zip(back["is_state"], tree["is_state"]))
+    require(step == OBS_ITERS and all(
+        a.device == b.device and a.dtype == b.dtype
+        and bool(torch.equal(bits(a), bits(b))) for a, b in pairs),
+        "observe: a checkpoint did not round-trip bitwise on the card")
+    emit({"phase": "observe", "sanitize_engines": 3,
+          "nan_w_ref_raised_after_run": True, "short_ledger_raised": True,
+          "checkpoint_leaves": len(pairs), "checkpoint_bitwise": True,
+          "seconds": time.perf_counter() - t0})
+    return {"wall_ms_per_round_off": wall_off, "wall_ms_per_round_on": wall_on}
+
+
 # ------------------------------------------------------------ K8 (swa)
 
 
@@ -3064,6 +3345,7 @@ def main() -> int:
         del prob
         phase_population(torch)
         ev = phase_events(torch)
+        phase_observe(torch, smi)
         swa_row = phase_swa(torch)
         launches["swa_decode"] = phase_serve(torch)
     except SmokeFailure as exc:

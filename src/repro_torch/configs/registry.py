@@ -3,7 +3,8 @@
 
 The port runs the dense GQA family without MoE; every other id is known
 (it is the reference's list) but raises ``NotImplementedError`` naming the
-ROADMAP item that will port its family.
+ROADMAP item that will port its family.  :func:`all_configs` lists every
+id, as the reference's does.
 """
 from __future__ import annotations
 
@@ -51,3 +52,11 @@ def get_config(arch_id: str) -> ModelConfig:
         raise NotImplementedError(
             f"{arch_id} is not ported yet: ROADMAP {_PENDING[arch_id]}")
     return importlib.import_module(_module_name(arch_id)).CONFIG
+
+
+def all_configs() -> dict:
+    """{arch id: ModelConfig} for every model id of the reference (the
+    paper's ``gfl-logreg`` left out, as there); an id not ported yet maps
+    to None — :func:`get_config` raises for it."""
+    return {a: get_config(a) if a in PORTED_ARCH_IDS else None
+            for a in ARCH_IDS if a != "gfl-logreg"}

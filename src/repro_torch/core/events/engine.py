@@ -50,11 +50,18 @@ tick path, as in the reference.
 
 Privacy: each *flush* is one ledger release of that server; the result
 carries an :class:`~repro_torch.core.privacy.accountant.AsyncAccountant`
-charged off its realized ``(flushed, q)`` schedule.  Telemetry and the
-sanitizer (ROADMAP slice 5) raise ``NotImplementedError``.
+charged off its realized ``(flushed, q)`` schedule.
+
+Telemetry: the ``round`` records are built from the tick's [T, P] traces
+after the run, and under ``scan=True`` so is the ``step`` stream (MSD,
+flushes, events, their running total, drops, mean age a tick), from the
+same device traces: the tick body gains no op.  Sanitize mode checks the
+traces and params for non-finite values after the run and cross-checks
+``flushed.sum()`` releases against the accountant's ledgers.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import replace as dc_replace
 from typing import NamedTuple, Optional
 
@@ -82,7 +89,6 @@ from repro_torch.core.population.cohort import (
     parse_trace_spec,
 )
 from repro_torch.core.population.engine import (
-    _check_slice,
     _run_pure_loop,
     as_population,
     estimate_w_ref,
@@ -93,6 +99,20 @@ from repro_torch.core.resilience.process import TopologyProcess
 from repro_torch.core.resilience.runtime import ensure_dropout_safe
 from repro_torch.core.simulate import base_combination_matrix, make_grad_fn
 from repro_torch.draws import Draws
+from repro_torch.sanitize import (
+    ReleaseLedger,
+    SanitizerError,
+    check_finite,
+    sanitize_enabled,
+    sanitizer_scope,
+)
+from repro_torch.telemetry import (
+    MetricsStream,
+    RunLog,
+    session_from_config,
+    telemetry_active,
+    trace_span,
+)
 
 
 class AsyncState(NamedTuple):
@@ -348,14 +368,28 @@ def run_gfl_async(source, cfg: GFLConfig, *, ticks: int,
     reference: buffered aggregation with bounded staleness IS the async
     model of those regimes.  ``draws`` / ``executor`` as in
     ``run_gfl_population``; ``scan=True`` realizes the whole horizon once
-    and runs the same tick graph (bitwise the loop)."""
-    _check_slice(cfg)
-    res = _run_async_impl(source, cfg, ticks=ticks, batch_size=batch_size,
-                          seed=seed, A=A, process=process, spec=spec,
-                          scheduler=scheduler, w_ref=w_ref, scan=scan,
-                          draws=draws, executor=executor, device=device)
-    acc = mechanism_for(cfg).async_accountant(res.flushed.shape[1])
-    acc.record_schedule(res.flushed, res.q)
+    and runs the same tick graph (bitwise the loop).  Telemetry and
+    sanitize mode as in the module docstring."""
+    sanitize = sanitize_enabled(cfg)
+    with session_from_config(cfg):
+        with sanitizer_scope() if sanitize else nullcontext():
+            with trace_span("async_run", ticks=ticks, scan=scan):
+                res = _run_async_impl(
+                    source, cfg, ticks=ticks, batch_size=batch_size,
+                    seed=seed, A=A, process=process, spec=spec,
+                    scheduler=scheduler, w_ref=w_ref, scan=scan,
+                    draws=draws, executor=executor, device=device)
+        acc = mechanism_for(cfg).async_accountant(res.flushed.shape[1])
+        with trace_span("privacy_accounting", ticks=ticks):
+            acc.record_schedule(res.flushed, res.q)
+    if sanitize:
+        ledger = ReleaseLedger()
+        ledger.record_release(int(res.flushed.sum()))
+        ledger.charge_from(acc)
+        ledger.cross_check()
+        if not np.all(np.isfinite(res.msd)):
+            raise SanitizerError("non-finite MSD trajectory under "
+                                 "sanitize mode")
     return res._replace(accountant=acc)
 
 
@@ -413,23 +447,75 @@ def _run_async_impl(source, cfg: GFLConfig, *, ticks: int, batch_size: int,
                             where="async event arrivals")
 
     if spec.is_sync_limit and not use_trace and not use_is and not scan:
-        return _run_lockstep_loop(pop, cfg, A, process, grad_fn, spec,
-                                  batch_size, ticks, w_ref_t, draws,
-                                  executor)
+        res = _run_lockstep_loop(pop, cfg, A, process, grad_fn, spec,
+                                 batch_size, ticks, w_ref_t, draws,
+                                 executor)
+        check_finite("MSD trajectory", res.msd)
+        check_finite("params", res.params)
+        if telemetry_active():
+            _round_records(res, lockstep=True)
+        return res
 
     probs = (_importance_probs(P, K, floor, scheduler, dev) if use_is
              else None)
     step = StagedEventTick(pop, cfg, spec, trace, probs, process, A,
                            grad_fn, batch_size, ticks, dev,
                            seed=cfg.topology_seed, horizon=scan)
-    msd, params, _ = graphed.run_rounds(step, None, draws, ticks, w_ref_t,
-                                        capture=executor == "graph")
+    with trace_span("async_scan", ticks=ticks) if scan else nullcontext():
+        msd, params, _ = graphed.run_rounds(step, None, draws, ticks,
+                                            w_ref_t,
+                                            capture=executor == "graph")
+    if scan and telemetry_active():
+        _step_records(step, msd)
     gaps = (None if process is None else
             np.asarray([process.realize(t).gap for t in range(ticks)]))
-    return AsyncRunResult(
+    res = AsyncRunResult(
         msd.cpu().numpy(), params, step.flushed.cpu().numpy(),
         step.q.cpu().numpy(), step.staleness.cpu().numpy(),
         step.events.cpu().numpy(), step.dropped.cpu().numpy(), gaps, spec)
+    for what, trace_ in (("MSD trajectory", res.msd), ("q", res.q),
+                         ("staleness", res.staleness), ("params", params)):
+        check_finite(what, trace_)
+    if telemetry_active():
+        _round_records(res)
+    return res
+
+
+def _step_records(step: StagedEventTick, msd: torch.Tensor) -> None:
+    """The scan path's ``step`` stream (the reference's in-scan
+    ``MetricsStream``), from the tick's device traces after the run: per
+    tick the MSD, servers flushed, events folded and their running total,
+    arrivals refused and the mean folded age."""
+    ms = MetricsStream("step", ("step", "msd", "flushed", "events",
+                                "events_total", "dropped", "staleness"),
+                       length=msd.shape[0], device=msd.device,
+                       cumulative={"events_total": "events"})
+    ms.load("msd", msd)
+    ms.load("flushed", step.flushed.sum(dim=1))
+    ms.load("events", step.events.sum(dim=1))
+    ms.load("dropped", step.dropped.sum(dim=1))
+    ms.load("staleness", step.staleness.mean(dim=1))
+    ms.drain()
+
+
+def _round_records(res: AsyncRunResult, lockstep: bool = False) -> None:
+    """The run's ``round`` records (the reference's ``RunLog("async")``
+    rows), from its [T] / [T, P] traces."""
+    log = RunLog("async")
+    P = res.flushed.shape[1]
+    for t in range(res.msd.shape[0]):
+        gap = None if res.gaps is None else float(res.gaps[t])
+        if lockstep:
+            log.row(t, msd=float(res.msd[t]), gap=gap,
+                    flushed=res.flushed[t].astype(np.int32),
+                    q_server=res.q[t], events=res.events[t],
+                    cohort=int(res.events[t][0]) if P else 0)
+        else:
+            log.row(t, msd=float(res.msd[t]),
+                    flushed=res.flushed[t].astype(np.int32),
+                    q_server=res.q[t], staleness=res.staleness[t],
+                    events=res.events[t],
+                    dropped_stale=res.dropped_stale[t], gap=gap)
 
 
 def _run_lockstep_loop(pop, cfg, A, process, grad_fn, spec, batch_size,

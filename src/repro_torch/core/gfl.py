@@ -58,6 +58,28 @@ def clip_to_bound(g: torch.Tensor, bound: float) -> torch.Tensor:
     return g * torch.clamp(bound / torch.clamp(nrm, min=1e-12), max=1.0)
 
 
+def server_aggregate(w_clients: torch.Tensor, draws, cfg: GFLConfig,
+                     mechanism: Optional[PrivacyMechanism] = None,
+                     ctx: Optional[RoundContext] = None) -> torch.Tensor:
+    """Aggregation step (7) for every server: w_clients [P, L, D] -> psi
+    [P, D] (the reference's takes one server's [L, D] under a vmap)."""
+    mech = mechanism if mechanism is not None else mechanism_for(cfg)
+    # a single-round primitive: a caller composing rounds owns the
+    # accountant (the engines charge theirs)
+    return mech.client_protect(  # gflint: disable=GFL002
+        w_clients, draws, ctx if ctx is not None else RoundContext())
+
+
+def server_combine(psi: torch.Tensor, draws, A: torch.Tensor,
+                   cfg: GFLConfig,
+                   mechanism: Optional[PrivacyMechanism] = None,
+                   ctx: Optional[RoundContext] = None) -> torch.Tensor:
+    """Combination step (8) across all servers: psi [P, D] -> [P, D]."""
+    mech = mechanism if mechanism is not None else mechanism_for(cfg)
+    return mech.server_combine(psi, draws, A,
+                               ctx if ctx is not None else RoundContext())
+
+
 def _client_grads(params: torch.Tensor, batch, grad_fn) -> torch.Tensor:
     """Raw per-client gradients [P, L, D] (the fused kernel's input)."""
     return grad_fn(params, batch)
@@ -214,9 +236,13 @@ class StagedStep:
     a run: ``params``, the round ``counter``, the sigma table, ``A``.  It
     writes the new params into ``params``; the executor advances the
     counter.  Run eagerly (stage, then body) it is bitwise the eager
-    step."""
+    step.  With a telemetry session the engine sets ``norms_tap`` (a
+    :class:`~repro_torch.telemetry.MetricsStream`) and the body writes the
+    round's update and param norms into it; without one the body has no
+    extra op."""
 
     psi_age = None       # [P] int32 straggler ages (the resilient step)
+    norms_tap = None     # MetricsStream of the step stream, when observed
 
     def __init__(self, A, grad_fn: Callable, cfg: GFLConfig, P: int,
                  dim: int, iters: int, device):
@@ -255,8 +281,18 @@ class StagedStep:
         ctx = self.context(i)
         psi = _client_updates(self.params, batch, draws, self.grad_fn,
                               self.cfg, self.mech, ctx)
-        self.params.copy_(self.mech.server_combine(psi, draws, self.A, ctx)
-                          if combine else psi)
+        new = (self.mech.server_combine(psi, draws, self.A, ctx)
+               if combine else psi)
+        if self.norms_tap is not None:
+            tap_step_norms(self.norms_tap, self.counter, new, self.params)
+        self.params.copy_(new)
+
+
+def tap_step_norms(tap, at, new: torch.Tensor, old: torch.Tensor) -> None:
+    """The ``step`` stream's read-only tap (the reference's jitted step
+    emits it): ||new - old|| and ||new|| into ``tap``'s row ``at``."""
+    tap.tap(at, {"update_norm": torch.linalg.vector_norm(new - old),
+                 "param_norm": torch.linalg.vector_norm(new)})
 
 
 def init_state(P: int, dim: int, init_scale: float = 0.0, *,

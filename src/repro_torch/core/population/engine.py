@@ -35,12 +35,22 @@ the same stage and body op by op instead, as the CPU always does.
 
 ``cfg.async_spec`` is ignored here, as in the reference: the event engine
 (:func:`repro_torch.core.events.run_gfl_async`) reads it, and at its sync
-limit runs this module's pure path.  Not in this slice (they raise
-``NotImplementedError`` naming their ROADMAP slice): telemetry and the
-sanitizer.
+limit runs this module's pure path.
+
+Telemetry (``cfg.telemetry`` / ``REPRO_TELEMETRY``): the run's ``round``
+records are built from its traces after the run; the ``step`` stream
+(update and param norms on the loop, the MSD under ``scan=True``) and the
+weighted path's gradient-norm columns come from device buffers the round
+writes (:class:`~repro_torch.telemetry.MetricsStream`), drained after the
+run; the accountant emits the ``privacy`` stream.  With no session the
+rounds are the uninstrumented ones.  Sanitize mode (``cfg.sanitize`` /
+``REPRO_SANITIZE``) runs inside :func:`repro_torch.sanitize.
+sanitizer_scope`, checks the traces and params for non-finite values
+after the run, and cross-checks the release ledger.
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -67,6 +77,20 @@ from repro_torch.core.simulate import (
     make_grad_fn,
 )
 from repro_torch.draws import Draws
+from repro_torch.sanitize import (
+    ReleaseLedger,
+    SanitizerError,
+    check_finite,
+    sanitize_enabled,
+    sanitizer_scope,
+)
+from repro_torch.telemetry import (
+    MetricsStream,
+    RunLog,
+    session_from_config,
+    telemetry_active,
+    trace_span,
+)
 
 
 def uniform_cohort_indices(draws, step: int, P: int, K: int, N: int, L: int,
@@ -135,19 +159,6 @@ class PopulationRunResult(NamedTuple):
     accountant: Optional[object] = None   # PrivacyAccountant at realized q
 
 
-def _check_slice(cfg: GFLConfig) -> None:
-    # ``async_spec`` is the event engine's (``repro_torch.core.events``):
-    # the synchronous engine ignores it, as the reference does
-    unported = {
-        "telemetry": (cfg.telemetry, "off", "ROADMAP slice 5: telemetry"),
-        "sanitize": (cfg.sanitize, False, "ROADMAP slice 5: sanitizer"),
-    }
-    for field, (value, ported, where) in unported.items():
-        if value != ported:
-            raise NotImplementedError(
-                f"GFLConfig.{field}={value!r} is not ported yet ({where})")
-
-
 def run_gfl_population(source, cfg: GFLConfig, *, iters: int,
                        batch_size: int = 10, seed: int = 0,
                        record_every: int = 1,
@@ -171,8 +182,38 @@ def run_gfl_population(source, cfg: GFLConfig, *, iters: int,
     ``Draws(seed)`` on the population's device.  ``executor``:
     ``"graph"`` (the default on a card) or ``"eager"`` (the CPU's only
     one).  The result carries a :class:`PrivacyAccountant` charged once
-    per round at that round's realized sampling rate."""
-    _check_slice(cfg)
+    per round at that round's realized sampling rate; telemetry and
+    sanitize mode as in the module docstring."""
+    sanitize = sanitize_enabled(cfg)
+    with session_from_config(cfg):
+        with sanitizer_scope() if sanitize else nullcontext():
+            with trace_span("population_run", iters=iters, scan=scan):
+                res = _run_population_impl(
+                    source, cfg, iters=iters, batch_size=batch_size,
+                    seed=seed, record_every=record_every, A=A,
+                    process=process, scheduler=scheduler, w_ref=w_ref,
+                    scan=scan, draws=draws, executor=executor,
+                    device=device)
+        acc = mechanism_for(cfg).accountant()
+        acc.sampling_rate = res.scheduler.L / res.scheduler.K
+        with trace_span("privacy_accounting", releases=iters):
+            for qi in res.q:
+                acc.advance(1, q=float(qi))
+    if sanitize:
+        ledger = ReleaseLedger()
+        ledger.record_release(iters)   # one client-level release per round
+        ledger.charge_from(acc)
+        ledger.cross_check()
+        if not np.all(np.isfinite(res.msd)):
+            raise SanitizerError("non-finite MSD trajectory under "
+                                 "sanitize mode")
+    return res._replace(accountant=acc)
+
+
+def _run_population_impl(source, cfg: GFLConfig, *, iters: int,
+                         batch_size: int, seed: int, record_every: int, A,
+                         process, scheduler, w_ref, scan: bool, draws,
+                         executor, device) -> PopulationRunResult:
     pop = as_population(source, cfg, device)
     P, K = pop.P, pop.num_clients
     dev = pop.device
@@ -197,20 +238,19 @@ def run_gfl_population(source, cfg: GFLConfig, *, iters: int,
     if draws is None:
         draws = Draws(seed, dev)
 
-    gaps = ages = None
+    gaps = ages = norms = None
     if not scheduler.pure:
-        msd, params, q, gaps = _run_weighted(
+        msd, params, q, gaps, norms = _run_weighted(
             pop, cfg, scheduler, A, process, grad_fn, batch_size, iters,
             w_ref_t, draws, executor, scan)
-        msd = msd[::record_every]
     elif scan:
         if process is not None or cfg.combine_every > 1:
             raise ValueError("scan executor supports the static-topology, "
                              "combine_every=1 pure path; use scan=False")
-        msd, params, gaps, ages = _run_pure_loop(
-            pop, cfg, A, None, grad_fn, L, batch_size, iters, 1, w_ref_t,
-            draws, executor)
-        msd = msd[::record_every]
+        with trace_span("population_scan", iters=iters):
+            msd, params, gaps, ages = _run_pure_loop(
+                pop, cfg, A, None, grad_fn, L, batch_size, iters, 1,
+                w_ref_t, draws, executor, tap="msd")
     else:
         msd, params, gaps, ages = _run_pure_loop(
             pop, cfg, A, process, grad_fn, L, batch_size, iters,
@@ -218,12 +258,39 @@ def run_gfl_population(source, cfg: GFLConfig, *, iters: int,
     if scheduler.pure:
         q = np.full(iters, L / K)
     scheduler.q_history.extend(q.tolist())
-    acc = mechanism_for(cfg).accountant()
-    acc.sampling_rate = L / K
-    for qi in q:
-        acc.advance(1, q=float(qi))
+    check_finite("MSD trajectory", msd)
+    check_finite("params", params)
+    # the loop path's trace holds every record_every-th round; the scan
+    # and weighted paths' every round, cut to it here
+    every_round = scan or not scheduler.pure
+    if telemetry_active():
+        if scan:
+            row_msd = list(msd)
+        elif every_round:
+            row_msd = [m if i % record_every == 0 else None
+                       for i, m in enumerate(msd)]
+        else:
+            row_msd = [msd[i // record_every] if i % record_every == 0
+                       else None for i in range(iters)]
+        _round_records(row_msd, q, L, gaps, ages, norms)
+    if every_round:
+        msd = msd[::record_every]
     return PopulationRunResult(msd, params, q, scheduler, gaps=gaps,
-                               staleness=ages, accountant=acc)
+                               staleness=ages)
+
+
+def _round_records(row_msd, q, L, gaps, ages, norms) -> None:
+    """The run's ``round`` records (the reference's ``RunLog`` rows), from
+    its traces: the MSD where the run recorded one, the realized q, the
+    fault realizations and the gradient-norm columns the run kept."""
+    log = RunLog("population")
+    for i, m in enumerate(row_msd):
+        log.row(i, msd=None if m is None else float(m),
+                gap=None if gaps is None else float(gaps[i]),
+                staleness=None if ages is None else ages[i],
+                q=float(q[i]), cohort=L,
+                **({} if norms is None else
+                   {k: float(v[i]) for k, v in norms.items()}))
 
 
 # ------------------------------------------------------- the weighted path
@@ -276,7 +343,10 @@ class StagedWeightedStep(gfl.StagedStep):
     state and the counter: sampling probabilities, effective
     probabilities, the weighted draw, the weights, the gather, the
     gradients, K1/K2 (or the reference path), K3, the IS update in place,
-    and the round's q at the counter into ``q``."""
+    and the round's q at the counter into ``q``.  Observed, the body also
+    writes the mean and max feedback norm into ``norm_tap``."""
+
+    norm_tap = None     # MetricsStream of the round stream, when observed
 
     def __init__(self, pop: ClientPopulation, cfg: GFLConfig,
                  scheduler: CohortScheduler, process, A, grad_fn,
@@ -315,6 +385,9 @@ class StagedWeightedStep(gfl.StagedStep):
         self.params.copy_(new)
         self.scheduler.observe(sel.client_idx, norms)
         self.q.index_copy_(0, self.counter, sel.q.reshape(1))
+        if self.norm_tap is not None:
+            self.norm_tap.tap(self.counter, {"grad_norm_mean": norms.mean(),
+                                             "grad_norm_max": norms.max()})
 
 
 def _run_weighted(pop, cfg, scheduler, A, process, grad_fn, batch_size,
@@ -323,7 +396,7 @@ def _run_weighted(pop, cfg, scheduler, A, process, grad_fn, batch_size,
     trace), with the reference's refusals: :class:`StagedWeightedStep`'s
     rounds, replayed from the round graph or, with ``executor="eager"``,
     staged and run op by op.  Returns (msd [iters], params, q [iters],
-    gaps [iters] or None)."""
+    gaps [iters] or None, the gradient-norm columns when observed)."""
     if scan:
         raise ValueError(
             "scan executor supports only the pure cohort path (uniform "
@@ -342,32 +415,67 @@ def _run_weighted(pop, cfg, scheduler, A, process, grad_fn, batch_size,
     scheduler.place(dev)
     step = StagedWeightedStep(pop, cfg, scheduler, process, A, grad_fn,
                               batch_size, iters, dev)
+    if telemetry_active():
+        step.norm_tap = MetricsStream(
+            "round", ("grad_norm_mean", "grad_norm_max"), length=iters,
+            device=dev)
     msd, params, _ = graphed.run_rounds(step, None, draws, iters, w_ref_t,
                                         capture=executor == "graph")
     q = step.q
     gaps = (None if process is None else
             np.asarray([process.realize(i).gap for i in range(iters)]))
-    return msd.cpu().numpy(), params, q.cpu().numpy(), gaps
+    norms = None if step.norm_tap is None else step.norm_tap.columns()
+    return msd.cpu().numpy(), params, q.cpu().numpy(), gaps, norms
 
 
 # ----------------------------------------------------------- the pure path
 
 
 def _run_pure_loop(pop, cfg, A, process, grad_fn, L, batch_size, iters,
-                   record_every, w_ref_t, draws, executor="eager"):
+                   record_every, w_ref_t, draws, executor="eager", *,
+                   tap="norms"):
     """The dense simulator's loop over the population gather.  MSD and
     straggler ages stay on the device until the run ends.  Returns
-    (msd [T], params, gaps [iters] or None, ages [iters, P] or None)."""
+    (msd [T], params, gaps [iters] or None, ages [iters, P] or None).
+
+    Observed, the ``step`` stream is drained after the run: the update
+    and param norms of every round (``tap="norms"``, the reference's
+    jitted step; not on a faulted run, whose step the reference leaves
+    untapped) or the MSD of every round (``tap="msd"``, its scan)."""
+    observed = telemetry_active() and process is None
+    taps = None
+    if observed and tap == "norms":
+        taps = MetricsStream("step", ("step", "update_norm", "param_norm"),
+                             length=iters, device=w_ref_t.device)
     if executor == "graph":
-        return _run_pure_graph(pop, cfg, A, process, grad_fn, L, batch_size,
-                               iters, record_every, w_ref_t, draws)
-    step = gfl.make_gfl_step(process if process is not None else A,
-                             grad_fn, cfg)
+        out = _run_pure_graph(pop, cfg, A, process, grad_fn, L, batch_size,
+                              iters, record_every, w_ref_t, draws,
+                              taps=taps)
+    else:
+        out = _run_pure_eager(pop, cfg, A, process, grad_fn, L, batch_size,
+                              iters, record_every, w_ref_t, draws, taps)
+    if observed and tap == "msd":      # the MSD trace, already on the host
+        taps = MetricsStream("step", ("step", "msd"), length=iters,
+                             device="cpu")
+        taps.load("msd", torch.from_numpy(out[0]))
+    if taps is not None:
+        taps.drain()
+    return out
+
+
+def _run_pure_eager(pop, cfg, A, process, grad_fn, L, batch_size, iters,
+                    record_every, w_ref_t, draws, taps):
+    with trace_span("population_compile", faulted=process is not None):
+        step = gfl.make_gfl_step(process if process is not None else A,
+                                 grad_fn, cfg)
     state = gfl.init_state(pop.P, pop.dim, device=w_ref_t.device)
     msds, gaps, ages = [], [], []
     for i in range(iters):
+        prev = state.params
         state = step(state, uniform_cohort_batch(draws, i, pop, L,
                                                  batch_size), draws)
+        if taps is not None:
+            gfl.tap_step_norms(taps, i, state.params, prev)
         if process is not None:
             gaps.append(process.realize(i).gap)   # the step's memoized one
             ages.append(state.psi_age)
@@ -382,13 +490,15 @@ def _run_pure_loop(pop, cfg, A, process, grad_fn, L, batch_size, iters,
 
 
 def _run_pure_graph(pop, cfg, A, process, grad_fn, L, batch_size, iters,
-                    record_every, w_ref_t, draws, capture=True):
+                    record_every, w_ref_t, draws, capture=True, *, taps=None):
     """``_run_pure_loop`` through the round graph (``capture=False``: its
     staged rounds run eagerly, as the CPU tests run them).  The body
-    records every round's MSD; the trace keeps every ``record_every``-th."""
+    records every round's MSD; the trace keeps every ``record_every``-th.
+    ``taps``: the ``step`` stream the unfaulted body writes."""
     dev = w_ref_t.device
     if process is None:
         step = gfl.StagedStep(A, grad_fn, cfg, pop.P, pop.dim, iters, dev)
+        step.norms_tap = taps
     else:
         from repro_torch.core.resilience.runtime import StagedResilientStep
         step = StagedResilientStep(process, grad_fn, cfg, pop.P, pop.dim, L,

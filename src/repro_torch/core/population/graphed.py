@@ -31,13 +31,18 @@ Each graph is captured the first time its round comes after one eager run
 of the same body on the capture stream: that warm-up is a real round, and
 it builds the kernels, initializes cuBLAS and fills the allocator.  The
 graphs are freed when the run ends, and their private memory pool with
-them.  :data:`repro_torch.kernels.LAUNCHES` counts what a replay launches:
+them: every run captures its own.  Warm-ups and captures are timed on
+the host for the phase profiler (:mod:`repro_torch.telemetry.profile`:
+``compile_s``; a capture of a :func:`graph_key` new to the process is a
+``retraces``).  :data:`repro_torch.kernels.LAUNCHES` counts what a replay launches:
 a capture's counts are taken back, and added again at every replay
 (:data:`repro_torch.kernels.REPLAYED` keeps that share apart).  A capture
 or replay that fails raises: nothing here runs the eager executor instead.
 """
 from __future__ import annotations
 
+import time
+from dataclasses import replace
 from typing import Callable, Optional
 
 import numpy as np
@@ -45,6 +50,7 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.core import gfl
+from repro_torch.telemetry.profile import note_capture, note_warmup
 
 EXECUTORS = ("graph", "eager")
 
@@ -94,6 +100,23 @@ def run_rounds(step: gfl.StagedStep, draw_batch: Optional[Callable], draws,
     return msd, step.params, ages
 
 
+def graph_key(step: gfl.StagedStep, iters: int, combine: bool) -> tuple:
+    """What a round graph's ops depend on: the step's kind, its config
+    (telemetry and sanitize aside: they add no op but the taps), the
+    shapes and types of the buffers it holds, the taps it writes, the
+    run's length and the combine variant.  The phase profiler counts a
+    capture of a key the process has not captured before as a retrace."""
+    held = vars(step)
+    cfg = replace(step.cfg, telemetry="off", sanitize=False)
+    return (type(step).__qualname__, str(step.params.device), repr(cfg),
+            tuple((name, tuple(v.shape), v.dtype)
+                  for name, v in sorted(held.items())
+                  if isinstance(v, torch.Tensor)),
+            tuple(sorted(name for name, v in held.items()
+                         if name.endswith("_tap") and v is not None)),
+            iters, combine)
+
+
 def _replay_rounds(body: Callable, step: gfl.StagedStep, draws,
                    iters: int) -> None:
     gens = draws.generators()        # ReplayDraws raises: eager only
@@ -107,6 +130,7 @@ def _replay_rounds(body: Callable, step: gfl.StagedStep, draws,
             graph = graphs.get(combine)
             if graph is None:
                 side.wait_stream(main)
+                t0 = time.perf_counter()
                 with torch.cuda.stream(side):
                     if combine not in graphs:       # the warm-up round
                         body(i, combine)
@@ -115,8 +139,11 @@ def _replay_rounds(body: Callable, step: gfl.StagedStep, draws,
                         graph = graphs[combine] = _capture(
                             lambda: body(i, combine), gens, side)
                 main.wait_stream(side)
+                seconds = time.perf_counter() - t0
                 if graph is None:
+                    note_warmup(seconds)
                     continue
+                note_capture(seconds, graph_key(step, iters, combine))
             graph[0].replay()
             K.count_replay(graph[1])
     finally:

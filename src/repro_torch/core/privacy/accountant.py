@@ -228,6 +228,18 @@ class PrivacyAccountant:
         self.step += steps
         eps = self.epsilon()
         self.history.append((self.step, eps))
+        from repro_torch.telemetry.stream import emit, telemetry_active
+        if telemetry_active():
+            q_rel = self.q_history[-1] if self.q_history \
+                else self.sampling_rate
+            eps_rel = self.per_release_epsilon(self.step)
+            emit("privacy", {
+                "step": self.step, "eps": eps, "eps_release": eps_rel,
+                "eps_release_amp": (
+                    amplified_release_epsilon(eps_rel, q_rel)
+                    if 0.0 < q_rel <= 1.0 else eps_rel),
+                "delta": self.delta_spent(), "q": q_rel,
+                "curve": self.curve, "server": self.owner})
         return eps
 
     def epsilon(self) -> float:

@@ -100,6 +100,19 @@ def make_grad_fn(rho: float) -> Callable:
     return grad_fn
 
 
+def sample_round_batches(draws, step: int, prob: LogisticProblem, L: int,
+                         batch_size: int):
+    """Sample L participating clients per server and a minibatch each, from
+    round ``step``'s ``cohort`` draw: (h [P, L, B, M], gamma [P, L, B]).
+    The population engine's cohort draw over a dense population — the
+    program the engine runs, as in the reference."""
+    from repro_torch.core.population import (DensePopulation,
+                                             uniform_cohort_batch)
+    return uniform_cohort_batch(draws, step,
+                                DensePopulation.from_problem(prob), L,
+                                batch_size)
+
+
 def base_combination_matrix(cfg: GFLConfig, P: int) -> np.ndarray:
     """The config's base A (topology family + seed/rows knobs applied)."""
     return combination_matrix(cfg.topology, P, rows=cfg.torus_rows,

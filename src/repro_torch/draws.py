@@ -40,6 +40,7 @@ import torch
 from repro_torch import SEED_ENV, resolve_device
 from repro_torch.core.sampling import sample_clients
 from repro_torch.core.privacy.noise import LAPLACE_U_HI, LAPLACE_U_LO
+from repro_torch.sanitize import sanitizer_active
 
 STREAMS = {"cohort": 0, "client": 1, "combine": 2}
 
@@ -143,15 +144,18 @@ class ReplayDraws(Draws):
     batch_idx)),
     ``mask_seeds``, ``laplace_uniform`` or ``normal``.  Every request is
     checked against the next entry's round, stream, kind and shape, so a
-    run that asks in another order than the reference fails loudly.  Eager
-    executor only: :meth:`generators`, which the round graph registers,
-    raises."""
+    run that asks in another order than the reference fails loudly.  In
+    the sanitizer's scope (:func:`repro_torch.sanitize.sanitizer_scope`) a
+    second request of one ``(round, stream)`` raises, as :class:`Draws`
+    always does.  Eager executor only: :meth:`generators`, which the round
+    graph registers, raises."""
 
     def __init__(self, rounds, device=None):
         self.device = resolve_device(device)
         self.seed = None
         self._queue = deque((i, s, k, v) for i, entries in enumerate(rounds)
                             for (s, k, v) in entries)
+        self._drawn = set()
 
     def generators(self):
         raise RuntimeError(
@@ -163,6 +167,12 @@ class ReplayDraws(Draws):
         rounds run eagerly on replayed draws; a graph cannot)."""
 
     def _next(self, step, stream, kind, shape=None):
+        if sanitizer_active():
+            if (int(step), stream) in self._drawn:
+                raise RuntimeError(
+                    f"round {step} drew from the {stream!r} stream already: "
+                    "each (round, stream) is drawn from once")
+            self._drawn.add((int(step), stream))
         if not self._queue:
             raise RuntimeError(f"no replayed draw left for round {step} "
                                f"({stream}/{kind})")

@@ -21,7 +21,10 @@ import hashlib
 import os
 import shutil
 import subprocess  # runs nvcc, not fleet I/O  # gflint: disable=GFL008
+import time
 from pathlib import Path
+
+from repro_torch.telemetry.profile import note_build
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -102,6 +105,7 @@ def build(names=SOURCES, defines: tuple = ()) -> dict:
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, lib)
+    t0 = time.perf_counter()
     failed = []
     for name, (proc, tmp, lib) in jobs.items():
         out, _ = proc.communicate()
@@ -111,6 +115,8 @@ def build(names=SOURCES, defines: tuple = ()) -> dict:
                           f"(exit {proc.returncode}):\n{out}")
             continue
         os.replace(tmp, lib)
+    if jobs:
+        note_build(time.perf_counter() - t0, len(jobs))
     if failed:
         raise RuntimeError("\n".join(failed))
     return {name: library_path(name, defines) for name in names}

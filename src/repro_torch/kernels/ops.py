@@ -6,6 +6,14 @@ on the CPU their plain versions do.  Unlike the reference there is no
 backend switch, no padding of D to the TPU tile or of L/P to the
 sublane count (the kernels mask ragged edges), and no block autotuner —
 the launch configuration is fixed.
+
+With a telemetry session, :func:`round_fold` and :func:`graph_combine`
+record their dispatch on the ``kernel`` stream (backend ``cuda`` or
+``plain``, the analytic HBM bytes of ``launch/roofline.py``) once per
+(op, shape, layout, mode) a session, as the reference records once per
+newly traced shape: the eager executor calls them every round, the round
+graph only in its warm-up and capture.  A record holds host values only,
+so it is made under capture too.
 """
 from __future__ import annotations
 
@@ -17,6 +25,43 @@ from repro_torch.kernels.laplace import laplace_transform as _laplace
 from repro_torch.kernels.round_fold import fold_apply, fold_norms
 from repro_torch.kernels.secure_agg import secure_agg_mean as _secure_agg_mean
 from repro_torch.kernels.swa_decode import swa_decode
+from repro_torch.telemetry.stream import current_session, note
+
+
+def _record(op: str, key: tuple, **values) -> None:
+    """One ``kernel`` record for (op, key), the first time this session
+    dispatches it."""
+    sess = current_session()
+    if sess is None or (op,) + key in sess.kernels_seen:
+        return
+    sess.kernels_seen.add((op,) + key)
+    note("kernel", {"seq": sess.next_seq(), "op": op, **values})
+
+
+def _backend(t: torch.Tensor) -> dict:
+    cuda = t.device.type == "cuda"
+    return {"backend": "cuda" if cuda else "plain",
+            "interpret": int(not cuda)}
+
+
+def _record_round_fold(sess, w, grads, mode: str) -> None:
+    from repro_torch.launch.roofline import round_pipeline_traffic
+    P, L, D = grads.shape
+    layout = "per_client" if w.dim() == 3 else "per_server"
+    key = (P, L, D, str(grads.dtype), layout, mode)
+    if ("round_fold.traffic",) + key in sess.kernels_seen:
+        return
+    size = grads.element_size()
+    fused = round_pipeline_traffic(P, L, D, itemsize=size, mode=mode,
+                                   fused=True)
+    chain = round_pipeline_traffic(P, L, D, itemsize=size, mode=mode,
+                                   fused=False)
+    _record("fold_norms", key, d_pad=D, **_backend(grads))
+    _record("fold_apply", key, d_pad=D, mode=mode, **_backend(grads))
+    _record("round_fold.traffic", key, mode=mode,
+            hbm_bytes=float(fused["total"]),
+            hbm_bytes_ref=float(chain["total"]),
+            pld_passes=int(fused["pld_passes"]), **_backend(grads))
 
 
 def apply_gate(psi: torch.Tensor, gate: torch.Tensor | None,
@@ -41,6 +86,9 @@ def round_fold(w: torch.Tensor, grads: torch.Tensor, *, mu: float,
     weights the noise/mask term per client (default: the uniform 1/L
     mean).  ``sq`` is the raw squared gradient norm per (server, client)."""
     P, L, _ = grads.shape
+    sess = current_session()
+    if sess is not None:
+        _record_round_fold(sess, w, grads, mode)
     ones = torch.ones((P, L), dtype=torch.float32, device=grads.device)
     pre_w = ones if pre_w is None else pre_w.to(torch.float32)
     fold_w = ones if fold_w is None else fold_w.to(torch.float32)
@@ -70,6 +118,12 @@ def graph_combine(A: torch.Tensor, psi: torch.Tensor,
     ``A`` is a runtime operand; ``g=None`` is the noise-free combine;
     ``gate`` [P] / ``cache`` [P, D] is the event engine's cached-psi
     re-announce, applied inside the kernel."""
+    if current_session() is not None:
+        P, D = psi.shape
+        variant = ("gated" if gate is not None else "") + \
+            ("noised" if g is not None else "plain")
+        _record("graph_combine", (P, D, str(psi.dtype), variant), d_pad=D,
+                **_backend(psi))
     gate_f = None if gate is None else gate.to(torch.float32).contiguous()
     return _combine(A.to(torch.float32), psi.contiguous(),
                     None if g is None else g.contiguous(),

@@ -995,3 +995,118 @@ def test_event_tick_graph_memory_is_flat(cuda):
                       device="cuda")
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() == base
+
+
+# ------------------------------------------- telemetry under the round graph
+
+
+def _observed(fn):
+    """(result, records by stream) of ``fn()`` under a memory session."""
+    from repro_torch.telemetry import session
+    with session("memory", trace_path="") as sess:
+        out = fn()
+    by = {}
+    for r in sess.memory_records():
+        by.setdefault(r["stream"], []).append(r)
+    return out, by
+
+
+@pytest.mark.parametrize("engine", ["loop", "scan", "weighted", "events",
+                                    "events_scan"])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_round_graph_telemetry_on_is_off(cuda, engine, use_kernels):
+    """Telemetry on under the round graph (the taps captured into it):
+    params and traces bitwise the run with telemetry off, and the step
+    and round streams complete."""
+    import dataclasses
+    from repro_torch.core.events import run_gfl_async
+    from repro_torch.core.population import run_gfl_population
+    if engine in ("loop", "scan"):
+        prob, cfg = _round_graph_problem(), _round_graph_cfg(
+            "hybrid", use_kernels, 6)
+
+        def run(c):
+            return run_gfl_population(prob, c, iters=6, batch_size=5,
+                                      seed=3, scan=engine == "scan")
+    elif engine == "weighted":
+        cfg = _weighted_cfg("hybrid", use_kernels, "importance")
+
+        def run(c):
+            return run_gfl_population(None, c, iters=6, batch_size=5,
+                                      seed=3, device="cuda")
+    else:
+        cfg = _event_cfg("hybrid", use_kernels, "importance")
+
+        def run(c):
+            return run_gfl_async(None, c, ticks=6, batch_size=5, seed=3,
+                                 device="cuda", scan=engine == "events_scan")
+    off = run(cfg)
+    on, recs = _observed(lambda: run(dataclasses.replace(
+        cfg, telemetry="memory")))
+    assert torch.equal(off.params, on.params)
+    assert off.msd.tolist() == on.msd.tolist()
+    assert len(recs["round"]) == 6
+    if engine in ("loop", "scan", "events_scan"):
+        assert len(recs["step"]) == 6
+        for r in recs["step"]:
+            assert all(v == v for v in r.values() if isinstance(v, float))
+    if engine == "weighted":
+        assert all(r["grad_norm_max"] >= r["grad_norm_mean"] > 0
+                   for r in recs["round"])
+    if use_kernels:
+        assert {r["backend"] for r in recs["kernel"]} == {"cuda"}
+
+
+def test_emit_raises_under_capture(cuda):
+    """A captured round may not sync with the host."""
+    from repro_torch.telemetry import emit, session
+    x = torch.ones(4, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    with session("memory", trace_path=""):
+        with pytest.raises(RuntimeError, match="capturing"):
+            with torch.cuda.graph(graph, stream=stream):
+                y = x * 2
+                emit("step", {"step": 1, "msd": y.sum()})
+    torch.cuda.synchronize()
+
+
+def test_second_run_of_a_shape_reads_no_retrace(cuda):
+    """Every run captures its round graph and frees it (compile_s grows
+    with each), but only the first capture of a shape is a retrace: a
+    second run of that shape reads 0, and is bitwise the eager run of its
+    seed.  Its replays launch the kernels every round but the warm-up."""
+    import dataclasses
+    from repro_torch.core.simulate import run_gfl
+    from repro_torch.telemetry import profile
+    prob = _round_graph_problem()
+    cfg = dataclasses.replace(_round_graph_cfg("hybrid", True, 5), mu=0.137)
+    before = profile.compile_counters()
+    run_gfl(prob, cfg, iters=5, batch_size=5, seed=1)
+    mid = profile.compile_counters()
+    K.reset_launches()
+    second = run_gfl(prob, cfg, iters=5, batch_size=5, seed=2)
+    after = profile.compile_counters()
+    assert mid["retraces"] - before["retraces"] == 1
+    assert after["retraces"] == mid["retraces"]
+    assert after["compile_s"] > mid["compile_s"]
+    assert K.LAUNCHES["fold_apply"] == 5 and K.REPLAYED["fold_apply"] == 4
+    eager = run_gfl(prob, cfg, iters=5, batch_size=5, seed=2,
+                    executor="eager")
+    assert torch.equal(second[1], eager[1])
+    assert second[0].tolist() == eager[0].tolist()
+
+
+def test_checkpoint_round_trips_on_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    tree = {"p": torch.randn(3, 4, device="cuda", generator=cuda),
+            "b": torch.randn(5, device="cuda", generator=cuda).bfloat16()}
+    save_checkpoint(str(tmp_path / "ck"), tree)
+    got, _ = load_checkpoint(str(tmp_path / "ck"),
+                             {k: torch.zeros_like(v) for k, v in tree.items()})
+    for k, v in tree.items():
+        assert got[k].device == v.device and got[k].dtype == v.dtype
+        assert torch.equal(got[k].view(torch.int16) if v.dtype ==
+                           torch.bfloat16 else got[k],
+                           v.view(torch.int16) if v.dtype == torch.bfloat16
+                           else v)

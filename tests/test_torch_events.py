@@ -634,10 +634,17 @@ def test_refusals_equal_reference(problem, ref_problem):
 
 @pytest.mark.parametrize("field,value", [("telemetry", "memory"),
                                          ("sanitize", True)])
-def test_slice_5_options_raise(field, value, problem):
-    cfg = GFLConfig(**{field: value, "async_spec": "async:buffer=4"})
-    with pytest.raises(NotImplementedError, match="ROADMAP slice 5"):
-        run_gfl_async(problem, cfg, ticks=1)
+def test_slice_5_options_raise(field, value, problem, tmp_path,
+                               monkeypatch):
+    """Slice 5's options, which raised before the cross-cutting slice, now
+    run: bitwise the run without them."""
+    monkeypatch.setenv("REPRO_TELEMETRY_DIR", str(tmp_path))
+    cfg = GFLConfig(**{"async_spec": "async:buffer=4"})
+    got = run_gfl_async(problem, dataclasses.replace(cfg, **{field: value}),
+                        ticks=2)
+    want = run_gfl_async(problem, cfg, ticks=2)
+    assert torch.equal(got.params, want.params)
+    assert got.msd.tolist() == want.msd.tolist()
 
 
 def test_unsafe_mechanism_refused_under_arrivals(problem):

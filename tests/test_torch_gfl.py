@@ -185,12 +185,14 @@ def test_replay_rejects_out_of_order_requests():
     ("fault", "links:0.1"), ("cohort", "importance"),
     ("population", "synthetic:iid"), ("async_spec", "async"),
     ("telemetry", "memory"), ("sanitize", True)])
-def test_unported_options_raise(field, value, problem):
-    """Options of later slices raise, naming their slice.  Faults, weighted
-    cohorts and lazy populations (slice 3) run now: a fault on the
-    weighted path, an importance cohort, a population built from its
-    spec; so does an async spec (slice 4), which the synchronous engine
-    ignores, as the reference's does (the event engine reads it)."""
+def test_unported_options_raise(field, value, problem, tmp_path,
+                                monkeypatch):
+    """Options of later slices run now.  Faults, weighted cohorts and lazy
+    populations (slice 3): a fault on the weighted path, an importance
+    cohort, a population built from its spec; an async spec (slice 4),
+    which the synchronous engine ignores, as the reference's does (the
+    event engine reads it); telemetry and the sanitizer (slice 5), which
+    leave the run bitwise as it is without them."""
     from repro_torch.core.population import run_gfl_population
     kw = {field: value}
     if field == "fault":
@@ -202,8 +204,12 @@ def test_unported_options_raise(field, value, problem):
                                  device="cpu")
         assert np.isfinite(res.msd).all() and res.msd.shape == (2,)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP slice"):
-        run_gfl(problem, cfg, iters=1, batch_size=5)
+    # telemetry and the sanitizer (slice 5) run too: bitwise the plain run
+    monkeypatch.setenv("REPRO_TELEMETRY_DIR", str(tmp_path))
+    msd, params = run_gfl(problem, cfg, iters=2, batch_size=5)
+    want = run_gfl(problem, GFLConfig(**_cfg_kw("none")), iters=2,
+                   batch_size=5)
+    assert msd.tolist() == want[0].tolist() and torch.equal(params, want[1])
 
 
 def test_init_state_and_centroid():

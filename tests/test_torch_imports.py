@@ -91,6 +91,28 @@ def test_import_check_covers_the_event_slice():
     assert slice_ <= set(_port_modules())
 
 
+def test_import_check_covers_the_cross_cutting_slice():
+    slice_ = {"repro_torch.sanitize",
+              "repro_torch.core.specs",
+              "repro_torch.core.fleet.spec",
+              "repro_torch.checkpoint.io",
+              "repro_torch.telemetry.schema",
+              "repro_torch.telemetry.sinks",
+              "repro_torch.telemetry.sketch",
+              "repro_torch.telemetry.runlog",
+              "repro_torch.telemetry.trace",
+              "repro_torch.telemetry.stream",
+              "repro_torch.telemetry.profile",
+              "repro_torch.telemetry.watch",
+              "repro_torch.telemetry.inspect",
+              "repro_torch.launch.telemetry_overhead"}
+    assert slice_ <= set(_port_modules())
+    packages = {p.parent.relative_to(PORT).as_posix()
+                for p in PORT.rglob("__init__.py")}
+    assert {"telemetry", "checkpoint", "core/fleet",
+            "core/privacy"} <= packages
+
+
 def test_importing_the_port_leaves_jax_out():
     mods = _port_modules()
     code = ("import sys\n"

@@ -196,7 +196,35 @@ Phases, each printing JSON lines:
              bitwise and on the card.  Prints the steady wall a round
              with telemetry off and on under the graph as name,value
              lines with the card's name and power limit.
-12. swa    — K8 swa_decode against its plain version at the serving shapes
+12. fleet  — the multi-process server fleet (repro_torch.core.fleet) on
+             the card: workers fold through K1 + K2 (ops.round_fold at
+             P = 1, L = E), the coordinator combines through K3.  First
+             launch/fleet_demo.py's drill (P=4, K=16, n=12, dim 2,
+             buffer 6, 4 events a tick, sigma_g 0.2, seed 3, 10 ticks;
+             worker 2 SIGKILLed at tick 2, mid-buffer, and restarted
+             from its write-ahead checkpoint) on inproc (worker threads,
+             a stream each), filelog and socket (spawned worker
+             processes, a CUDA context each): the killed run bitwise its
+             clean twin (params, MSD, q, flush schedule, q-ledgers), one
+             kill and one restart; for the spawned transports every
+             worker process (its pid from /proc) seen on the card while
+             it ran: sampled every 0.1 s, in a sample where the card
+             lists one process more than before the drill for each live
+             worker (torch.cuda.list_gpu_processes; the machine's NVML
+             reports every process as pid 1, so processes are counted,
+             not named), and after the drills no child process left and
+             the card listing as many processes as before.  Prints ticks_per_s and
+             recovery_s per transport.  Then three inproc runs on the card
+             each against the same run on the CPU (flush schedule, q,
+             versions, q-ledgers exact; params within atol 1e-5, MSD
+             within rtol 1e-5), with K1 and K2 launched once a worker
+             tick and K3 once a flushing tick, exactly, counted from 0
+             just before: the demo's problem, the Section V size as a
+             fleet (P=10, K=50, n=100, dim 2, events = buffer = 50, 30
+             ticks) and the demo's problem at dim 2048 (K1's wide
+             layout).  Last one worker alone on the card: host ms of a
+             tick's fold and of its checkpoint.
+13. swa    — K8 swa_decode against its plain version at the serving shapes
              (B, H, KV, C, Dh) = (4, 32, 32, 2047, 96) bf16,
              (4, 32, 32, 1064, 96) bf16, (4, 9, 3, 1064, 64) bf16 and f32,
              (2, 8, 4, 1000, 64) f32 and (32, 32, 32, 2047, 96) bf16 (805 MB
@@ -208,7 +236,7 @@ Phases, each printing JSON lines:
              finds them cold; a CUDA graph captured at nvalid = C/3 and
              replayed at C; and a stall probe at the phi3 shapes (the
              kernel beside its loads-only build, built here).
-13. serve  — phi3-mini-3.8b at full width (32 layers, d 3072, bf16, random
+14. serve  — phi3-mini-3.8b at full width (32 layers, d 3072, bf16, random
              weights from seed 0) through repro_torch.launch.serve.generate:
              request A, 4 x 4096-token prompts + 32 greedy tokens (ring of
              2047 slots, wrapped); request B, 4 x 1000 + 32 (1064 slots,
@@ -2922,6 +2950,250 @@ def phase_observe(torch, smi) -> dict:
     return {"wall_ms_per_round_off": wall_off, "wall_ms_per_round_on": wall_on}
 
 
+# ------------------------------------------------------------------ fleet
+
+FLEET_TRANSPORTS = ("inproc", "filelog", "socket")
+# the Section V problem as a fleet: P=10, K=50 clients of N=100 samples,
+# M=2; every client arrives every tick (events = buffer = K), 30 ticks
+FLEET_SECTION_V = {"P": 10, "K": 50, "n": 100, "dim": 2, "buffer": 50,
+                   "events": 50, "sigma_g": 0.2, "seed": 3}
+FLEET_SECTION_V_TICKS = 30
+FLEET_WIDE_DIM = 2048           # K1's split-row layout under a worker
+FLEET_SAMPLE_S = 0.1            # card-process sampling period, seconds
+FLEET_TICK_SAMPLES = 20         # worker ticks timed alone
+
+
+def child_pids() -> set:
+    """Pids of this process's live children started by multiprocessing's
+    spawn (its resource tracker, a helper that holds no device, left
+    out), from /proc."""
+    import os
+    me, out = os.getpid(), set()
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                stat = fh.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as fh:
+                cmd = fh.read()
+        except OSError:
+            continue
+        # the fields after the command's closing parenthesis: state, ppid
+        fields = stat[stat.rfind(")") + 2:].split()
+        if len(fields) > 1 and fields[0] != "Z" and int(fields[1]) == me \
+                and b"spawn_main" in cmd:
+            out.add(int(entry))
+    return out
+
+
+def card_processes(torch) -> int:
+    """Processes holding a context on card 0, as NVML lists them
+    (torch.cuda.list_gpu_processes).  The card's machine reports every
+    process as pid 1 (``/process_api``), so they are counted, not named."""
+    import re
+    return len(re.findall(r"process\s+\d+ uses",
+                          torch.cuda.list_gpu_processes(0)))
+
+
+class CardWatch:
+    """Samples, on a thread, this process's spawned children (from /proc)
+    and the processes on the card (NVML) while a block runs.  A child is
+    seen on the card in a sample where every live child holds a context:
+    the card lists the processes it listed before the block plus exactly
+    one a live child."""
+
+    def __init__(self, torch, base: int):
+        import threading
+        self.torch = torch
+        self.base = base
+        self.children: set = set()
+        self.on_card: set = set()
+        self.most_on_card = 0
+        self.most_bytes = 0
+        self._free0 = torch.cuda.mem_get_info(0)[0]
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def _loop(self):
+        while not self._stop.wait(FLEET_SAMPLE_S):
+            kids = child_pids()
+            extra = card_processes(self.torch) - self.base
+            self.children |= kids
+            self.most_on_card = max(self.most_on_card, extra)
+            self.most_bytes = max(self.most_bytes, self._free0
+                                  - self.torch.cuda.mem_get_info(0)[0])
+            if kids and extra == len(kids) and kids <= child_pids():
+                self.on_card |= kids
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def fleet_twin(torch, prob, ticks, root, what) -> dict:
+    """One inproc run on the card, its launches counted from 0 just before,
+    and the same run on the CPU: integer outcomes exact, params within
+    atol 1e-5, MSD within rtol 1e-5; K1 and K2 once a worker tick, K3 once
+    a flushing tick, exactly."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.core.fleet import run_fleet
+    K.reset_launches()
+    on = run_fleet(prob, "fleet", ticks, ckpt_root=f"{root}/{what}-cuda",
+                   device="cuda")
+    launches = {k: K.LAUNCHES[k] for k in ROUND_KERNELS}
+    off = run_fleet(prob, "fleet", ticks, ckpt_root=f"{root}/{what}-cpu",
+                    device="cpu")
+    p_err = float((on.params.cpu() - off.params).abs().max())
+    msd_rel = float(np.max(np.abs(on.msd / off.msd - 1)))
+    exact = (np.array_equal(on.flushed, off.flushed)
+             and np.array_equal(on.q, off.q)
+             and np.array_equal(on.versions, off.versions)
+             and on.q_ledgers == off.q_ledgers)
+    require(exact, f"fleet {what}: cuda against the CPU: flush schedule, "
+            f"q, versions or q-ledgers differ")
+    require(p_err <= ATOL_F32 and msd_rel <= RTOL_NORMS,
+            f"fleet {what}: cuda against the CPU: params {p_err} (atol "
+            f"{ATOL_F32}), MSD {msd_rel} (rtol {RTOL_NORMS})")
+    flushing = int(on.flushed.any(axis=1).sum())
+    want = {"fold_norms": prob.P * ticks, "fold_apply": prob.P * ticks,
+            "graph_combine": flushing}
+    require(launches == want, f"fleet {what}: launches {launches}, "
+            f"expected {want} (K1, K2 a worker tick; K3 a flushing tick)")
+    rec = {"phase": "fleet", "run": what, "P": prob.P, "K": prob.K,
+           "n": prob.n, "dim": prob.dim, "events": prob.events,
+           "buffer": prob.buffer, "ticks": ticks, "launches": launches,
+           "flushing_ticks": flushing, "integer_outcomes_exact": True,
+           "params_max_abs_err_vs_cpu": p_err, "msd_rel_err_vs_cpu": msd_rel,
+           "ticks_per_s": on.ticks_per_s, "ticks_per_s_cpu": off.ticks_per_s,
+           "msd_last": float(on.msd[-1])}
+    emit(rec)
+    return launches
+
+
+def fleet_tick_split(torch, prob, root) -> dict:
+    """One worker alone on the card at ``prob``: host ms of a tick's fold
+    (ending in the reply's copy to the host) and of its write-ahead
+    checkpoint, medians over FLEET_TICK_SAMPLES ticks."""
+    import statistics
+
+    import numpy as np
+    from repro_torch.core.fleet import (FleetWorker, InprocHub,
+                                        parse_fleet_spec)
+    from repro_torch.core.fleet.coordinator import fleet_cohort
+    w = FleetWorker(0, prob, parse_fleet_spec("fleet"),
+                    InprocHub().register("w"), f"{root}/split",
+                    device="cuda")
+    fold, ckpt = [], []
+    params = np.zeros(prob.dim)
+    with w.on_stream():
+        for t in range(FLEET_TICK_SAMPLES + 2):
+            cohort = [int(k) for k in fleet_cohort(prob, t)[0]]
+            t0 = time.perf_counter()
+            w.last_reply = w.compute_tick(t, params, cohort)
+            t1 = time.perf_counter()
+            w.checkpoint()
+            t2 = time.perf_counter()
+            if t >= 2:                      # past the first calls' set-up
+                fold.append((t1 - t0) * 1e3)
+                ckpt.append((t2 - t1) * 1e3)
+    return {"fold_ms": statistics.median(fold),
+            "checkpoint_ms": statistics.median(ckpt)}
+
+
+def phase_fleet(torch) -> dict:
+    """The fleet on the card (module docstring, phase 12).  Returns the
+    K1-K3 launches of its clean inproc runs, each counted from 0 just
+    before."""
+    import os
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.core.fleet import FleetProblem
+    from repro_torch.launch import fleet_demo as demo
+
+    t_phase = time.perf_counter()
+    prob = demo.build_problem()
+    base = card_processes(torch)          # this process's own context
+    for transport in FLEET_TRANSPORTS:
+        t0 = time.perf_counter()
+        with CardWatch(torch, base) as watch:
+            res = demo.run(transport, demo.TICKS, "cuda")
+        out = res["out"]
+        clean, faulted = out.clean, out.faulted
+        bitwise = (bool(torch.equal(faulted.params, clean.params))
+                   and np.array_equal(faulted.msd, clean.msd)
+                   and np.array_equal(faulted.q, clean.q))
+        require(bitwise and out.msd_gap == 0.0,
+                f"fleet {transport}: the killed run is not bitwise its "
+                f"clean twin (msd gap {out.msd_gap})")
+        require(faulted.kills == 1 and faulted.restarts == 1,
+                f"fleet {transport}: kills {faulted.kills}, restarts "
+                f"{faulted.restarts}")
+        rec = {"phase": "fleet", "transport": transport,
+               "drill": f"SIGKILL worker{demo.KILL_SERVER} at tick "
+                        f"{demo.KILL_TICK}", "ticks": demo.TICKS,
+               "bitwise_clean_twin": True, "msd_gap": out.msd_gap,
+               "kills": faulted.kills, "restarts": faulted.restarts,
+               "retries": faulted.retries,
+               "recovery_s": faulted.recovery_s,
+               "ticks_per_s": clean.ticks_per_s,
+               "ticks_per_s_faulted": faulted.ticks_per_s,
+               "ticks_per_s_inproc": res["inproc"].ticks_per_s,
+               "seconds": time.perf_counter() - t0}
+        if transport != "inproc":
+            # 4 workers, then 4 again for the twin, and the restart
+            spawned = 2 * prob.P + faulted.restarts
+            rec.update({"worker_pids": sorted(watch.children),
+                        "worker_pids_on_card": sorted(watch.on_card),
+                        "most_worker_processes_on_card": watch.most_on_card,
+                        "most_card_bytes_beyond_own": watch.most_bytes})
+            require(len(watch.children) == spawned,
+                    f"fleet {transport}: {len(watch.children)} worker "
+                    f"processes seen, {spawned} started")
+            require(watch.on_card == watch.children,
+                    f"fleet {transport}: worker processes "
+                    f"{sorted(watch.children - watch.on_card)} never seen "
+                    f"holding a context on the card")
+        emit(rec)
+    # a SIGKILLed context is torn down by the driver: give it a moment
+    deadline = time.perf_counter() + 10.0
+    while card_processes(torch) != base and time.perf_counter() < deadline:
+        time.sleep(0.1)
+    after = card_processes(torch)
+    require(not child_pids() and after == base,
+            f"fleet: processes left after the drills: children "
+            f"{sorted(child_pids())}, {after} on the card against {base} "
+            f"before")
+    emit({"phase": "fleet", "card_processes_before": base,
+          "card_processes_after": after, "own_pid": os.getpid()})
+    totals = dict.fromkeys(ROUND_KERNELS, 0)
+    with tempfile.TemporaryDirectory(prefix="fleet_smoke_") as root:
+        for what, p, ticks in (
+                ("demo", prob, demo.TICKS),
+                ("section_v", FleetProblem(**FLEET_SECTION_V),
+                 FLEET_SECTION_V_TICKS),
+                (f"dim{FLEET_WIDE_DIM}", replace(prob, dim=FLEET_WIDE_DIM),
+                 demo.TICKS)):
+            for k, n in fleet_twin(torch, p, ticks, root, what).items():
+                totals[k] += n
+        split = {what: fleet_tick_split(torch, p, root) for what, p in (
+            ("demo", prob), ("section_v", FleetProblem(**FLEET_SECTION_V)))}
+    emit({"phase": "fleet", "worker_tick_alone": split})
+    K.reset_launches()
+    emit({"phase": "fleet", "launches": totals,
+          "seconds": time.perf_counter() - t_phase})
+    return {"launches": totals}
+
+
+
 # ------------------------------------------------------------ K8 (swa)
 
 
@@ -3346,6 +3618,7 @@ def main() -> int:
         phase_population(torch)
         ev = phase_events(torch)
         phase_observe(torch, smi)
+        fl = phase_fleet(torch)
         swa_row = phase_swa(torch)
         launches["swa_decode"] = phase_serve(torch)
     except SmokeFailure as exc:
@@ -3355,6 +3628,8 @@ def main() -> int:
         launches[name] = kb_launches[name]
         errs[name] = kb_errs[name]
     for name, n in ev["launches"].items():     # the event phase's K1-K3
+        launches[name] += n
+    for name, n in fl["launches"].items():     # the fleet phase's K1-K3
         launches[name] += n
     table = []
     main_t = timings[MAIN_SHAPE]

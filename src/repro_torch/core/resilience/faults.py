@@ -35,8 +35,8 @@ flat and hashable::
 Components are joined with ``+``; each is ``name:<prob>`` with optional
 ``,key=value`` arguments (``straggler`` takes ``stale``; ``outage`` takes
 ``kill`` — ``kill=1`` asks the fleet runtime to realize the drawn outages
-as real worker-process SIGKILLs, in the fleet runtime,
-ROADMAP slice 6).
+as real worker-process SIGKILLs: the kill schedule is
+:func:`repro_torch.core.fleet.chaos.plan_kills`).
 """
 from __future__ import annotations
 
@@ -163,8 +163,8 @@ def parse_fault_spec(spec: str) -> FaultModel:
                 kw["staleness"] = int(v)
             elif name == "outage" and k == "kill" and sep:
                 # kill realization: the fleet SIGKILLs the drawn servers'
-                # worker processes (the fleet runtime, ROADMAP slice 6)
-                # instead of masking their rows of A
+                # worker processes (repro_torch.core.fleet.chaos.
+                # plan_kills) instead of masking their rows of A
                 kw["outage_kill"] = bool(int(v))
             else:
                 raise ValueError(

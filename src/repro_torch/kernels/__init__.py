@@ -9,14 +9,24 @@ under CUDA-graph capture counts at the call; the round graph
 (``core/population/graphed.py``) takes those counts back after the capture
 and adds them at every replay (:func:`count_replay`), so ``LAUNCHES``
 counts real launches either way, and ``REPLAYED`` the share of them that
-replays made.
+replays made.  Wrappers count through :func:`count`, under a lock, since
+the fleet's in-process workers launch from several threads.
 """
 from __future__ import annotations
+
+import threading
 
 LAUNCHES = {"fold_norms": 0, "fold_apply": 0, "graph_combine": 0,
             "pair_streams": 0, "swa_decode": 0, "secure_agg_mean": 0,
             "clip_accum": 0, "laplace_transform": 0}
 REPLAYED = dict.fromkeys(LAUNCHES, 0)
+_COUNT_LOCK = threading.Lock()
+
+
+def count(name: str) -> None:
+    """Count one launch of kernel ``name`` (a wrapper, where it launches)."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:

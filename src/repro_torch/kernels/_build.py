@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess  # runs nvcc, not fleet I/O  # gflint: disable=GFL008
+import threading
 import time
 from pathlib import Path
 
@@ -60,6 +61,7 @@ AUX = {"clip_accum_blocks_per_sm": ("clip_accum",
                                     [_I, _I])}
 
 _FUNCS: dict = {}
+_LOAD_LOCK = threading.Lock()     # first loads from several threads
 
 
 def nvcc_path() -> str:
@@ -125,16 +127,20 @@ def build(names=SOURCES, defines: tuple = ()) -> dict:
 def function(name: str, defines: tuple = ()):
     """The C entry point of ``csrc/<name>.cu`` (built with ``defines``), or
     the entry ``name`` of ``AUX``, built and loaded on first use, with its
-    argument and result types declared."""
+    argument and result types declared.  The first load holds a lock, so
+    threads that launch at once load each library once."""
     fn = _FUNCS.get((name, defines))
     if fn is None:
-        source, symbol, argtypes = (AUX[name] if name in AUX
-                                    else (name, *SIGNATURES[name]))
-        path = build([source], defines)[source]
-        fn = getattr(ctypes.CDLL(str(path)), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FUNCS[(name, defines)] = fn
+        with _LOAD_LOCK:
+            fn = _FUNCS.get((name, defines))
+            if fn is None:
+                source, symbol, argtypes = (AUX[name] if name in AUX
+                                            else (name, *SIGNATURES[name]))
+                path = build([source], defines)[source]
+                fn = getattr(ctypes.CDLL(str(path)), symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _FUNCS[(name, defines)] = fn
     return fn
 
 

@@ -121,5 +121,5 @@ def clip_accum(grads: torch.Tensor, bound: float) -> torch.Tensor:
     _build.check(_build.function("clip_accum")(
         grads.data_ptr(), out.data_ptr(), ws, float(bound), L, D, bits,
         stream), "clip_accum")
-    _k.LAUNCHES["clip_accum"] += 1
+    _k.count("clip_accum")
     return out

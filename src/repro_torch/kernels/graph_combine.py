@@ -78,5 +78,5 @@ def graph_combine(A: torch.Tensor, psi: torch.Tensor,
         None if gate is None else gate.data_ptr(), out.data_ptr(),
         P | (psi.dtype is torch.bfloat16) << 8, D, raw_stream(dev.index)),
         "graph_combine")
-    _k.LAUNCHES["graph_combine"] += 1
+    _k.count("graph_combine")
     return out

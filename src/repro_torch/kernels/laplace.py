@@ -32,5 +32,5 @@ def laplace_transform(u: torch.Tensor, sigma: float) -> torch.Tensor:
     _build.check(fn(u.data_ptr(), out.data_ptr(),
                     int(u.dtype == torch.bfloat16), u.numel(), b,
                     stream_handle(u)), "laplace_transform")
-    _k.LAUNCHES["laplace_transform"] += 1
+    _k.count("laplace_transform")
     return out

@@ -32,9 +32,8 @@ def _record(op: str, key: tuple, **values) -> None:
     """One ``kernel`` record for (op, key), the first time this session
     dispatches it."""
     sess = current_session()
-    if sess is None or (op,) + key in sess.kernels_seen:
+    if sess is None or not sess.claim((op,) + key):
         return
-    sess.kernels_seen.add((op,) + key)
     note("kernel", {"seq": sess.next_seq(), "op": op, **values})
 
 

@@ -139,7 +139,7 @@ def fold_norms(grads: torch.Tensor) -> torch.Tensor:
     _build.check(_build.function("fold_norms")(
         grads.data_ptr(), out.data_ptr(), ws, P * L, D, bits, stream),
         "fold_norms")
-    _k.LAUNCHES["fold_norms"] += 1
+    _k.count("fold_norms")
     return out
 
 
@@ -236,5 +236,5 @@ def fold_apply(w: torch.Tensor, grads: torch.Tensor, stepscale: torch.Tensor,
         None if aux is None else aux.data_ptr(), out.data_ptr(),
         P | L << 16, flags, D, float(sigma), raw_stream(dev.index)),
         "fold_apply")
-    _k.LAUNCHES["fold_apply"] += 1
+    _k.count("fold_apply")
     return out

@@ -103,7 +103,7 @@ def pair_streams(seed: int, L: int, D: int, scale,
     fn = _build.function("secure_agg")
     _build.check(fn(int(seed) & MASK32, float(scale), out.data_ptr(), npairs,
                     D, stream_handle(out)), "pair_streams")
-    _k.LAUNCHES["pair_streams"] += 1
+    _k.count("pair_streams")
     return out
 
 
@@ -184,5 +184,5 @@ def secure_agg_mean(updates: torch.Tensor, seed: torch.Tensor,
         updates.data_ptr(), seed.data_ptr(), float(scale), out.data_ptr(), D,
         _plan_word(dev, L, D, updates.dtype), raw_stream(dev.index)),
         "secure_agg_mean")
-    _k.LAUNCHES["secure_agg_mean"] += 1
+    _k.count("secure_agg_mean")
     return out

@@ -159,7 +159,7 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"swa_decode: G={H // KV} > {MAX_GROUP} or "
                          f"Dh={Dh} > {MAX_HEAD_DIM}")
     out = launch(_build.function("swa_decode"), q, k, v, nvalid)
-    _k.LAUNCHES["swa_decode"] += 1
+    _k.count("swa_decode")
     return out
 
 

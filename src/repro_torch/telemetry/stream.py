@@ -30,6 +30,7 @@ uninstrumented one, op for op and bit for bit.
 from __future__ import annotations
 
 import os
+import threading
 import time
 from contextlib import contextmanager, nullcontext
 from typing import Dict, List, Mapping, Optional, Tuple
@@ -47,7 +48,12 @@ _SESSION: Optional["TelemetrySession"] = None
 
 
 class TelemetrySession:
-    """Owns the sinks + tracer of one telemetry-enabled run scope."""
+    """Owns the sinks + tracer of one telemetry-enabled run scope.
+
+    Safe to write from several threads (the fleet's in-process workers
+    record their ``kernel`` records beside the coordinator's ``fleet``
+    ones): the sequence, the sinks and ``kernels_seen`` are updated under
+    one lock."""
 
     def __init__(self, sinks: List[Sink], tracer: Optional[SpanTracer] = None,
                  run_id: Optional[str] = None,
@@ -62,6 +68,7 @@ class TelemetrySession:
         self.callback_seconds = 0.0
         # (op, shape, layout, mode) keys the kernel stream has recorded
         self.kernels_seen: set = set()
+        self._lock = threading.Lock()
         if profile is None:
             profile = os.environ.get(ENV_PROFILE, "0") \
                 not in ("", "0", "false")
@@ -70,20 +77,32 @@ class TelemetrySession:
     def next_seq(self) -> int:
         """Monotone per-session sequence number (the ``kernel`` and
         ``profile`` streams' index)."""
-        self._seq += 1
-        return self._seq
+        with self._lock:
+            self._seq += 1
+            return self._seq
+
+    def claim(self, key: tuple) -> bool:
+        """True the first time ``key`` is claimed this session (the
+        ``kernel`` stream's once-per-shape record), False after."""
+        with self._lock:
+            if key in self.kernels_seen:
+                return False
+            self.kernels_seen.add(key)
+            return True
 
     def _write(self, stream: str, record: Mapping) -> None:
         rec = {"stream": stream, "run": self.run_id,
                "t_wall": time.time(), **record}
-        for sink in self.sinks:
-            sink.write(rec)
-        self.records += 1
+        with self._lock:
+            for sink in self.sinks:
+                sink.write(rec)
+            self.records += 1
 
     def ingest(self, stream: str, record: Mapping) -> None:
         t0 = time.perf_counter()
         self._write(stream, record)
-        self.callback_seconds += time.perf_counter() - t0
+        with self._lock:
+            self.callback_seconds += time.perf_counter() - t0
 
     def memory_records(self, stream: Optional[str] = None) -> List[dict]:
         """Records captured by any MemorySink (tests / tail views)."""
@@ -296,7 +315,8 @@ class MetricsStream:
         for lo in range(0, len(rows), self.flush_every):
             for rec in rows[lo:lo + self.flush_every]:
                 sess._write(self.stream, rec)
-        sess.callback_seconds += time.perf_counter() - t0
+        with sess._lock:
+            sess.callback_seconds += time.perf_counter() - t0
         return len(rows)
 
 

@@ -1110,3 +1110,76 @@ def test_checkpoint_round_trips_on_the_card(cuda, tmp_path):
                            torch.bfloat16 else got[k],
                            v.view(torch.int16) if v.dtype == torch.bfloat16
                            else v)
+
+
+# ------------------------------------------------------------------ fleet
+
+
+FLEET_PROBLEM = dict(P=4, K=16, n=12, buffer=6, events=4, sigma_g=0.2,
+                     seed=3)
+
+
+def test_fleet_inproc_on_the_card_is_the_cpu_fleet(cuda, tmp_path):
+    """The demo's problem on inproc, cuda against the CPU: integer outcomes
+    exact, params within atol 1e-5, MSD within rtol 1e-5; K1 + K2 once a
+    worker tick, K3 once a flushing tick."""
+    import numpy as np
+    from repro_torch.core.fleet import FleetProblem, run_fleet
+    prob = FleetProblem(**FLEET_PROBLEM)
+    ticks = 10
+    K.reset_launches()
+    on = run_fleet(prob, "fleet", ticks, ckpt_root=str(tmp_path / "cuda"),
+                   device="cuda")
+    launches = dict(K.LAUNCHES)
+    off = run_fleet(prob, "fleet", ticks, ckpt_root=str(tmp_path / "cpu"),
+                    device="cpu")
+    assert on.params.device.type == "cuda"
+    assert np.array_equal(on.flushed, off.flushed)
+    assert np.array_equal(on.q, off.q)
+    assert np.array_equal(on.versions, off.versions)
+    assert on.q_ledgers == off.q_ledgers
+    assert float((on.params.cpu() - off.params).abs().max()) <= 1e-5
+    assert np.allclose(on.msd, off.msd, rtol=1e-5, atol=0)
+    assert launches["fold_norms"] == launches["fold_apply"] == \
+        prob.P * ticks
+    assert launches["graph_combine"] == int(on.flushed.any(axis=1).sum())
+
+
+def test_fleet_workers_on_two_streams_at_once(cuda, tmp_path):
+    """Two inproc workers fold at once, each on its own stream: their
+    replies equal those of one worker run alone, bit for bit."""
+    import threading
+
+    import numpy as np
+    from repro_torch.core.fleet import (FleetProblem, FleetWorker, InprocHub,
+                                        parse_fleet_spec)
+    from repro_torch.core.fleet.coordinator import fleet_cohort
+    prob = FleetProblem(**dict(FLEET_PROBLEM, dim=2048))
+    spec = parse_fleet_spec("fleet")
+    rng = np.random.default_rng(1)
+    ws = [rng.normal(size=prob.dim).astype(np.float32) for _ in range(12)]
+
+    def drive(worker, out):
+        with worker.on_stream():
+            for t, w in enumerate(ws):
+                cohort = [int(k) for k in fleet_cohort(prob, t)[worker.p]]
+                out.append(worker.compute_tick(t, w, cohort))
+
+    def fresh(p, tag):
+        return FleetWorker(p, prob, spec, InprocHub().register(tag),
+                           str(tmp_path / tag), device="cuda")
+
+    alone = {p: [] for p in (0, 1)}
+    for p in (0, 1):
+        drive(fresh(p, f"alone{p}"), alone[p])
+    together = {p: [] for p in (0, 1)}
+    workers = [fresh(p, f"together{p}") for p in (0, 1)]
+    assert workers[0].stream != workers[1].stream
+    threads = [threading.Thread(target=drive, args=(w, together[w.p]))
+               for w in workers]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert together == alone
+    assert any(r["flushed"] for r in alone[0])

@@ -113,6 +113,25 @@ def test_import_check_covers_the_cross_cutting_slice():
             "core/privacy"} <= packages
 
 
+def test_import_check_covers_the_fleet_slice():
+    slice_ = {"repro_torch.core.fleet.namebook",
+              "repro_torch.core.fleet.transport",
+              "repro_torch.core.fleet.worker",
+              "repro_torch.core.fleet.coordinator",
+              "repro_torch.core.fleet.chaos",
+              "repro_torch.launch.fleet_demo"}
+    assert slice_ <= set(_port_modules())
+    # the package's __init__, the seventh module, goes through the walk too
+    assert PORT / "core" / "fleet" / "__init__.py" in _port_files()
+
+
+def test_fleet_demo_without_card_raises(monkeypatch):
+    from repro_torch.launch import fleet_demo
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fleet_demo.main(["--transport", "inproc", "--ticks", "2"])
+
+
 def test_importing_the_port_leaves_jax_out():
     mods = _port_modules()
     code = ("import sys\n"

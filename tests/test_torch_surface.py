@@ -54,8 +54,13 @@ def test_telemetry_exports_are_the_references():
 
 
 def test_fleet_exports_the_spec_grammar():
+    import repro.core.fleet as ref_fleet
     import repro_torch.core.fleet as fleet
-    assert fleet.__all__ == ["FleetSpec", "parse_fleet_spec"]
+    # the whole fleet is ported now: the spec grammar among the
+    # reference's 29 names, in the reference's order
+    assert {"FleetSpec", "parse_fleet_spec", "TRANSPORTS"} <= \
+        set(fleet.__all__)
+    assert fleet.__all__ == ref_fleet.__all__
     assert fleet.parse_fleet_spec("fleet:retry=5").to_spec() == \
         "fleet:retry=5"
 

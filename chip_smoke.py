@@ -226,7 +226,9 @@ Phases, each printing JSON lines:
              tick's fold and of its checkpoint.
 13. swa    — K8 swa_decode against its plain version at the serving shapes
              (B, H, KV, C, Dh) = (4, 32, 32, 2047, 96) bf16,
-             (4, 32, 32, 1064, 96) bf16, (4, 9, 3, 1064, 64) bf16 and f32,
+             (4, 32, 32, 1064, 96) bf16, mixtral's (4, 32, 8, 4096, 128)
+             and (4, 32, 8, 1064, 128) bf16 (Dh 128, G 4),
+             (4, 9, 3, 1064, 64) bf16 and f32,
              (2, 8, 4, 1000, 64) f32 and (32, 32, 32, 2047, 96) bf16 (805 MB
              of K/V), each with its launch plan (tile, splits, blocks) and
              nvalid = C, 2C/3 (timed), 0, 1 and either side of a split
@@ -234,19 +236,33 @@ Phases, each printing JSON lines:
              scaled_dot_product_attention times with the HBM bound, cycling
              through copies of K/V that exceed the 50 MB L2, as decode
              finds them cold; a CUDA graph captured at nvalid = C/3 and
-             replayed at C; and a stall probe at the phi3 shapes (the
-             kernel beside its loads-only build, built here).
-14. serve  — phi3-mini-3.8b at full width (32 layers, d 3072, bf16, random
-             weights from seed 0) through repro_torch.launch.serve.generate:
-             request A, 4 x 4096-token prompts + 32 greedy tokens (ring of
-             2047 slots, wrapped); request B, 4 x 1000 + 32 (1064 slots,
-             nvalid partial).  Gates finite logits, 32 x 32 K8 launches per
-             request, and K8 against its plain version on the live q, cache
-             and nvalid of layers 0 and 31 at decode steps 0 and 31;
-             prints prefill ms, decode ms per step and tok/s against the
-             step's byte bound, peak memory, and a torch.profiler view of
-             decode steps (device busy and idle share, K8's share; no
-             softmax or scaled_dot_product_attention may run there).
+             replayed at C; and a stall probe at the phi3 shapes and
+             mixtral's 4 x 4096 (the kernel beside its loads-only build,
+             built here).
+14. serve  — four archs at full width, bf16, random weights from seed 0,
+             each freed before the next, through
+             repro_torch.launch.serve.generate: phi3-mini-3.8b (32 layers,
+             d 3072), request A, 4 x 4096-token prompts + 32 greedy tokens
+             (ring of 2047 slots, wrapped), and B, 4 x 1000 + 32 (1064
+             slots, nvalid partial); mixtral-8x7b at 16 of its 32 layers
+             (the cut printed: 32 do not fit the card), A (ring of 4096,
+             wrapped) and B; deepseek-v2-lite-16b (27 layers, MLA, a dense
+             first layer, 2 shared + 64 routed experts top-6), 4 x 4096 +
+             32; minicpm3-4b (62 layers, MLA with a compressed query), 4 x
+             1000 + 32.  Gates finite logits; K8 launches a layer and step
+             for the GQA archs and none for MLA; K8 against its plain
+             version on the live q, cache and nvalid of the first and last
+             layers at decode steps 0 and 31; the first MoE layer of step
+             0, on its live input, against a token-by-token plain version
+             (bf16 tolerance), with no routed entry dropped at decode; the
+             last request generated again, tokens and logits bitwise
+             equal.  Prints prefill ms, decode ms per step and tok/s
+             against the step's byte bound (every expert's weights: the
+             capacity dispatch reads them all) and the active parameters'
+             bytes, the prefill's dropped-entry share, peak memory, and a
+             torch.profiler view of decode steps (device busy and idle
+             share, K8's share; no scaled_dot_product_attention, and
+             softmax only the router's and MLA's, one a layer and step).
              A profiler trace whose launch count is off (K8 a layer and
              step here, one op a call of K1 and K2 above) is taken again,
              up to three traces: the profiler has been seen to lose one
@@ -389,14 +405,31 @@ RES_NULL_SPEC = "links:0.0+dropout:0.0"
 DROPOUT_PLANT_SCALE = float(1 << 20)
 DROPOUT_PLANT_SHAPES = [MAIN_SHAPE, (10, 48, 4096)]
 SWA_SERVE_SHAPE = (4, 32, 32, 2047, 96)
+SWA_MIXTRAL_SHAPE = (4, 32, 8, 4096, 128)    # Dh 128, G 4, ring of 4096
 SWA_PROBE_SHAPES = [(SWA_SERVE_SHAPE, "bfloat16"),
-                    ((32, 32, 32, 2047, 96), "bfloat16")]
+                    ((32, 32, 32, 2047, 96), "bfloat16"),
+                    (SWA_MIXTRAL_SHAPE, "bfloat16")]
 SWA_SHAPES = [(SWA_SERVE_SHAPE, "bfloat16"), ((4, 32, 32, 1064, 96), "bfloat16"),
+              (SWA_MIXTRAL_SHAPE, "bfloat16"),
+              ((4, 32, 8, 1064, 128), "bfloat16"),
               ((4, 9, 3, 1064, 64), "bfloat16"), ((4, 9, 3, 1064, 64), "float32"),
               ((2, 8, 4, 1000, 64), "float32"),
               ((32, 32, 32, 2047, 96), "bfloat16")]
-SERVE_ARCH = "phi3-mini-3.8b"
-SERVE_REQUESTS = (("A", 4, 4096), ("B", 4, 1000))   # name, batch, prompt
+# each arch's requests: name, batch, prompt (+ SERVE_NEW_TOKENS greedy)
+SERVE_MODELS = (
+    ("phi3-mini-3.8b", (("A", 4, 4096), ("B", 4, 1000))),
+    ("mixtral-8x7b", (("A", 4, 4096), ("B", 4, 1000))),
+    ("deepseek-v2-lite-16b", (("A", 4, 4096),)),
+    ("minicpm3-4b", (("B", 4, 1000),)),
+)
+# archs served at fewer layers than their config's, and why
+SERVE_DEPTH_CUTS = {
+    "mixtral-8x7b": (16, "32 layers are about 46.7e9 parameters, 93.4 GB "
+                         "in bf16, more than the card's 80 GB; 16 are "
+                         "about 23.5e9, 47.0 GB")}
+# the step's bytes reckoned by hand (every expert read: capacity dispatch)
+SERVE_RECKONED_STEP_GB = {"mixtral-8x7b": 46.7, "deepseek-v2-lite-16b": 31.0,
+                          "minicpm3-4b": 8.15}
 SERVE_NEW_TOKENS = 32
 SERVE_PROFILE_STEPS = 3
 TRACE_TRIES = 3       # traces of a launch count before it fails
@@ -3426,14 +3459,80 @@ class DecodeTap:
         return out
 
 
+class MoETap:
+    """Stands in for ``models.moe.moe_forward`` during a request: passes
+    every call through with a stats dict, sums routed and dropped entries
+    for the prefill and the decode steps apart, and keeps the params, input
+    and output of the first MoE layer of decode step 0."""
+
+    def __init__(self, moe, n_moe):
+        self.moe, self.n_moe = moe, n_moe
+        self.orig = moe.moe_forward
+        self.calls, self.captured = 0, None
+        self.stats = {"prefill": {}, "decode": {}}
+
+    def __enter__(self):
+        self.moe.moe_forward = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_forward = self.orig
+
+    def __call__(self, params, x, cfg, stats=None):
+        i = self.calls
+        self.calls += 1
+        st = self.stats["prefill" if i < self.n_moe else "decode"]
+        out, aux = self.orig(params, x, cfg, st)
+        if i == self.n_moe:
+            self.captured = (params, x.clone(), out.clone())
+        return out, aux
+
+    def counts(self) -> dict:
+        return {phase: {"entries": st.get("entries", 0),
+                        "dropped": int(st.get("dropped", 0))}
+                for phase, st in self.stats.items()}
+
+
+def moe_plain(torch, params, x, cfg):
+    """The MoE layer token by token: the router in f32, the token's top-k
+    experts' SwiGLU (each product in the weights' dtype, as the layer runs
+    it), their gate-weighted sum in f32, plus the shared experts."""
+    import torch.nn.functional as F
+    m = cfg.moe
+    xf = x.reshape(-1, x.shape[-1])
+    rows = []
+    for t in range(xf.shape[0]):
+        xt = xf[t:t + 1]
+        probs = torch.softmax((xt @ params["router"]).float(), dim=-1)[0]
+        vals, idx = torch.topk(probs, m.top_k)
+        vals = vals / vals.sum().clamp(min=1e-9)
+        acc = torch.zeros(xf.shape[1], dtype=torch.float32, device=x.device)
+        for j in range(m.top_k):
+            e = int(idx[j])
+            h = F.silu(xt @ params["w_gate"][e]) * (xt @ params["w_up"][e])
+            acc += vals[j] * (h @ params["w_down"][e])[0].float()
+        if m.num_shared_experts:
+            sh = params["shared"]
+            h = F.silu(xt @ sh["w_gate"]) * (xt @ sh["w_up"])
+            acc += (h @ sh["w_down"])[0].float()
+        rows.append(acc)
+    return torch.stack(rows).reshape(x.shape)
+
+
 def decode_profile(torch, model, toks, cache, steps, tries=TRACE_TRIES):
     """torch.profiler over ``steps`` decode steps (already warm).  A trace
-    whose K8 count is not one a layer and step is taken again, up to
-    ``tries`` traces (the profiler has been seen to lose one kernel
-    record of thousands); every trace must be free of softmax and SDPA.
-    The trace is ``traced``'s, unfenced (the K8 count is the gate); its
-    markers are not counted."""
-    want = steps * model.cfg.num_layers
+    whose K8 count is not one a GQA layer and step (none for MLA) is taken
+    again, up to ``tries`` traces (the profiler has been seen to lose one
+    kernel record of thousands).  No trace may run SDPA, and its softmax
+    calls must be the router's (one a MoE layer and step) and MLA's (one
+    a layer and step) alone: GQA attention goes through K8.  The trace is
+    ``traced``'s, unfenced (the K8 count is the gate); its markers are not
+    counted."""
+    cfg = model.cfg
+    n_moe = sum("moe" in bp for bp in model.blocks)
+    gqa = cfg.attention == "gqa"
+    want = steps * cfg.num_layers if gqa else 0
+    want_softmax = steps * (n_moe + (0 if gqa else cfg.num_layers))
     state = {"toks": toks, "cache": cache}
 
     def block():
@@ -3460,24 +3559,29 @@ def decode_profile(torch, model, toks, cache, steps, tries=TRACE_TRIES):
             if "swa_decode" in evt.name:
                 k8 += us
                 k8_n += 1
-        host_ops = {e.key for e in prof.key_averages()}
-        banned = sorted(n for n in host_ops | set(by_name)
-                        if "softmax" in n.lower() or "scaled_dot_product" in n)
+        host = {e.key: e.count for e in prof.key_averages()}
+        banned = sorted(n for n in set(host) | set(by_name)
+                        if "scaled_dot_product" in n
+                        or (not want_softmax and "softmax" in n.lower()))
         require(not banned, f"decode step runs {banned}: the attention core "
                 "must go through K8 alone")
+        softmax = host.get("aten::softmax", 0)
+        require(softmax == want_softmax, f"decode steps ran {softmax} "
+                f"softmax calls, expected {want_softmax} (router and MLA)")
         if k8_n == want:
             break
         emit({"phase": "serve", "retrace": attempt + 1, "k8_launches": k8_n,
               "expected": want})
     require(k8_n == want,
             f"profiled {steps} decode steps saw {k8_n} K8 launches in each "
-            f"of {tries} traces")
+            f"of {tries} traces, expected {want}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
     return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
             "device_busy_ms_per_step": busy / 1e3 / steps,
             "device_idle_share": 1.0 - busy / 1e6 / wall,
             "device_ops_per_step": count / steps,
+            "softmax_calls_per_step": softmax / steps,
             "k8_ms_per_step": k8 / 1e3 / steps,
             "k8_share_of_device_time": k8 / busy if busy else None,
             "k8_launches": k8_n,
@@ -3490,85 +3594,200 @@ def decode_profile(torch, model, toks, cache, steps, tries=TRACE_TRIES):
                              for e in host[:8]]}
 
 
-def phase_serve(torch):
-    from repro_torch import kernels as K, rng
+def serve_config(arch):
+    """The arch's registry config at full width, with its depth cut (and
+    the cut's record) where the card cannot hold every layer."""
+    import dataclasses
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import swa_decode_attention_plain
-    from repro_torch.launch.roofline import HBM_BYTES_PER_S
-    from repro_torch.launch.serve import generate
-    from repro_torch.models.model import Model
+    cfg = get_config(arch)
+    cut = SERVE_DEPTH_CUTS.get(arch)
+    if cut is None:
+        return cfg, None
+    layers, why = cut
+    return (dataclasses.replace(cfg, num_layers=layers),
+            {"num_layers": f"{cfg.num_layers} -> {layers}", "why": why})
 
-    cfg = get_config(SERVE_ARCH)
-    gen = rng(0, "cuda")
-    t0 = time.perf_counter()
-    model = Model.init(cfg, gen)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in model.parameters())
-    table_bytes = model.embed["table"].numel() * 2
-    L, Dh = cfg.num_layers, cfg.resolved_head_dim
-    require(L == 32 and cfg.d_model == 3072 and cfg.param_dtype == "bfloat16"
-            and model.embed["table"].dtype == torch.bfloat16,
-            f"{SERVE_ARCH} is not at full width")
-    emit({"phase": "serve", "arch": SERVE_ARCH, "params": n_params,
-          "weight_bytes": weight_bytes, "init_s": init_s})
+
+def cache_step_bytes(cfg, B, mean_live):
+    """Bytes of the live cache one decode step must read (bf16): K and V
+    of every KV head, or MLA's latent and roped key, at ``mean_live``
+    slots, over every layer."""
+    if cfg.attention == "mla":
+        row = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+    else:
+        row = 2 * cfg.num_kv_heads * cfg.resolved_head_dim
+    return cfg.num_layers * B * mean_live * row * 2
+
+
+def serve_request(torch, model, name, B, S, gen, moe_mod, ops):
+    """One request through ``launch.serve.generate`` with its gates; the
+    record to print, and the prompt and output for the rerun."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.ref import swa_decode_attention_plain
+    from repro_torch.launch.serve import generate
+
+    cfg = model.cfg
+    L = cfg.num_layers
+    gqa = cfg.attention == "gqa"
+    n_moe = sum("moe" in bp for bp in model.blocks)
     keep = [(layer, step) for layer in (0, L - 1)
             for step in (0, SERVE_NEW_TOKENS - 1)]
-    launches = 0
-    for name, B, S in SERVE_REQUESTS:
-        prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                               device="cuda")
-        torch.cuda.reset_peak_memory_stats()
-        K.reset_launches()
-        with DecodeTap(ops, L, keep) as tap:
-            out = generate(model, prompt, SERVE_NEW_TOKENS)
-        counts = dict(K.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        cache = out["cache"]
-        C = cache["k"].shape[2]
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    with contextlib.ExitStack() as stack:
+        tap = stack.enter_context(DecodeTap(ops, L, keep))
+        mtap = stack.enter_context(MoETap(moe_mod, n_moe)) if n_moe else None
+        out = generate(model, prompt, SERVE_NEW_TOKENS)
+    counts = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    cache = out["cache"]
+    C = cache["k" if gqa else "c_kv"].shape[2]
+    require(bool(torch.isfinite(out["logits"].float()).all()),
+            f"{cfg.name} request {name}: non-finite logits")
+    want_k8 = L * SERVE_NEW_TOKENS if gqa else 0
+    require(counts["swa_decode"] == want_k8,
+            f"{cfg.name} request {name}: {counts['swa_decode']} K8 "
+            f"launches, expected {want_k8}")
+    rec = {"phase": "serve", "arch": cfg.name, "request": name, "batch": B,
+           "prompt": S, "new_tokens": SERVE_NEW_TOKENS, "cache_slots": C,
+           "launches": counts}
+    live = {}
+    if gqa:
         nvalid = [int(n) for n in tap.nvalid]
-        launches += counts["swa_decode"]
-        require(bool(torch.isfinite(out["logits"].float()).all()),
-                f"request {name}: non-finite logits")
-        require(counts["swa_decode"] == L * SERVE_NEW_TOKENS,
-                f"request {name}: {counts['swa_decode']} K8 launches, "
-                f"expected {L * SERVE_NEW_TOKENS}")
-        require(nvalid == [min(S + 1 + t, C) for t in range(SERVE_NEW_TOKENS)],
-                f"request {name}: nvalid {nvalid[:3]}...")
-        live = {}
+        require(nvalid == [min(S + 1 + t, C)
+                           for t in range(SERVE_NEW_TOKENS)],
+                f"{cfg.name} request {name}: nvalid {nvalid[:3]}...")
         for (layer, step), (q, k, v, nv, got) in sorted(tap.captured.items()):
             want = swa_decode_attention_plain(q, k, v, nv)
-            err = check_close(torch, f"serve {name} layer {layer} step "
-                              f"{step}", got, want, torch.bfloat16,
+            err = check_close(torch, f"serve {cfg.name} {name} layer {layer} "
+                              f"step {step}", got, want, torch.bfloat16,
                               tol=bf16_tol(torch, want))
             require(torch.equal(got, ops.swa_decode_attention(q, k, v, nv)),
-                    f"serve {name} layer {layer} step {step}: rerun differs")
+                    f"serve {cfg.name} {name} layer {layer} step {step}: "
+                    "rerun differs")
             live[f"layer{layer}_step{step}"] = {"nvalid": int(nv),
                                                 "max_abs_err": err}
-        del tap
-        mean_nv = sum(nvalid) / len(nvalid)
-        kv_step = 2 * L * B * mean_nv * cfg.num_kv_heads * Dh * 2
-        step_bytes = weight_bytes - table_bytes + kv_step
-        decode_ms = out["decode_s"] * 1e3 / SERVE_NEW_TOKENS
-        toks = out["tokens"][:, -1]
-        prof = decode_profile(torch, model, toks, cache, SERVE_PROFILE_STEPS)
-        emit({"phase": "serve", "request": name, "batch": B, "prompt": S,
-              "new_tokens": SERVE_NEW_TOKENS, "cache_slots": C,
-              "nvalid_first_last": [nvalid[0], nvalid[-1]],
-              "ring_wrapped": S > C, "launches": counts,
-              "prefill_ms": out["prefill_s"] * 1e3,
-              "decode_ms_per_step": decode_ms,
-              "decode_tok_per_s": B * SERVE_NEW_TOKENS / out["decode_s"],
-              "step_bytes": step_bytes, "step_kv_bytes": kv_step,
-              "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
-              "k8_bound_ms_per_step": kv_step / HBM_BYTES_PER_S * 1e3,
-              "peak_memory_bytes": peak, "live_checks": live,
-              "profile": prof})
-        del out, cache, prompt
+        mean_live = sum(nvalid) / len(nvalid)
+        rec.update(nvalid_first_last=[nvalid[0], nvalid[-1]],
+                   ring_wrapped=S > C)
+    else:
+        require(not tap.calls, f"{cfg.name}: MLA decode reached K8")
+        mean_live = S + (SERVE_NEW_TOKENS + 1) / 2
+    if mtap is not None:
+        moe_counts = mtap.counts()
+        params, x, got = mtap.captured
+        want = moe_plain(torch, params, x, cfg)
+        tol = bf16_tol(torch, want.to(torch.bfloat16))
+        err = check_close(torch, f"serve {cfg.name} {name} MoE layer of "
+                          "decode step 0", got, want, torch.bfloat16,
+                          tol=tol)
+        require(moe_counts["decode"]["dropped"] == 0,
+                f"{cfg.name} request {name}: decode dropped "
+                f"{moe_counts['decode']['dropped']} routed entries")
+        pre = moe_counts["prefill"]
+        used = ((got.float() - want).abs()
+                / (tol[0] + tol[1] * want.abs())).max()
+        live["moe_step0"] = {"layer": L - n_moe, "tokens": x.shape[0],
+                             "max_abs_err": err, "atol": tol[0],
+                             "rtol": tol[1],
+                             "share_of_tolerance": float(used)}
+        rec.update(moe_entries=moe_counts,
+                   prefill_dropped_share=pre["dropped"] / pre["entries"])
+        del mtap, params, x, got
+    rec["live_checks"] = live
+    del tap
+    rec.update(prefill_ms=out["prefill_s"] * 1e3,
+               decode_ms_per_step=out["decode_s"] * 1e3 / SERVE_NEW_TOKENS,
+               decode_tok_per_s=B * SERVE_NEW_TOKENS / out["decode_s"],
+               peak_memory_bytes=peak, mean_live_slots=mean_live,
+               step_cache_bytes=cache_step_bytes(cfg, B, mean_live))
+    return rec, prompt, out
+
+
+def phase_serve(torch):
+    """Each of SERVE_MODELS at full width (mixtral's depth cut), in bf16,
+    random weights from seed 0, its requests through
+    ``launch.serve.generate``, each model freed before the next.  Returns
+    the K8 launches of the requests."""
+    import dataclasses
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.roofline import HBM_BYTES_PER_S, active_params
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import Model
+
+    launches = 0
+    for arch, requests in SERVE_MODELS:
+        t_arch = time.perf_counter()
+        cfg, cut = serve_config(arch)
+        gen = rng(0, "cuda")
+        t0 = time.perf_counter()
+        model = Model.init(cfg, gen)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in model.parameters())
+        # decode reads B rows of the table, unless it is tied (unembed)
+        table_bytes = (0 if cfg.tie_embeddings else
+                       model.embed["table"].numel() * 2)
+        n_active = active_params(cfg, n_params)
+        full = get_config(arch)
+        require(dataclasses.replace(cfg, num_layers=full.num_layers) == full
+                and len(model.blocks) == cfg.num_layers
+                and model.embed["table"].shape[1] == full.d_model,
+                f"{arch} is not at full width")
+        require(cfg.param_dtype == "bfloat16"
+                and all(p.dtype == torch.bfloat16
+                        for p in model.parameters()),
+                f"{arch} is not in bf16")
+        emit({"phase": "serve", "arch": arch, "params": n_params,
+              "active_params": n_active, "weight_bytes": weight_bytes,
+              "layers": cfg.num_layers, "d_model": cfg.d_model,
+              "reduced": cut, "init_s": init_s})
+        for name, B, S in requests:
+            rec, prompt, out = serve_request(torch, model, name, B, S, gen,
+                                             moe_mod, ops)
+            launches += rec["launches"]["swa_decode"]
+            cache_b = rec["step_cache_bytes"]
+            step_bytes = weight_bytes - table_bytes + cache_b
+            # the active parameters' bytes (the routed experts a token
+            # uses), without the table, beside every expert's
+            active_bytes = 2 * n_active - table_bytes + cache_b
+            rec.update(step_bytes=step_bytes,
+                       step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+                       reckoned_step_gb=SERVE_RECKONED_STEP_GB.get(arch),
+                       active_step_bytes=active_bytes,
+                       active_bound_ms=active_bytes / HBM_BYTES_PER_S * 1e3)
+            if cfg.attention == "gqa":
+                rec["k8_bound_ms_per_step"] = (cache_b / HBM_BYTES_PER_S
+                                               * 1e3)
+            rec["profile"] = decode_profile(torch, model,
+                                            out["tokens"][:, -1],
+                                            out["cache"],
+                                            SERVE_PROFILE_STEPS)
+            emit(rec)
+            if name == requests[-1][0]:
+                # the last request again: the same tokens and logits, bit
+                # for bit
+                again = generate(model, prompt, SERVE_NEW_TOKENS)
+                require(torch.equal(again["tokens"], out["tokens"])
+                        and torch.equal(again["logits"], out["logits"]),
+                        f"{arch} request {name}: a second generate differs")
+                emit({"phase": "serve", "arch": arch, "request": name,
+                      "rerun_bitwise_equal": True})
+                del again
+            del out, prompt
+            torch.cuda.empty_cache()
+        del model
         torch.cuda.empty_cache()
+        emit({"phase": "serve", "arch": arch,
+              "freed_to_bytes": torch.cuda.memory_allocated(),
+              "seconds": time.perf_counter() - t_arch})
     return launches
 
 
@@ -3605,22 +3824,29 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        emit({"phase": name, "phase_seconds": time.perf_counter() - t0})
+        return out
+
     try:
-        kind, smi = phase_device(torch)
-        phase_build()
-        errs, timings = phase_kernels(torch)
-        kb_errs, kb_timings, kb_launches = phase_kernel_bench(torch)
-        launches, prob = phase_main(torch)
-        phase_fig2(torch)
-        phase_resilience(torch, prob)
-        phase_profile(torch, prob)
+        kind, smi = timed("device", phase_device, torch)
+        timed("build", phase_build)
+        errs, timings = timed("kernels", phase_kernels, torch)
+        kb_errs, kb_timings, kb_launches = timed(
+            "kernel_bench", phase_kernel_bench, torch)
+        launches, prob = timed("main", phase_main, torch)
+        timed("fig2", phase_fig2, torch)
+        timed("resilience", phase_resilience, torch, prob)
+        timed("profile", phase_profile, torch, prob)
         del prob
-        phase_population(torch)
-        ev = phase_events(torch)
-        phase_observe(torch, smi)
-        fl = phase_fleet(torch)
-        swa_row = phase_swa(torch)
-        launches["swa_decode"] = phase_serve(torch)
+        timed("population", phase_population, torch)
+        ev = timed("events", phase_events, torch)
+        timed("observe", phase_observe, torch, smi)
+        fl = timed("fleet", phase_fleet, torch)
+        swa_row = timed("swa", phase_swa, torch)
+        launches["swa_decode"] = timed("serve", phase_serve, torch)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -3,8 +3,8 @@ field (names, defaults, ``resolved_head_dim``, ``subquadratic`` and
 ``reduced()`` are held equal by the tests).
 
 :class:`ModelConfig` and its sub-configs are pure data; the port runs the
-dense GQA family (``repro_torch.models``), and the registry raises for the
-rest.  ``GFLConfig.async_spec`` is read by the event engine
+dense and MoE families with GQA or MLA attention (``repro_torch.models``),
+and the registry raises for the rest.  ``GFLConfig.async_spec`` is read by the event engine
 (``repro_torch.core.events``).  :class:`GFLConfig` fields the engines do
 not run yet (``telemetry``, ``sanitize``, and the mesh knobs) are kept so a
 config round-trips, and the engines raise ``NotImplementedError`` when one

@@ -1,9 +1,9 @@
 """Registry mapping ``--arch`` ids to ModelConfigs (mirrors
 ``repro.configs.registry``).
 
-The port runs the dense GQA family without MoE; every other id is known
-(it is the reference's list) but raises ``NotImplementedError`` naming the
-ROADMAP item that will port its family.  :func:`all_configs` lists every
+The port runs the dense and MoE families with GQA or MLA attention; every
+other id is known (it is the reference's list) but raises
+``NotImplementedError`` naming the ROADMAP item that will port its family.  :func:`all_configs` lists every
 id, as the reference's does.
 """
 from __future__ import annotations
@@ -27,13 +27,12 @@ ARCH_IDS = [
     "gfl-logreg",
 ]
 
-PORTED_ARCH_IDS = ("yi-6b", "smollm-135m", "phi3-mini-3.8b", "gfl-logreg")
+PORTED_ARCH_IDS = ("yi-6b", "deepseek-v2-lite-16b", "smollm-135m",
+                   "mixtral-8x7b", "minicpm3-4b", "phi3-mini-3.8b",
+                   "gfl-logreg")
 
 # what each unported id waits for (ROADMAP, queue 1, slice 7)
 _PENDING = {
-    "mixtral-8x7b": "item 19a (MoE, models/moe.py)",
-    "deepseek-v2-lite-16b": "items 19a-19b (MoE and MLA attention)",
-    "minicpm3-4b": "item 19b (MLA attention)",
     "zamba2-1.2b": "item 19c (SSM / hybrid, models/ssm.py)",
     "rwkv6-3b": "item 19c (RWKV, models/rwkv.py)",
     "llava-next-mistral-7b": "item 19d (VLM inputs)",

@@ -1,8 +1,8 @@
 """State carried across from the reference, through numpy.
 
-The reference's ``GFLState``, ``LogisticProblem``, model param pytrees,
-importance-sampler ``ISState`` and Dirichlet pools with their index tables
-hold jax arrays; a caller passes them here as numpy arrays (``np.asarray``,
+The reference's ``GFLState``, ``LogisticProblem``, model param pytrees
+(dense and MoE, GQA and MLA), importance-sampler ``ISState`` and
+Dirichlet pools with their index tables hold jax arrays; a caller passes them here as numpy arrays (``np.asarray``,
 ``jax.tree.map(np.asarray, params)``) and gets the port's own types on
 ``device``, so both packages compute on the same numbers.  No jax is
 imported on this side.
@@ -50,44 +50,117 @@ def _model_tensor(x, shape, dtype: torch.dtype, name: str, device):
     return t.to(device)
 
 
+def _attn_shapes(cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.num_heads
+    if cfg.attention != "mla":
+        hd = h * cfg.resolved_head_dim
+        kvd = cfg.num_kv_heads * cfg.resolved_head_dim
+        return {"w_q": (d, hd), "w_k": (d, kvd), "w_v": (d, kvd),
+                "w_o": (hd, d)}
+    m = cfg.mla
+    dn, dr, dv, R = (m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim,
+                     m.kv_lora_rank)
+    out = {"w_dkv": (d, R), "w_kr": (d, dr), "w_uk": (R, h * dn),
+           "w_uv": (R, h * dv), "w_o": (h * dv, d), "kv_norm": (R,)}
+    if m.q_lora_rank:
+        out.update(w_dq=(d, m.q_lora_rank),
+                   w_uq=(m.q_lora_rank, h * (dn + dr)),
+                   q_norm=(m.q_lora_rank,))
+    else:
+        out["w_q"] = (d, h * (dn + dr))
+    return out
+
+
+def _swiglu_shapes(d: int, ff: int) -> dict:
+    return {"w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)}
+
+
+def _block_shapes(cfg: ModelConfig, *, moe: bool, d_ff: int) -> dict:
+    """{(part, leaf[, leaf]): shape} of one layer of a block stack."""
+    d = cfg.d_model
+    tree = {"ln1": {"scale": (d,)}, "attn": _attn_shapes(cfg),
+            "ln2": {"scale": (d,)}}
+    if moe:
+        m = cfg.moe
+        dff = m.expert_d_ff or cfg.d_ff
+        E = m.num_experts
+        tree["moe"] = {"router": (d, E), "w_gate": (E, d, dff),
+                       "w_up": (E, d, dff), "w_down": (E, dff, d)}
+        if m.num_shared_experts:
+            tree["moe"]["shared"] = _swiglu_shapes(
+                d, dff * m.num_shared_experts)
+    else:
+        tree["mlp"] = _swiglu_shapes(d, d_ff)
+    return dict(_leaves(tree))
+
+
+def _leaves(tree, prefix=()):
+    """((path, leaf)) of a nested dict, in its order."""
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, prefix + (name,))
+        else:
+            yield prefix + (name,), value
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for path, value in flat.items():
+        node = out
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = value
+    return out
+
+
+def _stack_layers(stack, shapes: dict, n: int, dt, where: str, dev) -> list:
+    """One nested dict per layer of a reference block stack (leaves
+    [n, ...]), each tensor checked and its own copy, not a view."""
+    got = {path for path, _ in _leaves(stack)}
+    if got != set(shapes):
+        raise ValueError(f"{where}: leaves {sorted(got)} do not match "
+                         f"{sorted(shapes)}")
+    leaves = dict(_leaves(stack))
+    stacked = {path: _model_tensor(leaves[path], (n, *shape), dt,
+                                   ".".join((where,) + path), dev)
+               for path, shape in shapes.items()}
+    return [_nest({path: t[i].clone() for path, t in stacked.items()})
+            for i in range(n)]
+
+
 def model_params_from_numpy(tree: dict, cfg: ModelConfig,
                             device=None) -> dict:
     """The params of ``repro_torch.models.model.Model(cfg, params)`` from
-    the reference's dense-GQA param pytree (numpy leaves).  The stacked
-    ``[n_layers, ...]`` block arrays are split into one dict per layer;
-    every tensor is checked for shape and dtype (``cfg.param_dtype``)."""
+    the reference's param pytree (numpy leaves) of a dense or MoE model
+    with GQA or MLA attention.  The stacked ``[n_layers, ...]`` block
+    arrays are split into one dict per layer, the ``dense_blocks`` of a
+    MoE model with leading dense layers first; every tensor is checked for
+    shape and dtype (``cfg.param_dtype``)."""
     from repro_torch.models.model import check_supported, padded_vocab
     check_supported(cfg)
     dev = resolve_device(device)
     dt = getattr(torch, cfg.param_dtype)
-    d, ff, n = cfg.d_model, cfg.d_ff, cfg.num_layers
-    hd = cfg.num_heads * cfg.resolved_head_dim
-    kvd = cfg.num_kv_heads * cfg.resolved_head_dim
-    vocab = padded_vocab(cfg)
+    d, vocab = cfg.d_model, padded_vocab(cfg)
     expect = {("embed", "table"): (vocab, d), ("final_norm", "scale"): (d,)}
     if not cfg.tie_embeddings:
         expect[("lm_head", "w")] = (d, vocab)
-    block = {("ln1", "scale"): (d,), ("attn", "w_q"): (d, hd),
-             ("attn", "w_k"): (d, kvd), ("attn", "w_v"): (d, kvd),
-             ("attn", "w_o"): (hd, d), ("ln2", "scale"): (d,),
-             ("mlp", "w_gate"): (d, ff), ("mlp", "w_up"): (d, ff),
-             ("mlp", "w_down"): (ff, d)}
-    if set(tree) != {part for part, _ in expect} | {"blocks"}:
+    stacks = {"blocks": (cfg.num_layers, _block_shapes(
+        cfg, moe=cfg.moe is not None, d_ff=cfg.d_ff))}
+    if cfg.moe is not None and cfg.moe.first_dense_layers:
+        nd = cfg.moe.first_dense_layers
+        stacks = {"dense_blocks": (nd, _block_shapes(
+            cfg, moe=False, d_ff=cfg.moe.first_dense_d_ff or cfg.d_ff)),
+                  "blocks": (cfg.num_layers - nd, stacks["blocks"][1])}
+    if set(tree) != {part for part, _ in expect} | set(stacks):
         raise ValueError(f"param tree keys {sorted(tree)} do not match "
                          f"{cfg.name}")
     params: dict = {}
     for (part, leaf), shape in expect.items():
         params.setdefault(part, {})[leaf] = _model_tensor(
             tree[part][leaf], shape, dt, f"{part}.{leaf}", dev)
-    stacked = {(part, leaf): _model_tensor(
-        tree["blocks"][part][leaf], (n, *shape), dt,
-        f"blocks.{part}.{leaf}", dev) for (part, leaf), shape in block.items()}
-    # one tensor per layer, not views of the stack
     params["blocks"] = [
-        {part: {leaf: stacked[(part, leaf)][i].clone()
-                for (p, leaf) in block if p == part}
-         for part in ("ln1", "attn", "ln2", "mlp")}
-        for i in range(n)]
+        layer for name, (n, shapes) in stacks.items()
+        for layer in _stack_layers(tree[name], shapes, n, dt, name, dev)]
     return params
 
 

@@ -1,1 +1,2 @@
-"""The port's models: the dense GQA family (``model.Model``)."""
+"""The port's models: the dense and MoE families with GQA or MLA attention
+(``model.Model``)."""

@@ -1,4 +1,4 @@
-"""Shared building blocks of the dense GQA family (mirrors
+"""Shared building blocks of the dense and MoE families (mirrors
 ``repro/models/layers.py``).
 
 Parameters are plain mappings of tensors in the reference's layout

@@ -1,18 +1,20 @@
-"""The dense GQA model family as an ``nn.Module`` (mirrors the dense path of
-``repro/models/model.py``).
+"""The dense and MoE model families, with GQA or MLA attention, as an
+``nn.Module`` (mirrors the dense / moe paths of ``repro/models/model.py``).
 
     model  = Model.init(cfg, generator)          # or Model(cfg, params)
-    logits = model.forward(tokens)               # [B, S, V]
-    logits, cache = model.prefill(tokens)        # fills the ring cache
+    logits = model.forward(tokens)               # [B, S, V]; model.last_aux
+    logits, cache = model.prefill(tokens)        # fills the cache
     logits, cache = model.decode_step(tokens, cache)
 
 Parameters keep the reference's names and ``[in, out]`` layout; the
 reference's stacked ``[n_layers, ...]`` block arrays are one entry of
-``blocks`` per layer here, so a reference init carries across as a copy
-(``repro_torch.convert.model_params_from_numpy``).  Logits cover the vocab
-padded to a multiple of 128, as the reference's do.  Prefill and decode
-update the cache in place.  Families other than dense GQA without MoE
-raise ``NotImplementedError``.
+``blocks`` per layer here, its ``dense_blocks`` (DeepSeek's leading dense
+layers) first, so a reference init carries across as a copy
+(``repro_torch.convert.model_params_from_numpy``) and cache layer i belongs
+to block i.  A block's FFN is SwiGLU (``mlp``) or the MoE layer (``moe``).
+Logits cover the vocab padded to a multiple of 128, as the reference's do.
+Prefill and decode update the cache in place.  The ssm, hybrid, vlm and
+audio families raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,7 +23,15 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
+
+# the families still to port and their ROADMAP items (queue 1, slice 7)
+_PENDING_FAMILIES = {
+    "ssm": "item 19c (models/ssm.py, models/rwkv.py)",
+    "hybrid": "item 19c (models/ssm.py, models/rwkv.py)",
+    "vlm": "item 19d (VLM inputs)",
+    "audio": "item 19d (audio encoder-decoder)",
+}
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -34,27 +44,49 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.attention != "gqa" or cfg.moe is not None:
+    if cfg.family in _PENDING_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: family={cfg.family!r} is not ported yet: ROADMAP "
+            f"queue 1, {_PENDING_FAMILIES[cfg.family]}")
+    if (cfg.family not in ("dense", "moe")
+            or cfg.attention not in ("gqa", "mla")
+            or (cfg.family == "moe") != (cfg.moe is not None)
+            or (cfg.attention == "mla") != (cfg.mla is not None)):
         raise NotImplementedError(
             f"{cfg.name}: family={cfg.family!r} attention={cfg.attention!r} "
-            f"moe={cfg.moe is not None} is not ported yet; the port runs the "
-            "dense GQA family (ROADMAP queue 1, slice 7)")
+            f"moe={cfg.moe is not None} mla={cfg.mla is not None}: the port "
+            "runs the dense and moe families with gqa or mla attention")
 
 
 def _params(tree: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({name: nn.Parameter(t, requires_grad=False)
-                             for name, t in tree.items()})
+    """A param subtree as a ParameterDict, nested dicts (the MoE layer's
+    ``shared`` experts) as nested ones."""
+    return nn.ParameterDict({
+        name: _params(t) if isinstance(t, dict)
+        else nn.Parameter(t, requires_grad=False)
+        for name, t in tree.items()})
 
 
-def _dense_block(bp, x, positions, cfg: ModelConfig):
-    h = layers.rms_norm(bp["ln1"], x, cfg.norm_eps)
-    x = x + attn.gqa_forward(bp["attn"], h, positions, cfg)
-    h = layers.rms_norm(bp["ln2"], x, cfg.norm_eps)
-    return x + layers.swiglu(bp["mlp"], h)
+def _attn(bp, h, positions, cfg: ModelConfig, *, return_kv: bool = False):
+    """The block's attention: MLA or GQA.  ``return_kv`` also returns what
+    the cache keeps (c_kv and k_rope, or the roped K and the V)."""
+    if cfg.attention == "mla":
+        return attn.mla_forward(bp["attn"], h, positions, cfg,
+                                return_kv=return_kv)
+    return attn.gqa_forward(bp["attn"], h, positions, cfg,
+                            return_kv=return_kv)
+
+
+def _ffn(bp, h, cfg: ModelConfig):
+    """The block's FFN: (out, router aux), the aux None for SwiGLU."""
+    if "moe" in bp:
+        return moe.moe_forward(bp["moe"], h, cfg)
+    return layers.swiglu(bp["mlp"], h), None
 
 
 class Model(nn.Module):
-    """Dense pre-norm GQA + SwiGLU transformer (yi, smollm, phi3)."""
+    """Pre-norm GQA / MLA transformer with SwiGLU or MoE FFNs (yi, smollm,
+    phi3, minicpm3; mixtral, deepseek-v2-lite)."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -66,9 +98,9 @@ class Model(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings
                         else _params(params["lm_head"]))
         self.blocks = nn.ModuleList(
-            nn.ModuleDict({part: _params(bp[part]) for part in
-                           ("ln1", "attn", "ln2", "mlp")})
+            nn.ModuleDict({part: _params(tree) for part, tree in bp.items()})
             for bp in params["blocks"])
+        self.last_aux = None        # the router aux of the last forward
 
     # ------------------------------------------------------------- init ---
 
@@ -87,18 +119,43 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             params["lm_head"] = layers.lm_head_init(generator, cfg.d_model,
                                                     vocab, dt)
-        params["blocks"] = [cls._dense_block_init(cfg, generator)
-                            for _ in range(cfg.num_layers)]
+        if cfg.moe is None:
+            params["blocks"] = [cls._dense_block_init(cfg, generator)
+                                for _ in range(cfg.num_layers)]
+        else:
+            nd = cfg.moe.first_dense_layers
+            d_ff = cfg.moe.first_dense_d_ff or cfg.d_ff
+            params["blocks"] = (
+                [cls._dense_block_init(cfg, generator, d_ff)
+                 for _ in range(nd)]
+                + [cls._moe_block_init(cfg, generator)
+                   for _ in range(cfg.num_layers - nd)])
         return cls(cfg, params)
 
     @staticmethod
-    def _dense_block_init(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    def _attn_init(cfg: ModelConfig, gen: torch.Generator) -> dict:
+        a_init = attn.mla_init if cfg.attention == "mla" else attn.gqa_init
+        return a_init(gen, cfg, _dtype(cfg))
+
+    @classmethod
+    def _dense_block_init(cls, cfg: ModelConfig, gen: torch.Generator,
+                          d_ff: int = 0) -> dict:
         dt = _dtype(cfg)
         return {
             "ln1": layers.rms_norm_init(cfg.d_model, dt, gen.device),
-            "attn": attn.gqa_init(gen, cfg, dt),
+            "attn": cls._attn_init(cfg, gen),
             "ln2": layers.rms_norm_init(cfg.d_model, dt, gen.device),
-            "mlp": layers.swiglu_init(gen, cfg.d_model, cfg.d_ff, dt),
+            "mlp": layers.swiglu_init(gen, cfg.d_model, d_ff or cfg.d_ff, dt),
+        }
+
+    @classmethod
+    def _moe_block_init(cls, cfg: ModelConfig, gen: torch.Generator) -> dict:
+        dt = _dtype(cfg)
+        return {
+            "ln1": layers.rms_norm_init(cfg.d_model, dt, gen.device),
+            "attn": cls._attn_init(cfg, gen),
+            "ln2": layers.rms_norm_init(cfg.d_model, dt, gen.device),
+            "moe": moe.moe_init(gen, cfg, dt),
         }
 
     @property
@@ -111,13 +168,22 @@ class Model(nn.Module):
         return layers.embed(self.embed, tokens)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence logits [B, S, V] (the train / prefill compute)."""
+        """Full-sequence logits [B, S, V] (the train / prefill compute); the
+        router aux summed over the MoE layers is kept as ``last_aux``."""
         cfg = self.cfg
         x = self._embed_inputs(tokens)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for bp in self.blocks:
-            x = _dense_block(bp, x, positions, cfg)
+            h = layers.rms_norm(bp["ln1"], x, cfg.norm_eps)
+            x = x + _attn(bp, h, positions, cfg)
+            h = layers.rms_norm(bp["ln2"], x, cfg.norm_eps)
+            out, a = _ffn(bp, h, cfg)
+            x = x + out
+            if a is not None:
+                aux = aux + a
+        self.last_aux = aux
         x = layers.rms_norm(self.final_norm, x, cfg.norm_eps)
         return self._logits(x)
 
@@ -129,9 +195,10 @@ class Model(nn.Module):
     # ------------------------------------------------------------ cache ---
 
     def init_cache(self, batch_size: int, cache_len: int) -> dict:
-        return attn.gqa_init_cache(self.cfg, batch_size, cache_len,
-                                   self.cfg.num_layers, _dtype(self.cfg),
-                                   self.device)
+        init = (attn.mla_init_cache if self.cfg.attention == "mla"
+                else attn.gqa_init_cache)
+        return init(self.cfg, batch_size, cache_len, self.cfg.num_layers,
+                    _dtype(self.cfg), self.device)
 
     # ----------------------------------------------------------- decode ---
 
@@ -149,20 +216,33 @@ class Model(nn.Module):
 
     def _decode_dense(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
         pos = cache["pos"]
-        slot, nvalid = attn.gqa_decode_slots(pos, cache["k"].shape[2])
+        if self.cfg.attention == "mla":
+            c0, c1 = cache["c_kv"], cache["k_rope"]
+            slot = attn.mla_decode_slot(pos, c0.shape[2])
+            nvalid = None
+        else:
+            c0, c1 = cache["k"], cache["v"]
+            slot, nvalid = attn.gqa_decode_slots(pos, c0.shape[2])
         for i, bp in enumerate(self.blocks):
-            x = self._dense_decode_block(bp, x, cache["k"][i],
-                                         cache["v"][i], pos, slot, nvalid)
+            x = self._dense_decode_block(bp, x, c0[i], c1[i], pos, slot,
+                                         nvalid)
         return x
 
-    def _dense_decode_block(self, bp, x, cache_k, cache_v, pos, slot,
+    def _dense_decode_block(self, bp, x, cache_0, cache_1, pos, slot,
                             nvalid):
+        """One block of a decode step; its caches (c_kv and k_rope, or K
+        and V) are written in place at ``slot``."""
         cfg = self.cfg
         h = layers.rms_norm(bp["ln1"], x, cfg.norm_eps)
-        x = x + attn.gqa_decode(bp["attn"], h, cache_k, cache_v, pos, slot,
-                                nvalid, cfg)
+        if cfg.attention == "mla":
+            out = attn.mla_decode(bp["attn"], h, cache_0, cache_1, pos, slot,
+                                  cfg)
+        else:
+            out = attn.gqa_decode(bp["attn"], h, cache_0, cache_1, pos,
+                                  slot, nvalid, cfg)
+        x = x + out
         h = layers.rms_norm(bp["ln2"], x, cfg.norm_eps)
-        return x + layers.swiglu(bp["mlp"], h)
+        return x + _ffn(bp, h, cfg)[0]
 
     # ---------------------------------------------------------- prefill ---
 
@@ -198,13 +278,18 @@ class Model(nn.Module):
 
     def _prefill_dense(self, x, positions, cache):
         cfg = self.cfg
+        mla = cfg.attention == "mla"
+        S = x.shape[1]
         for i, bp in enumerate(self.blocks):
             h = layers.rms_norm(bp["ln1"], x, cfg.norm_eps)
-            out, kk, vv = attn.gqa_forward(bp["attn"], h, positions, cfg,
-                                           return_kv=True)
-            self._fill_ring(cache["k"][i], kk)
-            self._fill_ring(cache["v"][i], vv)
+            out, c0, c1 = _attn(bp, h, positions, cfg, return_kv=True)
+            if mla:         # the latent cache's first S slots
+                cache["c_kv"][i, :, :S].copy_(c0)
+                cache["k_rope"][i, :, :S].copy_(c1)
+            else:
+                self._fill_ring(cache["k"][i], c0)
+                self._fill_ring(cache["v"][i], c1)
             x = x + out
             h = layers.rms_norm(bp["ln2"], x, cfg.norm_eps)
-            x = x + layers.swiglu(bp["mlp"], h)
+            x = x + _ffn(bp, h, cfg)[0]
         return x, cache

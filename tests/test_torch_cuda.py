@@ -260,6 +260,7 @@ def test_main_path_uses_the_kernels(cuda):
     (2, 8, 4, 1000, 64),      # the reference test's shape
     (4, 9, 3, 1064, 64),      # smollm's GQA layout
     (2, 4, 4, 2047, 96),      # phi3's head dim, odd C
+    (4, 32, 8, 1064, 128),    # mixtral: Dh 128, G 4
     (1, 8, 1, 130, 100),      # Dh not a multiple of 16 bytes: scalar loads
     (3, 2, 2, 5, 256)])       # fewer slots than a tile, the widest head
 def test_swa_decode_matches_plain(cuda, dtype, B, H, KV, C, Dh):
@@ -298,6 +299,7 @@ def _swa_tol(want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,KV,C,Dh", [
     (4, 32, 32, 2047, 96),    # phi3's serving shape: 4 splits
+    (4, 32, 8, 4096, 128),    # mixtral's serving shape: Dh 128, G 4
     (2, 8, 4, 1000, 64),      # many short splits
     (4, 9, 3, 1064, 64),      # smollm's GQA layout
     (1, 8, 1, 130, 100)])     # the element-wise copies
@@ -375,6 +377,65 @@ def test_serve_path_uses_the_kernel(cuda):
         torch.testing.assert_close(logits, full[:, 96 + t], atol=2e-4,
                                    rtol=2e-4)
     assert K.LAUNCHES["swa_decode"] == 4 * cfg.num_layers
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-lite-16b",
+                                  "minicpm3-4b"])
+def test_reduced_moe_and_mla_on_cuda_match_the_cpu(cuda, arch):
+    """One init on the CPU and its copy on the card: forward logits and
+    router aux, prefill and four decode steps within f32's 1e-4; K8 runs a
+    layer a step for mixtral and never for the MLA models."""
+    import copy
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(arch).reduced()
+    on_cpu = Model.init(cfg, rng(1, "cpu"))
+    on_card = copy.deepcopy(on_cpu).to("cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 100),
+                         generator=torch.Generator().manual_seed(2))
+    tol = dict(atol=1e-4, rtol=1e-4)
+    with torch.no_grad():
+        want = on_cpu.forward(toks)
+        got = on_card.forward(toks.cuda())
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    torch.testing.assert_close(on_card.last_aux.cpu(), on_cpu.last_aux,
+                               **tol)
+    want, c_cpu = on_cpu.prefill(toks[:, :96])
+    got, c_card = on_card.prefill(toks[:, :96].cuda())
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    K.reset_launches()
+    for t in range(4):
+        want, c_cpu = on_cpu.decode_step(toks[:, 96 + t], c_cpu)
+        got, c_card = on_card.decode_step(toks[:, 96 + t].cuda(), c_card)
+        torch.testing.assert_close(got.cpu(), want, **tol)
+    for name in c_cpu:
+        torch.testing.assert_close(c_card[name].cpu(), c_cpu[name], **tol)
+    gqa = cfg.attention == "gqa"
+    assert K.LAUNCHES["swa_decode"] == (4 * cfg.num_layers if gqa else 0)
+
+
+def test_moe_decode_layer_is_capturable(cuda):
+    """The MoE layer at a decode step's 4 tokens, captured in a CUDA graph
+    (it would raise on a host sync) and replayed: bitwise its eager run."""
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe
+    cfg = get_config("deepseek-v2-lite-16b").reduced()
+    params = moe.moe_init(rng(3, "cuda"), cfg, torch.float32)
+    x = torch.randn((4, 1, cfg.d_model), generator=cuda, device="cuda")
+    want, want_aux = moe.moe_forward(params, x, cfg)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        moe.moe_forward(params, x, cfg)                 # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, aux = moe.moe_forward(params, x, cfg)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(aux, want_aux)
 
 
 def _single_tol(dtype, f32_tol):

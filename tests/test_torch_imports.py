@@ -125,6 +125,14 @@ def test_import_check_covers_the_fleet_slice():
     assert PORT / "core" / "fleet" / "__init__.py" in _port_files()
 
 
+def test_import_check_covers_the_moe_mla_slice():
+    slice_ = {"repro_torch.models.moe",
+              "repro_torch.configs.mixtral_8x7b",
+              "repro_torch.configs.deepseek_v2_lite_16b",
+              "repro_torch.configs.minicpm3_4b"}
+    assert slice_ <= set(_port_modules())
+
+
 def test_fleet_demo_without_card_raises(monkeypatch):
     from repro_torch.launch import fleet_demo
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

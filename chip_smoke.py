@@ -406,12 +406,16 @@ DROPOUT_PLANT_SCALE = float(1 << 20)
 DROPOUT_PLANT_SHAPES = [MAIN_SHAPE, (10, 48, 4096)]
 SWA_SERVE_SHAPE = (4, 32, 32, 2047, 96)
 SWA_MIXTRAL_SHAPE = (4, 32, 8, 4096, 128)    # Dh 128, G 4, ring of 4096
+SWA_ZAMBA2_SHAPE = (4, 32, 32, 4160, 64)     # Dh 64, G 1, S + 64, no ring
 SWA_PROBE_SHAPES = [(SWA_SERVE_SHAPE, "bfloat16"),
                     ((32, 32, 32, 2047, 96), "bfloat16"),
-                    (SWA_MIXTRAL_SHAPE, "bfloat16")]
+                    (SWA_MIXTRAL_SHAPE, "bfloat16"),
+                    (SWA_ZAMBA2_SHAPE, "bfloat16")]
 SWA_SHAPES = [(SWA_SERVE_SHAPE, "bfloat16"), ((4, 32, 32, 1064, 96), "bfloat16"),
               (SWA_MIXTRAL_SHAPE, "bfloat16"),
               ((4, 32, 8, 1064, 128), "bfloat16"),
+              (SWA_ZAMBA2_SHAPE, "bfloat16"),
+              ((4, 32, 32, 1064, 64), "bfloat16"),
               ((4, 9, 3, 1064, 64), "bfloat16"), ((4, 9, 3, 1064, 64), "float32"),
               ((2, 8, 4, 1000, 64), "float32"),
               ((32, 32, 32, 2047, 96), "bfloat16")]
@@ -421,7 +425,12 @@ SERVE_MODELS = (
     ("mixtral-8x7b", (("A", 4, 4096), ("B", 4, 1000))),
     ("deepseek-v2-lite-16b", (("A", 4, 4096),)),
     ("minicpm3-4b", (("B", 4, 1000),)),
+    ("zamba2-1.2b", (("A", 4, 4096), ("B", 4, 1000))),
+    ("rwkv6-3b", (("A", 4, 4096), ("B", 4, 1000))),
 )
+# the leaves the reference keeps in f32 in a bf16 model, (part, leaf):
+# Mamba2's A_log, RWKV-6's w0 and u; every other parameter is bf16
+SERVE_F32_LEAVES = {("ssm", "A_log"), ("att", "w0"), ("att", "u")}
 # archs served at fewer layers than their config's, and why
 SERVE_DEPTH_CUTS = {
     "mixtral-8x7b": (16, "32 layers are about 46.7e9 parameters, 93.4 GB "
@@ -429,7 +438,8 @@ SERVE_DEPTH_CUTS = {
                          "about 23.5e9, 47.0 GB")}
 # the step's bytes reckoned by hand (every expert read: capacity dispatch)
 SERVE_RECKONED_STEP_GB = {"mixtral-8x7b": 46.7, "deepseek-v2-lite-16b": 31.0,
-                          "minicpm3-4b": 8.15}
+                          "minicpm3-4b": 8.15, "zamba2-1.2b": 3.7,
+                          "rwkv6-3b": 6.0}
 SERVE_NEW_TOKENS = 32
 SERVE_PROFILE_STEPS = 3
 TRACE_TRIES = 3       # traces of a launch count before it fails
@@ -3419,7 +3429,8 @@ def phase_swa(torch):
         if ((B, H, KV, C, Dh), dname) in SWA_PROBE_SHAPES:
             emit({"phase": "swa", "stall_probe": [B, H, KV, C, Dh],
                   "dtype": dname, **stall_probe(torch, swa, q, kvs, C)})
-        if (B, H, KV, C, Dh) in (SWA_SERVE_SHAPE, (2, 8, 4, 1000, 64)):
+        if (B, H, KV, C, Dh) in (SWA_SERVE_SHAPE, SWA_ZAMBA2_SHAPE,
+                                 (2, 8, 4, 1000, 64)):
             emit({"phase": "swa", "cuda_graph": [B, H, KV, C, Dh],
                   "dtype": dname, **graph_replay(torch, swa, q, k, v, C)})
         del kvs, k, v
@@ -3433,10 +3444,11 @@ def phase_swa(torch):
 class DecodeTap:
     """Stands in for ops.swa_decode_attention during a request: passes
     every call through and keeps copies of the inputs and output of the
-    (layer, step) calls it is asked for."""
+    (application, step) calls it is asked for; ``n_attn`` is the attention
+    applications a step (``attn_per_step``)."""
 
-    def __init__(self, ops, n_layers, keep):
-        self.ops, self.n_layers, self.keep = ops, n_layers, set(keep)
+    def __init__(self, ops, n_attn, keep):
+        self.ops, self.n_attn, self.keep = ops, max(n_attn, 1), set(keep)
         self.orig = ops.swa_decode_attention
         self.calls, self.captured, self.nvalid = 0, {}, []
 
@@ -3448,7 +3460,7 @@ class DecodeTap:
         self.ops.swa_decode_attention = self.orig
 
     def __call__(self, q, k, v, nvalid):
-        step, layer = divmod(self.calls, self.n_layers)
+        step, layer = divmod(self.calls, self.n_attn)
         self.calls += 1
         out = self.orig(q, k, v, nvalid)
         if layer == 0:
@@ -3519,20 +3531,32 @@ def moe_plain(torch, params, x, cfg):
     return torch.stack(rows).reshape(x.shape)
 
 
+def attn_per_step(cfg) -> int:
+    """GQA attention applications a decode step, each one K8 launch: every
+    layer of a GQA dense or MoE model, the hybrid family's shared block
+    once every ``hybrid_attn_every`` layers, none for MLA and RWKV-6."""
+    if cfg.attention != "gqa":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.hybrid_attn_every
+    return cfg.num_layers
+
+
 def decode_profile(torch, model, toks, cache, steps, tries=TRACE_TRIES):
     """torch.profiler over ``steps`` decode steps (already warm).  A trace
-    whose K8 count is not one a GQA layer and step (none for MLA) is taken
-    again, up to ``tries`` traces (the profiler has been seen to lose one
-    kernel record of thousands).  No trace may run SDPA, and its softmax
-    calls must be the router's (one a MoE layer and step) and MLA's (one
-    a layer and step) alone: GQA attention goes through K8.  The trace is
-    ``traced``'s, unfenced (the K8 count is the gate); its markers are not
-    counted."""
+    whose K8 count is not one a GQA attention application and step (none
+    for MLA and RWKV-6) is taken again, up to ``tries`` traces (the
+    profiler has been seen to lose one kernel record of thousands).  No
+    trace may run SDPA, and its softmax calls must be the router's (one a
+    MoE layer and step) and MLA's (one a layer and step) alone: GQA
+    attention goes through K8, and Mamba2 and RWKV-6 run no softmax.  The
+    trace is ``traced``'s, unfenced (the K8 count is the gate); its markers
+    are not counted."""
     cfg = model.cfg
     n_moe = sum("moe" in bp for bp in model.blocks)
-    gqa = cfg.attention == "gqa"
-    want = steps * cfg.num_layers if gqa else 0
-    want_softmax = steps * (n_moe + (0 if gqa else cfg.num_layers))
+    want = steps * attn_per_step(cfg)
+    want_softmax = steps * (n_moe + (cfg.num_layers
+                                     if cfg.attention == "mla" else 0))
     state = {"toks": toks, "cache": cache}
 
     def block():
@@ -3609,14 +3633,29 @@ def serve_config(arch):
 
 
 def cache_step_bytes(cfg, B, mean_live):
-    """Bytes of the live cache one decode step must read (bf16): K and V
-    of every KV head, or MLA's latent and roped key, at ``mean_live``
-    slots, over every layer."""
+    """Bytes of the cache one decode step must move, as (all, the KV
+    part): the KV part is K and V of every KV head (bf16), or MLA's latent
+    and roped key, at ``mean_live`` slots, over every attention
+    application; the recurrent state is read and written once a step:
+    Mamba2's f32 ``h`` and its bf16 conv window of K - 1 rows, RWKV-6's
+    f32 ``wkv`` and its bf16 ``att_x`` and ``ffn_x``."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        H, hs = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
+        return 2 * L * B * (H * hs * hs * 4 + 2 * cfg.d_model * 2), 0
     if cfg.attention == "mla":
         row = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
     else:
         row = 2 * cfg.num_kv_heads * cfg.resolved_head_dim
-    return cfg.num_layers * B * mean_live * row * 2
+    kv = attn_per_step(cfg) * B * mean_live * row * 2
+    if cfg.family != "hybrid":
+        return kv, kv
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    H = d_inner // s.headdim
+    conv_ch = d_inner + 2 * s.ngroups * s.state_dim
+    state = H * s.headdim * s.state_dim * 4 + (s.conv_dim - 1) * conv_ch * 2
+    return kv + 2 * L * B * state, kv
 
 
 def serve_request(torch, model, name, B, S, gen, moe_mod, ops):
@@ -3628,25 +3667,26 @@ def serve_request(torch, model, name, B, S, gen, moe_mod, ops):
 
     cfg = model.cfg
     L = cfg.num_layers
-    gqa = cfg.attention == "gqa"
+    n_attn = attn_per_step(cfg)
     n_moe = sum("moe" in bp for bp in model.blocks)
-    keep = [(layer, step) for layer in (0, L - 1)
+    keep = [(a, step) for a in sorted({0, n_attn - 1}) if n_attn
             for step in (0, SERVE_NEW_TOKENS - 1)]
     prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                            device="cuda")
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     with contextlib.ExitStack() as stack:
-        tap = stack.enter_context(DecodeTap(ops, L, keep))
+        tap = stack.enter_context(DecodeTap(ops, n_attn, keep))
         mtap = stack.enter_context(MoETap(moe_mod, n_moe)) if n_moe else None
         out = generate(model, prompt, SERVE_NEW_TOKENS)
     counts = dict(K.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     cache = out["cache"]
-    C = cache["k" if gqa else "c_kv"].shape[2]
+    kv_name = next((n for n in ("attn_k", "k", "c_kv") if n in cache), None)
+    C = cache[kv_name].shape[2] if kv_name else None     # RWKV-6: no KV
     require(bool(torch.isfinite(out["logits"].float()).all()),
             f"{cfg.name} request {name}: non-finite logits")
-    want_k8 = L * SERVE_NEW_TOKENS if gqa else 0
+    want_k8 = n_attn * SERVE_NEW_TOKENS
     require(counts["swa_decode"] == want_k8,
             f"{cfg.name} request {name}: {counts['swa_decode']} K8 "
             f"launches, expected {want_k8}")
@@ -3654,18 +3694,21 @@ def serve_request(torch, model, name, B, S, gen, moe_mod, ops):
            "prompt": S, "new_tokens": SERVE_NEW_TOKENS, "cache_slots": C,
            "launches": counts}
     live = {}
-    if gqa:
+    if n_attn:
         nvalid = [int(n) for n in tap.nvalid]
         require(nvalid == [min(S + 1 + t, C)
                            for t in range(SERVE_NEW_TOKENS)],
                 f"{cfg.name} request {name}: nvalid {nvalid[:3]}...")
+        require(sorted(tap.captured) == sorted(keep),
+                f"{cfg.name} request {name}: live K8 checks "
+                f"{sorted(tap.captured)}, expected {sorted(keep)}")
         for (layer, step), (q, k, v, nv, got) in sorted(tap.captured.items()):
             want = swa_decode_attention_plain(q, k, v, nv)
-            err = check_close(torch, f"serve {cfg.name} {name} layer {layer} "
-                              f"step {step}", got, want, torch.bfloat16,
-                              tol=bf16_tol(torch, want))
+            err = check_close(torch, f"serve {cfg.name} {name} attention "
+                              f"{layer} step {step}", got, want,
+                              torch.bfloat16, tol=bf16_tol(torch, want))
             require(torch.equal(got, ops.swa_decode_attention(q, k, v, nv)),
-                    f"serve {cfg.name} {name} layer {layer} step {step}: "
+                    f"serve {cfg.name} {name} attention {layer} step {step}: "
                     "rerun differs")
             live[f"layer{layer}_step{step}"] = {"nvalid": int(nv),
                                                 "max_abs_err": err}
@@ -3673,7 +3716,8 @@ def serve_request(torch, model, name, B, S, gen, moe_mod, ops):
         rec.update(nvalid_first_last=[nvalid[0], nvalid[-1]],
                    ring_wrapped=S > C)
     else:
-        require(not tap.calls, f"{cfg.name}: MLA decode reached K8")
+        require(not tap.calls, f"{cfg.name}: decode reached K8, which runs "
+                "no attention of an MLA or RWKV-6 model")
         mean_live = S + (SERVE_NEW_TOKENS + 1) / 2
     if mtap is not None:
         moe_counts = mtap.counts()
@@ -3698,19 +3742,20 @@ def serve_request(torch, model, name, B, S, gen, moe_mod, ops):
         del mtap, params, x, got
     rec["live_checks"] = live
     del tap
+    step_cache, step_kv = cache_step_bytes(cfg, B, mean_live)
     rec.update(prefill_ms=out["prefill_s"] * 1e3,
                decode_ms_per_step=out["decode_s"] * 1e3 / SERVE_NEW_TOKENS,
                decode_tok_per_s=B * SERVE_NEW_TOKENS / out["decode_s"],
                peak_memory_bytes=peak, mean_live_slots=mean_live,
-               step_cache_bytes=cache_step_bytes(cfg, B, mean_live))
+               step_cache_bytes=step_cache, step_kv_bytes=step_kv)
     return rec, prompt, out
 
 
 def phase_serve(torch):
-    """Each of SERVE_MODELS at full width (mixtral's depth cut), in bf16,
-    random weights from seed 0, its requests through
-    ``launch.serve.generate``, each model freed before the next.  Returns
-    the K8 launches of the requests."""
+    """Each of SERVE_MODELS at full width (mixtral's depth cut), in bf16
+    (but SERVE_F32_LEAVES), random weights from seed 0, its requests
+    through ``launch.serve.generate``, each model freed before the next.
+    Returns the K8 launches of the requests."""
     import dataclasses
     from repro_torch import rng
     from repro_torch.configs.registry import get_config
@@ -3736,17 +3781,30 @@ def phase_serve(torch):
         table_bytes = (0 if cfg.tie_embeddings else
                        model.embed["table"].numel() * 2)
         n_active = active_params(cfg, n_params)
+        # the hybrid family's shared block is read once an application:
+        # at 134 MB (zamba2) it does not stay in the 50 MB L2
+        shared_bytes = (0 if model.shared_attn is None else
+                        sum(p.numel() * p.element_size()
+                            for p in model.shared_attn.parameters()))
+        reread_bytes = shared_bytes * (attn_per_step(cfg) - 1) \
+            if shared_bytes else 0
         full = get_config(arch)
         require(dataclasses.replace(cfg, num_layers=full.num_layers) == full
                 and len(model.blocks) == cfg.num_layers
                 and model.embed["table"].shape[1] == full.d_model,
                 f"{arch} is not at full width")
+        f32 = sorted(n for n, p in model.named_parameters()
+                     if tuple(n.split(".")[-2:]) in SERVE_F32_LEAVES)
         require(cfg.param_dtype == "bfloat16"
-                and all(p.dtype == torch.bfloat16
-                        for p in model.parameters()),
-                f"{arch} is not in bf16")
+                and all(p.dtype == (torch.float32 if n in f32
+                                    else torch.bfloat16)
+                        for n, p in model.named_parameters()),
+                f"{arch} is not in bf16 (but {sorted(SERVE_F32_LEAVES)} "
+                "in f32)")
         emit({"phase": "serve", "arch": arch, "params": n_params,
               "active_params": n_active, "weight_bytes": weight_bytes,
+              "f32_params": len(f32), "shared_block_bytes": shared_bytes,
+              "attention_per_step": attn_per_step(cfg),
               "layers": cfg.num_layers, "d_model": cfg.d_model,
               "reduced": cut, "init_s": init_s})
         for name, B, S in requests:
@@ -3754,18 +3812,18 @@ def phase_serve(torch):
                                              moe_mod, ops)
             launches += rec["launches"]["swa_decode"]
             cache_b = rec["step_cache_bytes"]
-            step_bytes = weight_bytes - table_bytes + cache_b
+            step_bytes = weight_bytes - table_bytes + reread_bytes + cache_b
             # the active parameters' bytes (the routed experts a token
             # uses), without the table, beside every expert's
-            active_bytes = 2 * n_active - table_bytes + cache_b
+            active_bytes = 2 * n_active - table_bytes + reread_bytes + cache_b
             rec.update(step_bytes=step_bytes,
                        step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
                        reckoned_step_gb=SERVE_RECKONED_STEP_GB.get(arch),
                        active_step_bytes=active_bytes,
                        active_bound_ms=active_bytes / HBM_BYTES_PER_S * 1e3)
-            if cfg.attention == "gqa":
-                rec["k8_bound_ms_per_step"] = (cache_b / HBM_BYTES_PER_S
-                                               * 1e3)
+            if attn_per_step(cfg):
+                rec["k8_bound_ms_per_step"] = (rec["step_kv_bytes"]
+                                               / HBM_BYTES_PER_S * 1e3)
             rec["profile"] = decode_profile(torch, model,
                                             out["tokens"][:, -1],
                                             out["cache"],

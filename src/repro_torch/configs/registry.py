@@ -1,10 +1,11 @@
 """Registry mapping ``--arch`` ids to ModelConfigs (mirrors
 ``repro.configs.registry``).
 
-The port runs the dense and MoE families with GQA or MLA attention; every
-other id is known (it is the reference's list) but raises
-``NotImplementedError`` naming the ROADMAP item that will port its family.  :func:`all_configs` lists every
-id, as the reference's does.
+The port runs the dense and MoE families with GQA or MLA attention, the
+ssm family (RWKV-6) and the hybrid one (Mamba2 with a shared attention
+block); the VLM and audio ids are known (it is the reference's list) but
+raise ``NotImplementedError`` naming the ROADMAP item that will port their
+family.  :func:`all_configs` lists every id, as the reference's does.
 """
 from __future__ import annotations
 
@@ -27,14 +28,12 @@ ARCH_IDS = [
     "gfl-logreg",
 ]
 
-PORTED_ARCH_IDS = ("yi-6b", "deepseek-v2-lite-16b", "smollm-135m",
-                   "mixtral-8x7b", "minicpm3-4b", "phi3-mini-3.8b",
-                   "gfl-logreg")
+PORTED_ARCH_IDS = ("zamba2-1.2b", "rwkv6-3b", "yi-6b",
+                   "deepseek-v2-lite-16b", "smollm-135m", "mixtral-8x7b",
+                   "minicpm3-4b", "phi3-mini-3.8b", "gfl-logreg")
 
 # what each unported id waits for (ROADMAP, queue 1, slice 7)
 _PENDING = {
-    "zamba2-1.2b": "item 19c (SSM / hybrid, models/ssm.py)",
-    "rwkv6-3b": "item 19c (RWKV, models/rwkv.py)",
     "llava-next-mistral-7b": "item 19d (VLM inputs)",
     "whisper-tiny": "item 19d (audio encoder-decoder)",
 }

@@ -1,7 +1,7 @@
 """State carried across from the reference, through numpy.
 
 The reference's ``GFLState``, ``LogisticProblem``, model param pytrees
-(dense and MoE, GQA and MLA), importance-sampler ``ISState`` and
+(dense and MoE, GQA and MLA, RWKV-6 and the Mamba2 hybrid), importance-sampler ``ISState`` and
 Dirichlet pools with their index tables hold jax arrays; a caller passes them here as numpy arrays (``np.asarray``,
 ``jax.tree.map(np.asarray, params)``) and gets the port's own types on
 ``device``, so both packages compute on the same numbers.  No jax is
@@ -16,6 +16,11 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.gfl import GFLState
 from repro_torch.core.simulate import LogisticProblem
+
+
+# the leaves the reference keeps in f32 whatever the param dtype is, by
+# (part, leaf): Mamba2's A_log, RWKV-6's w0 and u
+F32_LEAVES = {("ssm", "A_log"), ("att", "w0"), ("att", "u")}
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -75,9 +80,46 @@ def _swiglu_shapes(d: int, ff: int) -> dict:
     return {"w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)}
 
 
+def _mamba_shapes(cfg: ModelConfig) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_inner = s.expand * d
+    H, N, G = d_inner // s.headdim, s.state_dim, s.ngroups
+    conv_ch = d_inner + 2 * G * N
+    return {"w_in": (d, 2 * d_inner + 2 * G * N + H),
+            "conv_w": (s.conv_dim, conv_ch), "conv_b": (conv_ch,),
+            "dt_bias": (H,), "A_log": (H,), "D": (H,),
+            "norm_scale": (d_inner,), "w_out": (d_inner, d)}
+
+
+def _rwkv_shapes(cfg: ModelConfig) -> dict:
+    r = cfg.rwkv
+    d, dff = cfg.d_model, cfg.d_ff
+    att = {"mu_x": (d,), "mu": (5, d), "maa_w1": (d, 5 * r.mix_lora),
+           "maa_w2": (5, r.mix_lora, d), "w0": (d,),
+           "decay_w1": (d, r.decay_lora), "decay_w2": (r.decay_lora, d),
+           "u": (d,), "ln_scale": (d,)}
+    att.update({w: (d, d) for w in ("w_r", "w_k", "w_v", "w_g", "w_o")})
+    return {"ln1": {"scale": (d,)}, "att": att, "ln2": {"scale": (d,)},
+            "ffn": {"mu_k": (d,), "mu_r": (d,), "w_k": (d, dff),
+                    "w_v": (dff, d), "w_r": (d, d)}}
+
+
+def _shared_attn_shapes(cfg: ModelConfig) -> dict:
+    """The hybrid family's shared attention + SwiGLU block."""
+    d = cfg.d_model
+    return {"ln": {"scale": (d,)}, "attn": _attn_shapes(cfg),
+            "ln2": {"scale": (d,)}, "mlp": _swiglu_shapes(d, cfg.d_ff)}
+
+
 def _block_shapes(cfg: ModelConfig, *, moe: bool, d_ff: int) -> dict:
     """{(part, leaf[, leaf]): shape} of one layer of a block stack."""
     d = cfg.d_model
+    if cfg.family == "ssm":
+        return dict(_leaves(_rwkv_shapes(cfg)))
+    if cfg.family == "hybrid":
+        return dict(_leaves({"ln": {"scale": (d,)},
+                             "ssm": _mamba_shapes(cfg)}))
     tree = {"ln1": {"scale": (d,)}, "attn": _attn_shapes(cfg),
             "ln2": {"scale": (d,)}}
     if moe:
@@ -113,6 +155,10 @@ def _nest(flat: dict) -> dict:
     return out
 
 
+def _leaf_dtype(path: tuple, dt: torch.dtype) -> torch.dtype:
+    return torch.float32 if path[-2:] in F32_LEAVES else dt
+
+
 def _stack_layers(stack, shapes: dict, n: int, dt, where: str, dev) -> list:
     """One nested dict per layer of a reference block stack (leaves
     [n, ...]), each tensor checked and its own copy, not a view."""
@@ -121,7 +167,8 @@ def _stack_layers(stack, shapes: dict, n: int, dt, where: str, dev) -> list:
         raise ValueError(f"{where}: leaves {sorted(got)} do not match "
                          f"{sorted(shapes)}")
     leaves = dict(_leaves(stack))
-    stacked = {path: _model_tensor(leaves[path], (n, *shape), dt,
+    stacked = {path: _model_tensor(leaves[path], (n, *shape),
+                                   _leaf_dtype(path, dt),
                                    ".".join((where,) + path), dev)
                for path, shape in shapes.items()}
     return [_nest({path: t[i].clone() for path, t in stacked.items()})
@@ -132,10 +179,12 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig,
                             device=None) -> dict:
     """The params of ``repro_torch.models.model.Model(cfg, params)`` from
     the reference's param pytree (numpy leaves) of a dense or MoE model
-    with GQA or MLA attention.  The stacked ``[n_layers, ...]`` block
+    with GQA or MLA attention, an RWKV-6 model (``blocks`` of ``{ln1, att,
+    ln2, ffn}``) or a hybrid one (``blocks`` of ``{ln, ssm}`` and the
+    top-level ``shared_attn``).  The stacked ``[n_layers, ...]`` block
     arrays are split into one dict per layer, the ``dense_blocks`` of a
     MoE model with leading dense layers first; every tensor is checked for
-    shape and dtype (``cfg.param_dtype``)."""
+    shape and dtype (``cfg.param_dtype``, f32 for ``F32_LEAVES``)."""
     from repro_torch.models.model import check_supported, padded_vocab
     check_supported(cfg)
     dev = resolve_device(device)
@@ -144,6 +193,9 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig,
     expect = {("embed", "table"): (vocab, d), ("final_norm", "scale"): (d,)}
     if not cfg.tie_embeddings:
         expect[("lm_head", "w")] = (d, vocab)
+    if cfg.family == "hybrid":
+        expect.update({("shared_attn",) + path: shape for path, shape
+                       in _leaves(_shared_attn_shapes(cfg))})
     stacks = {"blocks": (cfg.num_layers, _block_shapes(
         cfg, moe=cfg.moe is not None, d_ff=cfg.d_ff))}
     if cfg.moe is not None and cfg.moe.first_dense_layers:
@@ -151,13 +203,19 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig,
         stacks = {"dense_blocks": (nd, _block_shapes(
             cfg, moe=False, d_ff=cfg.moe.first_dense_d_ff or cfg.d_ff)),
                   "blocks": (cfg.num_layers - nd, stacks["blocks"][1])}
-    if set(tree) != {part for part, _ in expect} | set(stacks):
+    parts = {path[0] for path in expect}
+    if set(tree) != parts | set(stacks):
         raise ValueError(f"param tree keys {sorted(tree)} do not match "
                          f"{cfg.name}")
-    params: dict = {}
-    for (part, leaf), shape in expect.items():
-        params.setdefault(part, {})[leaf] = _model_tensor(
-            tree[part][leaf], shape, dt, f"{part}.{leaf}", dev)
+    leaves = {(part,) + path: leaf for part in parts
+              for path, leaf in _leaves(tree[part])}
+    if set(leaves) != set(expect):
+        raise ValueError(f"leaves {sorted(leaves)} do not match "
+                         f"{sorted(expect)}")
+    params = _nest({path: _model_tensor(leaves[path], shape,
+                                        _leaf_dtype(path, dt),
+                                        ".".join(path), dev)
+                    for path, shape in expect.items()})
     params["blocks"] = [
         layer for name, (n, shapes) in stacks.items()
         for layer in _stack_layers(tree[name], shapes, n, dt, name, dev)]

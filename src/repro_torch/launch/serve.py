@@ -1,18 +1,20 @@
 """Serving launcher: batched prefill + greedy decode of any ported arch —
-the dense and MoE families with GQA or MLA attention (mirrors
-``repro/launch/serve.py``).
+the dense and MoE families with GQA or MLA attention, RWKV-6 and the
+Mamba2 hybrid (mirrors ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
         --batch 4 --prompt-len 4096 --new-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
-        --reduced --device cpu      # also deepseek-v2-lite-16b, minicpm3-4b
+        --reduced --device cpu      # also deepseek-v2-lite-16b, minicpm3-4b,
+                                    # zamba2-1.2b, rwkv6-3b
 
 Weights are random, drawn from ``--seed``, as the reference's launcher's
 are.  Runs on ``cuda`` unless ``--device cpu`` is given; GQA decode
-attention goes through the K8 kernel there, MLA decode attends in its
-latent space in plain torch (the reference has no kernel for it).  Prints
-the prefill time and the decode rate.  The reference's ``--mesh`` (several
+attention (zamba2's shared block too) goes through the K8 kernel there,
+MLA decode attends in its latent space, and the Mamba2 and RWKV-6
+recurrences run, in plain torch (the reference has no kernel for them).
+Prints the prefill time and the decode rate.  The reference's ``--mesh`` (several
 cards) is not ported: ROADMAP queue 1, item 20.
 """
 from __future__ import annotations

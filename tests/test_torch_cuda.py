@@ -300,6 +300,7 @@ def _swa_tol(want):
 @pytest.mark.parametrize("B,H,KV,C,Dh", [
     (4, 32, 32, 2047, 96),    # phi3's serving shape: 4 splits
     (4, 32, 8, 4096, 128),    # mixtral's serving shape: Dh 128, G 4
+    (2, 8, 8, 1064, 64),      # zamba2's shared block: Dh 64, G 1
     (2, 8, 4, 1000, 64),      # many short splits
     (4, 9, 3, 1064, 64),      # smollm's GQA layout
     (1, 8, 1, 130, 100)])     # the element-wise copies
@@ -413,6 +414,79 @@ def test_reduced_moe_and_mla_on_cuda_match_the_cpu(cuda, arch):
         torch.testing.assert_close(c_card[name].cpu(), c_cpu[name], **tol)
     gqa = cfg.attention == "gqa"
     assert K.LAUNCHES["swa_decode"] == (4 * cfg.num_layers if gqa else 0)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-3b"])
+def test_reduced_ssm_and_hybrid_on_cuda_match_the_cpu(cuda, arch):
+    """One init on the CPU and its copy on the card: forward logits,
+    prefill with every cache entry and four decode steps within f32's
+    1e-4; zamba2's shared block runs K8 (G = 1) once an application and
+    step, against its plain version on the CPU; rwkv6 never runs it."""
+    import copy
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(arch).reduced()
+    on_cpu = Model.init(cfg, rng(1, "cpu"))
+    on_card = copy.deepcopy(on_cpu).to("cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 100),
+                         generator=torch.Generator().manual_seed(2))
+    tol = dict(atol=1e-4, rtol=1e-4)
+    with torch.no_grad():
+        want = on_cpu.forward(toks)
+        got = on_card.forward(toks.cuda())
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    want, c_cpu = on_cpu.prefill(toks[:, :96])
+    got, c_card = on_card.prefill(toks[:, :96].cuda())
+    torch.testing.assert_close(got.cpu(), want, **tol)
+    for name in c_cpu:
+        torch.testing.assert_close(c_card[name].cpu(), c_cpu[name], **tol)
+    K.reset_launches()
+    for t in range(4):
+        want, c_cpu = on_cpu.decode_step(toks[:, 96 + t], c_cpu)
+        got, c_card = on_card.decode_step(toks[:, 96 + t].cuda(), c_card)
+        torch.testing.assert_close(got.cpu(), want, **tol)
+    for name in c_cpu:
+        torch.testing.assert_close(c_card[name].cpu(), c_cpu[name], **tol)
+    n_attn = (cfg.num_layers // cfg.hybrid_attn_every
+              if cfg.family == "hybrid" else 0)
+    assert K.LAUNCHES["swa_decode"] == 4 * n_attn
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-3b"])
+def test_ssm_and_hybrid_decode_step_is_capturable(cuda, arch):
+    """One decode step captured in a CUDA graph (it would raise on a host
+    sync) and replayed once: logits and every cache entry bitwise the
+    eager step's from the same cache."""
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model
+    cfg = get_config(arch).reduced()
+    model = Model.init(cfg, rng(1, "cuda"))
+    toks = torch.randint(0, cfg.vocab_size, (2, 41), generator=cuda,
+                         device="cuda")
+    _, cache = model.prefill(toks[:, :40])
+
+    def copy_of(c):
+        return {name: t.clone() for name, t in c.items()}
+
+    eager, graphed, warm = copy_of(cache), copy_of(cache), copy_of(cache)
+    tok = toks[:, 40].clone()
+    want, eager = model.decode_step(tok, eager)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        model.decode_step(tok, warm)                    # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, graphed = model.decode_step(tok, graphed)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert set(graphed) == set(eager)
+    for name in eager:
+        assert torch.equal(graphed[name], eager[name]), name
 
 
 def test_moe_decode_layer_is_capturable(cuda):

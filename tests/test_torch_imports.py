@@ -133,6 +133,16 @@ def test_import_check_covers_the_moe_mla_slice():
     assert slice_ <= set(_port_modules())
 
 
+def test_import_check_covers_the_ssm_rwkv_slice():
+    slice_ = {"repro_torch.models.ssm",
+              "repro_torch.models.rwkv",
+              "repro_torch.configs.zamba2_1_2b",
+              "repro_torch.configs.rwkv6_3b"}
+    assert slice_ <= set(_port_modules())
+    walked = set(_port_files())
+    assert {PORT / "models" / "ssm.py", PORT / "models" / "rwkv.py"} <= walked
+
+
 def test_fleet_demo_without_card_raises(monkeypatch):
     from repro_torch.launch import fleet_demo
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

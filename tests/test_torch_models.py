@@ -90,9 +90,9 @@ def test_registry_refuses_what_is_not_ported():
     with pytest.raises(KeyError):
         t_registry.get_config("gpt-5")
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, item 19c"):
+                       match="ROADMAP queue 1, item 19d"):
         Model.init(_to_port_config(
-            ref_registry.get_config("zamba2-1.2b").reduced()),
+            ref_registry.get_config("llava-next-mistral-7b").reduced()),
             torch.Generator())
 
 

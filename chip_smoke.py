@@ -224,10 +224,33 @@ Phases, each printing JSON lines:
              ticks) and the demo's problem at dim 2048 (K1's wide
              layout).  Last one worker alone on the card: host ms of a
              tick's fold and of its checkpoint.
-13. swa    — K8 swa_decode against its plain version at the serving shapes
+13. train  — the federated LM (repro_torch.launch.federated_lm, the port
+             of examples/federated_lm.py) at smollm-135m's full width and
+             depth in f32: D = 134,515,008, P = 4 servers on a ring, L = 2
+             clients a round, 2 sequences of 64 tokens a client, hybrid at
+             sigma 0.01, mu 0.5, B 5, the fold through K1 + K2 and the
+             combine through K3.  From one state and one set of client
+             gradients: a none round, kernels on against off (params atol
+             1e-5); a hybrid kernel round launching K1-K3 once each and
+             rerun bitwise; the hybrid round's centroid, kernels on and
+             off, against the none round's within centroid_atol (the
+             masks and the eq.-24 noise cancel in exact arithmetic), the
+             servers' params away from none's, and iid_dp's centroid
+             away from it by over 100 times that limit.  The round's
+             split: the gradients (8 forward and backward passes), K1 +
+             K2 and K3 (CUDA events), and one whole round under the
+             profiler (busy, idle share, device ops).  Then
+             federated_lm.run as a user calls it, 40 rounds, K1-K3
+             counted from 0 just before and launched once a round, the
+             centroid eval loss and eps(i) every 10 rounds, finite and
+             falling.  Last K1-K3 at (4, 2, 134,515,008) against their
+             plain versions and library calls, with their bounds.
+14. swa    — K8 swa_decode against its plain version at the serving shapes
              (B, H, KV, C, Dh) = (4, 32, 32, 2047, 96) bf16,
-             (4, 32, 32, 1064, 96) bf16, mixtral's (4, 32, 8, 4096, 128)
-             and (4, 32, 8, 1064, 128) bf16 (Dh 128, G 4),
+             (4, 32, 32, 1064, 96) bf16, mixtral's and llava's (4, 32, 8,
+             4096, 128) and (4, 32, 8, 1064, 128) bf16 (Dh 128, G 4),
+             zamba2's (4, 32, 32, 4160, 64) and (4, 32, 32, 1064, 64),
+             whisper's (4, 6, 6, 480, 64) and (4, 6, 6, 192, 64) bf16,
              (4, 9, 3, 1064, 64) bf16 and f32,
              (2, 8, 4, 1000, 64) f32 and (32, 32, 32, 2047, 96) bf16 (805 MB
              of K/V), each with its launch plan (tile, splits, blocks) and
@@ -239,7 +262,7 @@ Phases, each printing JSON lines:
              replayed at C; and a stall probe at the phi3 shapes and
              mixtral's 4 x 4096 (the kernel beside its loads-only build,
              built here).
-14. serve  — four archs at full width, bf16, random weights from seed 0,
+15. serve  — eight archs at full width, bf16, random weights from seed 0,
              each freed before the next, through
              repro_torch.launch.serve.generate: phi3-mini-3.8b (32 layers,
              d 3072), request A, 4 x 4096-token prompts + 32 greedy tokens
@@ -249,7 +272,14 @@ Phases, each printing JSON lines:
              wrapped) and B; deepseek-v2-lite-16b (27 layers, MLA, a dense
              first layer, 2 shared + 64 routed experts top-6), 4 x 4096 +
              32; minicpm3-4b (62 layers, MLA with a compressed query), 4 x
-             1000 + 32.  Gates finite logits; K8 launches a layer and step
+             1000 + 32; zamba2-1.2b and rwkv6-3b at full depth, A and B;
+             llava-next-mistral-7b (32 layers, the Mistral-7B backbone,
+             SWA 4096), A and B with 2880 image embeddings ahead of each
+             prompt (A: 6976 tokens into a ring of 4096, wrapped);
+             whisper-tiny (4 + 4 layers) with 1500 encoder frames (the
+             stub inputs 0.1 N(0, 1), as the serve entry draws them)
+             within its 448-token decoder context: A, 4 x 416 + 32, fills
+             it; B is 4 x 128 + 32.  Gates finite logits; K8 launches a layer and step
              for the GQA archs and none for MLA; K8 against its plain
              version on the live q, cache and nvalid of the first and last
              layers at decode steps 0 and 31; the first MoE layer of step
@@ -262,7 +292,8 @@ Phases, each printing JSON lines:
              bytes, the prefill's dropped-entry share, peak memory, and a
              torch.profiler view of decode steps (device busy and idle
              share, K8's share; no scaled_dot_product_attention, and
-             softmax only the router's and MLA's, one a layer and step).
+             softmax only the router's, MLA's and whisper's
+             cross-attention's, one a layer and step).
              A profiler trace whose launch count is off (K8 a layer and
              step here, one op a call of K1 and K2 above) is taken again,
              up to three traces: the profiler has been seen to lose one
@@ -329,6 +360,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -350,6 +382,7 @@ ITERS = 500
 # kernels on vs off after 500 rounds: the two client levels draw different
 # masks (hash vs Gaussian) that cancel only to f32 rounding, each round
 PARAMS_ATOL = 1e-4
+PARAMS_ATOL_TRAIN = 1e-5   # the LM round, kernels on against off (none)
 MSD_RTOL, MSD_ATOL = 1e-3, 1e-6
 # which kernels each mechanism's rounds must launch with use_kernels on:
 # iid_dp's per-edge combine noise keeps the einsum, and scheduled's traced
@@ -407,6 +440,7 @@ DROPOUT_PLANT_SHAPES = [MAIN_SHAPE, (10, 48, 4096)]
 SWA_SERVE_SHAPE = (4, 32, 32, 2047, 96)
 SWA_MIXTRAL_SHAPE = (4, 32, 8, 4096, 128)    # Dh 128, G 4, ring of 4096
 SWA_ZAMBA2_SHAPE = (4, 32, 32, 4160, 64)     # Dh 64, G 1, S + 64, no ring
+SWA_WHISPER_SHAPE = (4, 6, 6, 480, 64)       # whisper's decoder, request A
 SWA_PROBE_SHAPES = [(SWA_SERVE_SHAPE, "bfloat16"),
                     ((32, 32, 32, 2047, 96), "bfloat16"),
                     (SWA_MIXTRAL_SHAPE, "bfloat16"),
@@ -416,6 +450,8 @@ SWA_SHAPES = [(SWA_SERVE_SHAPE, "bfloat16"), ((4, 32, 32, 1064, 96), "bfloat16")
               ((4, 32, 8, 1064, 128), "bfloat16"),
               (SWA_ZAMBA2_SHAPE, "bfloat16"),
               ((4, 32, 32, 1064, 64), "bfloat16"),
+              (SWA_WHISPER_SHAPE, "bfloat16"),
+              ((4, 6, 6, 192, 64), "bfloat16"),
               ((4, 9, 3, 1064, 64), "bfloat16"), ((4, 9, 3, 1064, 64), "float32"),
               ((2, 8, 4, 1000, 64), "float32"),
               ((32, 32, 32, 2047, 96), "bfloat16")]
@@ -427,6 +463,10 @@ SERVE_MODELS = (
     ("minicpm3-4b", (("B", 4, 1000),)),
     ("zamba2-1.2b", (("A", 4, 4096), ("B", 4, 1000))),
     ("rwkv6-3b", (("A", 4, 4096), ("B", 4, 1000))),
+    ("llava-next-mistral-7b", (("A", 4, 4096), ("B", 4, 1000))),
+    # whisper's decoder context is 448 positions (arXiv:2212.04356): A
+    # fills it, B is a short transcript
+    ("whisper-tiny", (("A", 4, 416), ("B", 4, 128))),
 )
 # the leaves the reference keeps in f32 in a bf16 model, (part, leaf):
 # Mamba2's A_log, RWKV-6's w0 and u; every other parameter is bf16
@@ -439,7 +479,8 @@ SERVE_DEPTH_CUTS = {
 # the step's bytes reckoned by hand (every expert read: capacity dispatch)
 SERVE_RECKONED_STEP_GB = {"mixtral-8x7b": 46.7, "deepseek-v2-lite-16b": 31.0,
                           "minicpm3-4b": 8.15, "zamba2-1.2b": 3.7,
-                          "rwkv6-3b": 6.0}
+                          "rwkv6-3b": 6.0, "llava-next-mistral-7b": 16.4,
+                          "whisper-tiny": 0.14}
 SERVE_NEW_TOKENS = 32
 SERVE_PROFILE_STEPS = 3
 TRACE_TRIES = 3       # traces of a launch count before it fails
@@ -450,6 +491,7 @@ TRACE_TRIES = 3       # traces of a launch count before it fails
 # at each edge of a window, the device idle
 TRACE_PAD_S = 0.05
 TRACE_MARKERS = 3       # marker kernels at each end of a traced window
+TRACE_LEAD_PAD = 256    # marker kernels ahead of the decode profile's steps
 TRACE_LOST_TRIES = 8    # traces taken while the profiler breaks the fence
 TRACE_OFFSETS: list = []   # each trace's offset, µs (None: not measured)
 # over the run: traces, fenced ones taken again, unfenced ones kept broken
@@ -777,8 +819,13 @@ def phase_kernels(torch):
     return errs, timings
 
 
-def time_shape(torch, P, L, D, gen):
-    """f32 kernel, plain and library times at one shape, with the bounds."""
+def time_shape(torch, P, L, D, gen, profile=True):
+    """f32 kernel, plain and library times at one shape, with the bounds,
+    each kernel's output held against its plain version's (``max_abs_err``;
+    K1 at rtol 1e-5, K2 and K3 at atol 1e-5); with ``profile``, K1's, K2's
+    and K3's device-only times from the profiler too (at the federated
+    LM's width its one-op traces lost their leading markers in 8 of 8
+    takes: the train phase times without it)."""
     from repro_torch.kernels import round_fold as rf
     from repro_torch.kernels import graph_combine as gc
     from repro_torch.launch.kernel_bench import time_ms
@@ -786,7 +833,10 @@ def time_shape(torch, P, L, D, gen):
     f32 = torch.float32
     w, g, noise, ss, fw, _, seeds = fold_inputs(torch, P, L, D, f32, False,
                                                 gen)
-    nw = torch.full((P, L), 1.0 / L, device="cuda")     # all alive
+    # every client alive, at weights that differ: at equal weights each
+    # pair's mask terms cancel and mask mode's hash path goes unchecked
+    nw = torch.rand((P, L), generator=gen, device="cuda") + 0.1
+    nw = nw / nw.sum(dim=1, keepdim=True)
     out = {}
     # K1: reads g once, writes [P, L]; against the library call in turns
     # (both host-bound at the main path's shape)
@@ -794,9 +844,12 @@ def time_shape(torch, P, L, D, gen):
     ms, lib_ms = paired_ms(torch, lambda: rf.fold_norms(g),
                            lambda: torch.linalg.vector_norm(g, dim=-1) ** 2)
     out["fold_norms"] = {
-        "ms": ms, **one_op(torch, lambda: rf.fold_norms(g), "norms",
-                           f"fold_norms {P, L, D}"),
+        "ms": ms, **(one_op(torch, lambda: rf.fold_norms(g), "norms",
+                            f"fold_norms {P, L, D}") if profile else {}),
         "plain_ms": time_ms(lambda: rf.fold_norms_plain(g)),
+        "max_abs_err": check_close(torch, f"fold_norms {P, L, D} timed",
+                                   rf.fold_norms(g), rf.fold_norms_plain(g),
+                                   f32, norms=True),
         "library_ms": lib_ms, "bytes": bytes_k1, "flops": 2 * P * L * D}
     # K2 per mode: reads w, g (+ noise), weights; writes psi
     base = P * D * 4 + P * L * D * 4 + 3 * P * L * 4 + P * D * 4
@@ -817,10 +870,13 @@ def time_shape(torch, P, L, D, gen):
         call = (lambda: rf.fold_apply(w, g, ss, fw, nw, **kw))
         out[f"fold_apply[{mode}]"] = {
             "ms": time_ms(call),
-            **one_op(torch, call, "fold_apply",
-                     f"fold_apply {mode} {P, L, D}"),
+            **(one_op(torch, call, "fold_apply",
+                      f"fold_apply {mode} {P, L, D}") if profile else {}),
             "plain_ms": time_ms(lambda: rf.fold_apply_plain(
                 w, g, ss, fw, nw, **kw), budget_s=0.5, max_reps=50),
+            "max_abs_err": check_close(
+                torch, f"fold_apply {mode} {P, L, D} timed", call(),
+                rf.fold_apply_plain(w, g, ss, fw, nw, **kw), f32),
             "library_ms": None, "bytes": nbytes, "flops": flops,
             "int_ops": int_ops}
     del noise, g, w
@@ -841,11 +897,15 @@ def time_shape(torch, P, L, D, gen):
             "ms": ms,
             # the kernel alone on the device, from the profiler: what of
             # "ms" is not host time
-            "device_ms": profile_calls(
+            **({"device_ms": profile_calls(
                 torch, lambda: gc.graph_combine(A, psi, g_), 50,
-                "combine")["device_ms"],
+                "combine")["device_ms"]} if profile else {}),
             "plain_ms": time_ms(lambda: gc.graph_combine_plain(
                 A, psi, g_)),
+            "max_abs_err": check_close(
+                torch, f"graph_combine {variant} {P, D} timed",
+                gc.graph_combine(A, psi, g_),
+                gc.graph_combine_plain(A, psi, g_), f32),
             "library_ms": lib_ms, "bytes": nbytes,
             "flops": 2 * P * P * D + (2 * P * D if g_ is not None else 0)}
     for rec in out.values():
@@ -3237,6 +3297,214 @@ def phase_fleet(torch) -> dict:
 
 
 
+# ------------------------------------------------------------------ train
+
+
+TRAIN_ARCH = "smollm-135m"
+TRAIN_D = 134_515_008           # embed 49152 x 576 + 30 x 3,540,096 + 576
+TRAIN_P, TRAIN_L = 4, 2         # servers on a ring, clients a round
+TRAIN_SEQ = 64
+TRAIN_ROUNDS = 40
+TRAIN_LOG_EVERY = 10
+TRAIN_PRIVACY, TRAIN_SIGMA = "hybrid", 0.01     # the example's defaults
+TRAIN_SEED = 7                  # the gate rounds' draws
+
+
+def train_config():
+    """smollm-135m at full width and depth in f32, the dtype the
+    reference's federated LM trains in (``ModelConfig.reduced()`` sets it;
+    only the widths differ here)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(TRAIN_ARCH), param_dtype="float32")
+
+
+def centroid_atol(w_max: float) -> float:
+    """The hybrid round's centroid against the none round's.  The masks
+    cancel in each server's fold and the eq.-24 noise in the centroid (the
+    ring's A is doubly stochastic) exactly in real arithmetic; in f32 each
+    of the at most P + L additions where a mask or noise term meets a
+    parameter rounds by at most 2^-24 of a magnitude below 2 max|w| (the
+    masks and noise are sigma-sized, the norm scales 1), and the fold's
+    and combine's sums are taken in another order with them than without:
+    a factor 16 over that bound."""
+    return 16 * (TRAIN_P + TRAIN_L) * 2.0 ** -24 * 2 * max(w_max, 1.0)
+
+
+def phase_train(torch) -> dict:
+    """The federated LM at smollm-135m's full width through K1-K3 (module
+    docstring, phase 13).  Returns the K1-K3 launches of its run, counted
+    from 0 just before it."""
+    from repro_torch import kernels as K
+    from repro_torch.core import gfl
+    from repro_torch.draws import Draws
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import federated_lm as flm
+    from repro_torch.launch.kernel_bench import time_ms
+
+    t_phase = time.perf_counter()
+    cfg = train_config()
+    require(cfg.num_layers == 30 and cfg.d_model == 576
+            and (cfg.num_heads, cfg.num_kv_heads) == (9, 3)
+            and cfg.d_ff == 1536 and cfg.vocab_size == 49152
+            and cfg.tie_embeddings, f"{cfg.name} is not at full width")
+
+    def gcfg(privacy, kernels):
+        return flm.gfl_config(TRAIN_P, TRAIN_L, privacy, TRAIN_SIGMA,
+                              kernels)
+
+    tr = flm.Trainer.build(cfg, gcfg(TRAIN_PRIVACY, True), seq=TRAIN_SEQ,
+                           device="cuda")
+    D = tr.view.size
+    require(D == TRAIN_D and tr.flat0.dtype == torch.float32,
+            f"train: D = {D} ({tr.flat0.dtype}), expected {TRAIN_D} f32")
+    state0, batch0 = tr.init_state(), tr.batch(0)
+    # the clients' gradients, once: every gate round reads these
+    grads_s = []
+    for _ in range(2):              # the first call warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = tr.grad_fn(state0.params, batch0)
+        torch.cuda.synchronize()
+        grads_s.append(time.perf_counter() - t0)
+        if len(grads_s) == 1:
+            grads = again
+    grads_rerun_max_diff = float((again - grads).abs().max())
+    del again
+    require(bool(torch.isfinite(grads).all()), "train: non-finite gradients")
+
+    def fixed(params, batch):
+        return grads
+
+    def round_of(privacy, kernels, seed=TRAIN_SEED):
+        step = tr.step_fn(gcfg(privacy, kernels), fixed)
+        return step(state0, batch0, Draws(seed, "cuda")).params
+
+    none_on, none_off = round_of("none", True), round_of("none", False)
+    err_none = max_err(torch, none_on, none_off)
+    require(err_none <= PARAMS_ATOL_TRAIN, f"train: none round, kernels on "
+            f"against off, max abs err {err_none} > {PARAMS_ATOL_TRAIN}")
+    K.reset_launches()
+    hyb_on = round_of(TRAIN_PRIVACY, True)
+    counts = {k: K.LAUNCHES[k] for k in ROUND_KERNELS}
+    require(counts == dict.fromkeys(ROUND_KERNELS, 1),
+            f"train: a kernel round launched {counts}, expected K1-K3 once "
+            "each")
+    require(torch.equal(hyb_on, round_of(TRAIN_PRIVACY, True)),
+            "train: a rerun of the hybrid kernel round differs")
+    hyb_off = round_of(TRAIN_PRIVACY, False)
+    iid_on = round_of("iid_dp", True)
+    tol = centroid_atol(float(state0.params.abs().max()))
+    c = {name: gfl.centroid(w) for name, w in (
+        ("none_on", none_on), ("none_off", none_off), ("hybrid_on", hyb_on),
+        ("hybrid_off", hyb_off), ("iid_dp_on", iid_on))}
+    cerr = {"hybrid_on-none_on": max_err(torch, c["hybrid_on"],
+                                         c["none_on"]),
+            "hybrid_off-none_off": max_err(torch, c["hybrid_off"],
+                                           c["none_off"]),
+            "hybrid_on-hybrid_off": max_err(torch, c["hybrid_on"],
+                                            c["hybrid_off"]),
+            "iid_dp_on-none_on": max_err(torch, c["iid_dp_on"],
+                                         c["none_on"])}
+    for pair in ("hybrid_on-none_on", "hybrid_off-none_off",
+                 "hybrid_on-hybrid_off"):
+        require(cerr[pair] <= tol, f"train: centroid {pair} max abs err "
+                f"{cerr[pair]} > {tol}")
+    require(cerr["iid_dp_on-none_on"] > 100 * tol,
+            f"train: iid_dp's centroid within {cerr['iid_dp_on-none_on']} "
+            "of none's: its noise does not reach the centroid")
+    # the masks and noise are there in each server's params
+    server_err = max_err(torch, hyb_on, none_on)
+    require(server_err > 100 * tol, f"train: hybrid's servers within "
+            f"{server_err} of none's: no masks or noise applied")
+    emit({"phase": "train", "arch": cfg.name, "D": D,
+          "P": TRAIN_P, "L": TRAIN_L, "per_client": tr.per_client,
+          "seq": TRAIN_SEQ, "param_dtype": cfg.param_dtype,
+          "grads_s": grads_s, "grads_rerun_max_abs_diff":
+          grads_rerun_max_diff, "none_on_off_max_abs_err": err_none,
+          "round_launches": counts, "rerun_bitwise": True,
+          "centroid_atol": tol, "centroid_max_abs_err": cerr,
+          "hybrid_server_max_abs_diff_from_none": server_err})
+    del none_on, none_off, hyb_off, iid_on, c
+    # the round's split: the gradients, K1 + K2 (the fold), K3 (combine)
+    hyb = gcfg(TRAIN_PRIVACY, True)
+    seeds = Draws(TRAIN_SEED, "cuda").mask_seeds(0, TRAIN_P)
+    A = torch.as_tensor(tr.A, dtype=torch.float32, device="cuda")
+
+    def fold():
+        return kops.round_fold(state0.params, grads, mu=hyb.mu,
+                               bound=hyb.grad_bound, mode="mask",
+                               sigma=TRAIN_SIGMA, seeds=seeds)
+    psi = fold()[0]
+    noise = TRAIN_SIGMA * torch.randn_like(psi)
+    split = {"grads_ms": grads_s[-1] * 1e3,
+             "fold_k1_k2_ms": time_ms(fold, budget_s=0.5),
+             "combine_k3_ms": time_ms(lambda: kops.graph_combine(A, psi,
+                                                                 noise),
+                                      budget_s=0.5)}
+    # one whole round (gradients included) under the profiler: busy, idle
+    step = tr.step_fn()
+
+    def one_round():
+        t0 = time.perf_counter()
+        step(state0, batch0, Draws(TRAIN_SEED, "cuda"))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    one_round()
+    t = traced(torch, one_round, "train: one round", fenced=False)
+    busy = sum(e.time_range.elapsed_us() for e in t["device"]) / 1e3
+    split.update(round_ms=t["value"] * 1e3, device_busy_ms=busy,
+                 device_idle_share=1.0 - busy / (t["value"] * 1e3),
+                 device_ops=len(t["device"]))
+    emit({"phase": "train", "round_split": split})
+    del psi, noise, grads, tr, state0, batch0
+    torch.cuda.empty_cache()
+    # the main path: the entry a user calls, K1-K3 counted from 0
+    lines = []
+    K.reset_launches()
+    t0 = time.perf_counter()
+    out = flm.run(cfg, steps=TRAIN_ROUNDS, servers=TRAIN_P,
+                  clients=TRAIN_L, seq=TRAIN_SEQ, privacy=TRAIN_PRIVACY,
+                  sigma=TRAIN_SIGMA, use_kernels=True, device="cuda",
+                  log_every=TRAIN_LOG_EVERY, log=lines.append)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: K.LAUNCHES[k] for k in ROUND_KERNELS}
+    require(launches == dict.fromkeys(ROUND_KERNELS, TRAIN_ROUNDS),
+            f"train: {TRAIN_ROUNDS} rounds launched {launches}, expected "
+            "K1-K3 once a round")
+    hist = out["history"]
+    loss = [h["loss"] for h in hist]
+    require(all(map(math.isfinite, loss)) and loss[-1] < loss[0],
+            f"train: centroid eval loss {loss} is not finite or did not "
+            "fall")
+    require(bool(torch.isfinite(out["state"].params).all()),
+            "train: non-finite params after the run")
+    for line in lines:
+        emit({"phase": "train", "log": line})
+    emit({"phase": "train", "rounds": TRAIN_ROUNDS, "history": hist,
+          "launches": launches, "run_s": run_s,
+          "s_per_round": run_s / TRAIN_ROUNDS,
+          "spectral_gap": out["spectral_gap"]})
+    del out
+    torch.cuda.empty_cache()
+    # K1-K3 at the federated LM's shape against their plain versions and
+    # library calls, with their bounds
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    rows = time_shape(torch, TRAIN_P, TRAIN_L, TRAIN_D, gen, profile=False)
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "kernel_rows": [TRAIN_P, TRAIN_L, TRAIN_D],
+          **{name: {k: rec[k] for k in ("ms", "device_ms", "plain_ms",
+                                        "library_ms", "bound_ms",
+                                        "bound_by", "max_abs_err")
+                    if k in rec}
+             for name, rec in rows.items()}})
+    K.reset_launches()
+    emit({"phase": "train", "seconds": time.perf_counter() - t_phase})
+    return {"launches": launches}
+
+
 # ------------------------------------------------------------ K8 (swa)
 
 
@@ -3551,15 +3819,24 @@ def decode_profile(torch, model, toks, cache, steps, tries=TRACE_TRIES):
     MoE layer and step) and MLA's (one a layer and step) alone: GQA
     attention goes through K8, and Mamba2 and RWKV-6 run no softmax.  The
     trace is ``traced``'s, unfenced (the K8 count is the gate); its markers
-    are not counted."""
+    are not counted.  Whisper's cross-attention is plain f32 (the
+    reference's), one softmax a layer and step."""
     cfg = model.cfg
     n_moe = sum("moe" in bp for bp in model.blocks)
     want = steps * attn_per_step(cfg)
+    # the router's, MLA's and whisper's cross-attention's: one a layer
     want_softmax = steps * (n_moe + (cfg.num_layers
-                                     if cfg.attention == "mla" else 0))
+                                     if cfg.attention == "mla"
+                                     or cfg.family == "audio" else 0))
     state = {"toks": toks, "cache": cache}
 
     def block():
+        # marker kernels ahead of the steps, not counted: after earlier
+        # profiling a trace has lost about 30 leading records (whisper's
+        # first K8 of a step among them), and these are lost instead
+        for _ in range(TRACE_LEAD_PAD):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
             logits, state["cache"] = model.decode_step(state["toks"],
@@ -3638,7 +3915,9 @@ def cache_step_bytes(cfg, B, mean_live):
     and roped key, at ``mean_live`` slots, over every attention
     application; the recurrent state is read and written once a step:
     Mamba2's f32 ``h`` and its bf16 conv window of K - 1 rows, RWKV-6's
-    f32 ``wkv`` and its bf16 ``att_x`` and ``ffn_x``."""
+    f32 ``wkv`` and its bf16 ``att_x`` and ``ffn_x``; whisper's decoder
+    reads its cross K and V (f32, the encoder's Se rows) every step, a
+    part the KV part (K8's) leaves out."""
     L = cfg.num_layers
     if cfg.family == "ssm":
         H, hs = cfg.d_model // cfg.rwkv.head_size, cfg.rwkv.head_size
@@ -3648,6 +3927,8 @@ def cache_step_bytes(cfg, B, mean_live):
     else:
         row = 2 * cfg.num_kv_heads * cfg.resolved_head_dim
     kv = attn_per_step(cfg) * B * mean_live * row * 2
+    if cfg.family == "audio":
+        return kv + L * B * cfg.encoder_seq_len * row * 4, kv
     if cfg.family != "hybrid":
         return kv, kv
     s = cfg.ssm
@@ -3659,11 +3940,13 @@ def cache_step_bytes(cfg, B, mean_live):
 
 
 def serve_request(torch, model, name, B, S, gen, moe_mod, ops):
-    """One request through ``launch.serve.generate`` with its gates; the
-    record to print, and the prompt and output for the rerun."""
+    """One request through ``launch.serve.generate`` with its gates (a
+    vlm's image embeddings and whisper's frames drawn as the serve entry
+    draws them); the record to print, and the prompt, stub inputs and
+    output for the rerun."""
     from repro_torch import kernels as K
     from repro_torch.kernels.ref import swa_decode_attention_plain
-    from repro_torch.launch.serve import generate
+    from repro_torch.launch.serve import generate, stub_inputs
 
     cfg = model.cfg
     L = cfg.num_layers
@@ -3673,12 +3956,15 @@ def serve_request(torch, model, name, B, S, gen, moe_mod, ops):
             for step in (0, SERVE_NEW_TOKENS - 1)]
     prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                            device="cuda")
+    inputs = stub_inputs(cfg, B, gen)
+    # the tokens the cache holds after the prefill: a vlm's image ones too
+    S_all = S + (cfg.num_image_tokens if cfg.family == "vlm" else 0)
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     with contextlib.ExitStack() as stack:
         tap = stack.enter_context(DecodeTap(ops, n_attn, keep))
         mtap = stack.enter_context(MoETap(moe_mod, n_moe)) if n_moe else None
-        out = generate(model, prompt, SERVE_NEW_TOKENS)
+        out = generate(model, prompt, SERVE_NEW_TOKENS, **inputs)
     counts = dict(K.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     cache = out["cache"]
@@ -3691,12 +3977,14 @@ def serve_request(torch, model, name, B, S, gen, moe_mod, ops):
             f"{cfg.name} request {name}: {counts['swa_decode']} K8 "
             f"launches, expected {want_k8}")
     rec = {"phase": "serve", "arch": cfg.name, "request": name, "batch": B,
-           "prompt": S, "new_tokens": SERVE_NEW_TOKENS, "cache_slots": C,
+           "prompt": S, "prefill_tokens": S_all,
+           "stub_inputs": {k: list(v.shape) for k, v in inputs.items()},
+           "new_tokens": SERVE_NEW_TOKENS, "cache_slots": C,
            "launches": counts}
     live = {}
     if n_attn:
         nvalid = [int(n) for n in tap.nvalid]
-        require(nvalid == [min(S + 1 + t, C)
+        require(nvalid == [min(S_all + 1 + t, C)
                            for t in range(SERVE_NEW_TOKENS)],
                 f"{cfg.name} request {name}: nvalid {nvalid[:3]}...")
         require(sorted(tap.captured) == sorted(keep),
@@ -3714,11 +4002,11 @@ def serve_request(torch, model, name, B, S, gen, moe_mod, ops):
                                                 "max_abs_err": err}
         mean_live = sum(nvalid) / len(nvalid)
         rec.update(nvalid_first_last=[nvalid[0], nvalid[-1]],
-                   ring_wrapped=S > C)
+                   ring_wrapped=S_all > C)
     else:
         require(not tap.calls, f"{cfg.name}: decode reached K8, which runs "
                 "no attention of an MLA or RWKV-6 model")
-        mean_live = S + (SERVE_NEW_TOKENS + 1) / 2
+        mean_live = S_all + (SERVE_NEW_TOKENS + 1) / 2
     if mtap is not None:
         moe_counts = mtap.counts()
         params, x, got = mtap.captured
@@ -3748,7 +4036,7 @@ def serve_request(torch, model, name, B, S, gen, moe_mod, ops):
                decode_tok_per_s=B * SERVE_NEW_TOKENS / out["decode_s"],
                peak_memory_bytes=peak, mean_live_slots=mean_live,
                step_cache_bytes=step_cache, step_kv_bytes=step_kv)
-    return rec, prompt, out
+    return rec, prompt, inputs, out
 
 
 def phase_serve(torch):
@@ -3777,9 +4065,16 @@ def phase_serve(torch):
         n_params = sum(p.numel() for p in model.parameters())
         weight_bytes = sum(p.numel() * p.element_size()
                            for p in model.parameters())
-        # decode reads B rows of the table, unless it is tied (unembed)
+        # decode reads B rows of the table, unless it is tied (unembed);
+        # whisper's encoder runs in the prefill alone, and a step reads
+        # one row of its position table
         table_bytes = (0 if cfg.tie_embeddings else
                        model.embed["table"].numel() * 2)
+        if cfg.family == "audio":
+            table_bytes += sum(
+                p.numel() * p.element_size() for n, p
+                in model.named_parameters()
+                if n.startswith(("enc_blocks.", "enc_norm.", "dec_pos")))
         n_active = active_params(cfg, n_params)
         # the hybrid family's shared block is read once an application:
         # at 134 MB (zamba2) it does not stay in the 50 MB L2
@@ -3808,8 +4103,8 @@ def phase_serve(torch):
               "layers": cfg.num_layers, "d_model": cfg.d_model,
               "reduced": cut, "init_s": init_s})
         for name, B, S in requests:
-            rec, prompt, out = serve_request(torch, model, name, B, S, gen,
-                                             moe_mod, ops)
+            rec, prompt, inputs, out = serve_request(
+                torch, model, name, B, S, gen, moe_mod, ops)
             launches += rec["launches"]["swa_decode"]
             cache_b = rec["step_cache_bytes"]
             step_bytes = weight_bytes - table_bytes + reread_bytes + cache_b
@@ -3832,14 +4127,14 @@ def phase_serve(torch):
             if name == requests[-1][0]:
                 # the last request again: the same tokens and logits, bit
                 # for bit
-                again = generate(model, prompt, SERVE_NEW_TOKENS)
+                again = generate(model, prompt, SERVE_NEW_TOKENS, **inputs)
                 require(torch.equal(again["tokens"], out["tokens"])
                         and torch.equal(again["logits"], out["logits"]),
                         f"{arch} request {name}: a second generate differs")
                 emit({"phase": "serve", "arch": arch, "request": name,
                       "rerun_bitwise_equal": True})
                 del again
-            del out, prompt
+            del out, prompt, inputs
             torch.cuda.empty_cache()
         del model
         torch.cuda.empty_cache()
@@ -3903,6 +4198,7 @@ def main() -> int:
         ev = timed("events", phase_events, torch)
         timed("observe", phase_observe, torch, smi)
         fl = timed("fleet", phase_fleet, torch)
+        train = timed("train", phase_train, torch)
         swa_row = timed("swa", phase_swa, torch)
         launches["swa_decode"] = timed("serve", phase_serve, torch)
     except SmokeFailure as exc:
@@ -3914,6 +4210,8 @@ def main() -> int:
     for name, n in ev["launches"].items():     # the event phase's K1-K3
         launches[name] += n
     for name, n in fl["launches"].items():     # the fleet phase's K1-K3
+        launches[name] += n
+    for name, n in train["launches"].items():  # the federated LM's K1-K3
         launches[name] += n
     table = []
     main_t = timings[MAIN_SHAPE]

@@ -2,9 +2,10 @@
 field (names, defaults, ``resolved_head_dim``, ``subquadratic`` and
 ``reduced()`` are held equal by the tests).
 
-:class:`ModelConfig` and its sub-configs are pure data; the port runs the
-dense and MoE families with GQA or MLA attention (``repro_torch.models``),
-and the registry raises for the rest.  ``GFLConfig.async_spec`` is read by the event engine
+:class:`ModelConfig` and its sub-configs are pure data; the port runs
+every family of the reference (``repro_torch.models``), and
+:class:`TrainConfig` feeds ``repro_torch.optim.make_optimizer``.
+``GFLConfig.async_spec`` is read by the event engine
 (``repro_torch.core.events``).  :class:`GFLConfig` fields the engines do
 not run yet (``telemetry``, ``sanitize``, and the mesh knobs) are kept so a
 config round-trips, and the engines raise ``NotImplementedError`` when one
@@ -208,3 +209,18 @@ class ModelConfig:
             num_image_tokens=min(self.num_image_tokens, 16) if self.num_image_tokens else 0,
             param_dtype="float32",
         )
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "sgd"           # sgd | momentum | adam | adamw
+    learning_rate: float = 0.1
+    warmup_steps: int = 0
+    total_steps: int = 1000
+    weight_decay: float = 0.0
+    beta1: float = 0.9
+    beta2: float = 0.999
+    grad_clip: float = 0.0           # global-norm clip; 0 -> off
+    microbatch: int = 0              # 0 -> no grad accumulation
+    remat: bool = True
+    seed: int = 0

@@ -1,9 +1,10 @@
 """State carried across from the reference, through numpy.
 
 The reference's ``GFLState``, ``LogisticProblem``, model param pytrees
-(dense and MoE, GQA and MLA, RWKV-6 and the Mamba2 hybrid), importance-sampler ``ISState`` and
-Dirichlet pools with their index tables hold jax arrays; a caller passes them here as numpy arrays (``np.asarray``,
-``jax.tree.map(np.asarray, params)``) and gets the port's own types on
+(every family), importance-sampler ``ISState`` and Dirichlet pools with
+their index tables hold jax arrays; a caller passes them here as numpy
+arrays (``np.asarray``, ``jax.tree.map(np.asarray, params)``) and gets the
+port's own types on
 ``device``, so both packages compute on the same numbers.  No jax is
 imported on this side.
 """
@@ -112,9 +113,23 @@ def _shared_attn_shapes(cfg: ModelConfig) -> dict:
             "ln2": {"scale": (d,)}, "mlp": _swiglu_shapes(d, cfg.d_ff)}
 
 
+def _whisper_shapes(cfg: ModelConfig, *, cross: bool) -> dict:
+    """A whisper encoder block, or with ``cross`` a decoder block."""
+    d, ff = cfg.d_model, cfg.d_ff
+    ln = {"scale": (d,), "bias": (d,)}
+    tree = {"ln1": ln, "attn": _attn_shapes(cfg)}
+    if cross:
+        tree.update(ln_x=ln, xattn=_attn_shapes(cfg))
+    tree.update(ln2=ln, mlp={"w_in": (d, ff), "b_in": (ff,),
+                             "w_out": (ff, d), "b_out": (d,)})
+    return dict(_leaves(tree))
+
+
 def _block_shapes(cfg: ModelConfig, *, moe: bool, d_ff: int) -> dict:
     """{(part, leaf[, leaf]): shape} of one layer of a block stack."""
     d = cfg.d_model
+    if cfg.family == "audio":
+        return _whisper_shapes(cfg, cross=True)
     if cfg.family == "ssm":
         return dict(_leaves(_rwkv_shapes(cfg)))
     if cfg.family == "hybrid":
@@ -178,13 +193,15 @@ def _stack_layers(stack, shapes: dict, n: int, dt, where: str, dev) -> list:
 def model_params_from_numpy(tree: dict, cfg: ModelConfig,
                             device=None) -> dict:
     """The params of ``repro_torch.models.model.Model(cfg, params)`` from
-    the reference's param pytree (numpy leaves) of a dense or MoE model
-    with GQA or MLA attention, an RWKV-6 model (``blocks`` of ``{ln1, att,
-    ln2, ffn}``) or a hybrid one (``blocks`` of ``{ln, ssm}`` and the
-    top-level ``shared_attn``).  The stacked ``[n_layers, ...]`` block
-    arrays are split into one dict per layer, the ``dense_blocks`` of a
-    MoE model with leading dense layers first; every tensor is checked for
-    shape and dtype (``cfg.param_dtype``, f32 for ``F32_LEAVES``)."""
+    the reference's param pytree (numpy leaves) of a dense, vlm or MoE
+    model with GQA or MLA attention, an RWKV-6 model (``blocks`` of
+    ``{ln1, att, ln2, ffn}``), a hybrid one (``blocks`` of ``{ln, ssm}``
+    and the top-level ``shared_attn``) or whisper (``enc_blocks``,
+    ``enc_norm``, decoder ``blocks`` and the ``dec_pos`` table).  The
+    stacked ``[n_layers, ...]`` block arrays are split into one dict per
+    layer, the ``dense_blocks`` of a MoE model with leading dense layers
+    first; every tensor is checked for shape and dtype
+    (``cfg.param_dtype``, f32 for ``F32_LEAVES``)."""
     from repro_torch.models.model import check_supported, padded_vocab
     check_supported(cfg)
     dev = resolve_device(device)
@@ -196,6 +213,11 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig,
     if cfg.family == "hybrid":
         expect.update({("shared_attn",) + path: shape for path, shape
                        in _leaves(_shared_attn_shapes(cfg))})
+    if cfg.family == "audio":
+        from repro_torch.models.model import dec_pos_rows
+        expect[("enc_norm", "scale")] = (d,)
+        expect[("enc_norm", "bias")] = (d,)
+        expect[("dec_pos",)] = (dec_pos_rows(cfg), d)
     stacks = {"blocks": (cfg.num_layers, _block_shapes(
         cfg, moe=cfg.moe is not None, d_ff=cfg.d_ff))}
     if cfg.moe is not None and cfg.moe.first_dense_layers:
@@ -203,12 +225,17 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig,
         stacks = {"dense_blocks": (nd, _block_shapes(
             cfg, moe=False, d_ff=cfg.moe.first_dense_d_ff or cfg.d_ff)),
                   "blocks": (cfg.num_layers - nd, stacks["blocks"][1])}
+    if cfg.family == "audio":
+        stacks["enc_blocks"] = (cfg.encoder_layers,
+                                _whisper_shapes(cfg, cross=False))
     parts = {path[0] for path in expect}
     if set(tree) != parts | set(stacks):
         raise ValueError(f"param tree keys {sorted(tree)} do not match "
                          f"{cfg.name}")
     leaves = {(part,) + path: leaf for part in parts
-              for path, leaf in _leaves(tree[part])}
+              for path, leaf in (_leaves(tree[part])
+                                 if isinstance(tree[part], dict)
+                                 else [((), tree[part])])}
     if set(leaves) != set(expect):
         raise ValueError(f"leaves {sorted(leaves)} do not match "
                          f"{sorted(expect)}")
@@ -216,6 +243,10 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig,
                                         _leaf_dtype(path, dt),
                                         ".".join(path), dev)
                     for path, shape in expect.items()})
+    if cfg.family == "audio":
+        n, shapes = stacks.pop("enc_blocks")
+        params["enc_blocks"] = _stack_layers(tree["enc_blocks"], shapes, n,
+                                             dt, "enc_blocks", dev)
     params["blocks"] = [
         layer for name, (n, shapes) in stacks.items()
         for layer in _stack_layers(tree[name], shapes, n, dt, name, dev)]

@@ -1,21 +1,26 @@
-"""Serving launcher: batched prefill + greedy decode of any ported arch —
-the dense and MoE families with GQA or MLA attention, RWKV-6 and the
-Mamba2 hybrid (mirrors ``repro/launch/serve.py``).
+"""Serving launcher: batched prefill + greedy decode of any arch — the
+dense and MoE families with GQA or MLA attention, RWKV-6, the Mamba2
+hybrid, the vlm (image embeddings ahead of the prompt) and whisper
+(mirrors ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-mini-3.8b \\
         --batch 4 --prompt-len 4096 --new-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
         --reduced --device cpu      # also deepseek-v2-lite-16b, minicpm3-4b,
-                                    # zamba2-1.2b, rwkv6-3b
+                                    # zamba2-1.2b, rwkv6-3b,
+                                    # llava-next-mistral-7b, whisper-tiny
 
 Weights are random, drawn from ``--seed``, as the reference's launcher's
-are.  Runs on ``cuda`` unless ``--device cpu`` is given; GQA decode
-attention (zamba2's shared block too) goes through the K8 kernel there,
-MLA decode attends in its latent space, and the Mamba2 and RWKV-6
-recurrences run, in plain torch (the reference has no kernel for them).
-Prints the prefill time and the decode rate.  The reference's ``--mesh`` (several
-cards) is not ported: ROADMAP queue 1, item 20.
+are, and so are the stub inputs: a vlm's ``image_embeds`` [B, N_img, D]
+and whisper's ``frames`` [B, Se, D], 0.1 N(0, 1) each.  Runs on ``cuda``
+unless ``--device cpu`` is given; GQA decode attention (zamba2's shared
+block and whisper's self-attention too) goes through the K8 kernel there,
+MLA decode attends in its latent space, and whisper's cross-attention
+and the Mamba2 and RWKV-6 recurrences run in plain torch (the reference
+has no kernel for them).  Prints the prefill time and the decode rate.
+The reference's ``--mesh`` (several cards) is not ported: ROADMAP queue
+1, item 20.
 """
 from __future__ import annotations
 
@@ -34,8 +39,24 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model: Model, prompt: torch.Tensor, new_tokens: int) -> dict:
-    """Prefill ``prompt`` [B, S], then ``new_tokens`` greedy decode steps.
+def stub_inputs(cfg, batch: int, gen: torch.Generator) -> dict:
+    """The stubbed encoders' outputs a vlm or whisper request carries, as
+    keywords of ``Model.prefill``: 0.1 N(0, 1) from ``gen``, f32."""
+    if cfg.family == "vlm":
+        return {"image_embeds": 0.1 * torch.randn(
+            (batch, cfg.num_image_tokens, cfg.d_model), generator=gen,
+            device=gen.device)}
+    if cfg.family == "audio":
+        return {"frames": 0.1 * torch.randn(
+            (batch, cfg.encoder_seq_len, cfg.d_model), generator=gen,
+            device=gen.device)}
+    return {}
+
+
+def generate(model: Model, prompt: torch.Tensor, new_tokens: int,
+             **inputs) -> dict:
+    """Prefill ``prompt`` [B, S] (with a vlm's ``image_embeds`` or
+    whisper's ``frames``), then ``new_tokens`` greedy decode steps.
 
     Returns the generated tokens [B, 1 + new_tokens] (the first from the
     prefill logits), the last logits [B, V], the cache, and host-clock
@@ -44,7 +65,7 @@ def generate(model: Model, prompt: torch.Tensor, new_tokens: int) -> dict:
     dev = prompt.device
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(prompt)
+    logits, cache = model.prefill(prompt, **inputs)
     toks = [logits.argmax(-1)]
     _sync(dev)
     t1 = time.perf_counter()
@@ -77,7 +98,8 @@ def main(argv=None) -> dict:
     model = Model.init(cfg, gen)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
-    out = generate(model, prompt, args.new_tokens)
+    out = generate(model, prompt, args.new_tokens,
+                   **stub_inputs(cfg, args.batch, gen))
     n = args.batch * args.new_tokens
     print(f"prefill {args.batch}x{args.prompt_len} in "
           f"{out['prefill_s'] * 1e3:.0f} ms ({dev})")

@@ -17,7 +17,12 @@ decode attends in the latent space with ``w_uk`` folded into the query and
 ``w_uv`` into the output, in plain f32 einsums: the reference has no
 kernel for it, so neither has the port.  Its cache is not a ring: a step
 writes at ``pos``, clamped to the last slot as the reference's
-``dynamic_update_slice`` clamps.  Cross-attention waits for its slice.
+``dynamic_update_slice`` clamps.
+
+Whisper's attention has no rope (``use_rope=False``), its encoder is not
+causal, and its decoder cross-attends to the encoder output through K/V
+computed once a prefill (:func:`cross_kv`, :func:`cross_attend`, plain
+f32 as the reference computes them outside any kernel).
 """
 from __future__ import annotations
 
@@ -87,27 +92,55 @@ def _chunked_causal_attention(q, k, v, *, window: int, chunk: int):
     return torch.cat(outs, dim=1)
 
 
-def gqa_forward(params, x: torch.Tensor, positions: torch.Tensor,
+def gqa_forward(params, x: torch.Tensor, positions: torch.Tensor | None,
                 cfg: ModelConfig, *, chunk: int = 1024,
+                use_rope: bool = True, causal: bool = True,
+                kv_src: torch.Tensor | None = None,
                 return_kv: bool = False):
-    """Causal self-attention for training / prefill.  x: [B,S,D] -> [B,S,D].
+    """Training / prefill attention.  x: [B,S,D] -> [B,S,D].
 
-    ``return_kv`` also returns the roped K and the V, [B,S,KV,Dh] each,
-    which prefill writes into the cache (the reference projects them a
-    second time)."""
+    ``kv_src`` is a separate K/V source sequence (cross-attention), which
+    implies full attention over it; ``causal=False`` is full
+    self-attention (the whisper encoder).  ``return_kv`` also returns the
+    K (roped when ``use_rope``) and the V, [B,Sk,KV,Dh] each, which
+    prefill writes into the cache (the reference projects them a second
+    time)."""
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     B, S, _ = x.shape
+    src = x if kv_src is None else kv_src
     q = _split_heads(x @ params["w_q"], h, dh)
-    k = _split_heads(x @ params["w_k"], kv, dh)
-    v = _split_heads(x @ params["w_v"], kv, dh)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, torch.arange(S, device=x.device).expand(B, S),
-                   cfg.rope_theta)
+    k = _split_heads(src @ params["w_k"], kv, dh)
+    v = _split_heads(src @ params["w_v"], kv, dh)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        Sk = src.shape[1]
+        k = apply_rope(k, torch.arange(Sk, device=x.device).expand(B, Sk),
+                       cfg.rope_theta)
     q = q.reshape(B, S, kv, h // kv, dh)
-    out = _chunked_causal_attention(q, k, v, window=cfg.sliding_window,
-                                    chunk=chunk)
+    if causal and kv_src is None:
+        out = _chunked_causal_attention(q, k, v, window=cfg.sliding_window,
+                                        chunk=chunk)
+    else:
+        out = _full_attention(q, k, v).to(x.dtype)
     out = out.reshape(B, S, h * dh) @ params["w_o"]
     return (out, k, v) if return_kv else out
+
+
+def _full_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Unmasked attention in f32.  q: [B,Sq,KV,G,Dh]; k, v: [B,Sk,KV,Dh]
+    -> [B,Sq,KV,G,Dh] f32.  The scores are divided by sqrt(Dh), as the
+    reference's full-attention paths do."""
+    dh = q.shape[-1]
+    s = _gqa_scores(q, k) / _sqrt_f32(dh)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", w, v.to(torch.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _sqrt_f32(n: int) -> float:
+    """sqrt(n) as the reference's f32 gives it."""
+    return float(torch.sqrt(torch.tensor(n, dtype=torch.float32)))
 
 
 # --- KV cache -----------------------------------------------------------
@@ -143,7 +176,8 @@ def gqa_decode_slots(pos: torch.Tensor, C: int):
 
 def gqa_decode(params, x: torch.Tensor, layer_cache_k: torch.Tensor,
                layer_cache_v: torch.Tensor, pos: torch.Tensor,
-               slot: torch.Tensor, nvalid: torch.Tensor, cfg: ModelConfig):
+               slot: torch.Tensor, nvalid: torch.Tensor, cfg: ModelConfig,
+               *, use_rope: bool = True):
     """Single-token decode.  x: [B,1,D]; caches [B,C,KV,Dh], written in
     place at ``slot``; pos: tokens so far, an int32 tensor on the device;
     slot, nvalid: from ``gqa_decode_slots(pos, C)``.  Returns out [B,1,D]."""
@@ -152,9 +186,10 @@ def gqa_decode(params, x: torch.Tensor, layer_cache_k: torch.Tensor,
     q = _split_heads(x @ params["w_q"], h, dh)
     k = _split_heads(x @ params["w_k"], kv, dh)
     v = _split_heads(x @ params["w_v"], kv, dh)
-    posv = pos.reshape(1, 1).expand(B, 1)
-    q = apply_rope(q, posv, cfg.rope_theta)
-    k = apply_rope(k, posv, cfg.rope_theta)
+    if use_rope:
+        posv = pos.reshape(1, 1).expand(B, 1)
+        q = apply_rope(q, posv, cfg.rope_theta)
+        k = apply_rope(k, posv, cfg.rope_theta)
 
     layer_cache_k.index_copy_(1, slot, k)
     layer_cache_v.index_copy_(1, slot, v)
@@ -162,6 +197,31 @@ def gqa_decode(params, x: torch.Tensor, layer_cache_k: torch.Tensor,
                                    layer_cache_v, nvalid)
     out = out.reshape(B, 1, h * dh)
     return out @ params["w_o"]
+
+
+def cross_kv(params, enc_out: torch.Tensor, cfg: ModelConfig):
+    """Cross-attention K and V [B,Se,KV,Dh] from the encoder output
+    [B,Se,D], computed once a prefill in the wider of the two dtypes (an
+    f32 encoder output promotes bf16 weights, as in the reference)."""
+    kv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = torch.promote_types(enc_out.dtype, params["w_k"].dtype)
+    x = enc_out.to(dt)
+    k = _split_heads(x @ params["w_k"].to(dt), kv, dh)
+    v = _split_heads(x @ params["w_v"].to(dt), kv, dh)
+    return k, v
+
+
+def cross_attend(params, x: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention against precomputed (encoder) K/V, in plain f32
+    (the reference has no kernel for it).  x: [B,Sq,D]; k_cache, v_cache:
+    [B,Se,KV,Dh]."""
+    h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    B, Sq, _ = x.shape
+    q = _split_heads(x @ params["w_q"], h, dh).reshape(B, Sq, kv, h // kv,
+                                                      dh)
+    out = _full_attention(q, k_cache, v_cache).to(x.dtype)
+    return out.reshape(B, Sq, h * dh) @ params["w_o"]
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,8 @@ Parameters are plain mappings of tensors in the reference's layout
 (``{"scale": ...}``, ``{"w_gate": [d, ff], ...}``): a reference param
 pytree carries across as a copy, and ``x @ W`` is the same product on both
 sides.  Draws come from an explicit :class:`torch.Generator`, on its
-device.  LayerNorm, the GELU MLP and cross-entropy wait for the families
-and the training slice that need them.
+device.  ``jax.nn.gelu`` is the tanh approximation, and ``jnp.var`` the
+population variance; the GELU MLP and the LayerNorm here are those.
 """
 from __future__ import annotations
 
@@ -37,6 +37,24 @@ def rms_norm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * params["scale"].to(torch.float32)).to(dtype)
+
+
+def layer_norm_init(dim, dtype, device=None) -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layer_norm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 (the population variance), cast back to x's
+    dtype."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    out = (x * params["scale"].to(torch.float32)
+           + params["bias"].to(torch.float32))
+    return out.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -92,6 +110,20 @@ def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     return h @ params["w_down"]
 
 
+def gelu_mlp_init(gen, d_model, d_ff, dtype) -> dict:
+    return {
+        "w_in": he_init(gen, (d_model, d_ff), dtype),
+        "b_in": torch.zeros((d_ff,), dtype=dtype, device=gen.device),
+        "w_out": he_init(gen, (d_ff, d_model), dtype, fan_in=d_ff),
+        "b_out": torch.zeros((d_model,), dtype=dtype, device=gen.device),
+    }
+
+
+def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
+    h = F.gelu(x @ params["w_in"] + params["b_in"], approximate="tanh")
+    return h @ params["w_out"] + params["b_out"]
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
@@ -116,3 +148,18 @@ def lm_head_init(gen, d_model, vocab, dtype) -> dict:
 
 def lm_head(params, x: torch.Tensor) -> torch.Tensor:
     return x @ params["w"]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in f32: logsumexp less the gold logit,
+    averaged over the tokens (over the ``mask``ed ones when given).
+    logits: [..., V], labels: [...] int."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

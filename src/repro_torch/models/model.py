@@ -1,30 +1,49 @@
-"""The dense and MoE model families, with GQA or MLA attention, the ssm
-family (RWKV-6) and the hybrid one (a Mamba2 stack and one shared
-attention block), as an ``nn.Module`` (mirrors the dense, moe, ssm and
-hybrid paths of ``repro/models/model.py``).
+"""Every model family of the reference as an ``nn.Module``: dense and MoE
+with GQA or MLA attention, the ssm family (RWKV-6), the hybrid one (a
+Mamba2 stack and one shared attention block), the vlm family (a dense
+backbone reading image embeddings ahead of the text) and the audio one
+(the whisper encoder-decoder) (mirrors ``repro/models/model.py``).
 
     model  = Model.init(cfg, generator)          # or Model(cfg, params)
     logits = model.forward(tokens)               # [B, S, V]; model.last_aux
+    loss, aux = model.loss(tokens, labels)       # aux: {"ce", "router_aux"}
     logits, cache = model.prefill(tokens)        # fills the cache
     logits, cache = model.decode_step(tokens, cache)
 
+The vlm and audio families take the reference's batch inputs as keywords:
+``image_embeds=`` [B, N_img, D] and ``frames=`` [B, Se, D] (the stubbed
+vision tower's and conv frontend's outputs), so ``model.loss(**batch)``
+reads a reference batch dict.  ``forward`` and ``loss`` are
+differentiable for every family; ``prefill`` and ``decode_step`` run
+under ``no_grad`` and write in place.
+
 Parameters keep the reference's names and ``[in, out]`` layout; the
 reference's stacked ``[n_layers, ...]`` block arrays are one entry of
-``blocks`` per layer here, its ``dense_blocks`` (DeepSeek's leading dense
-layers) first, so a reference init carries across as a copy
-(``repro_torch.convert.model_params_from_numpy``) and cache layer i belongs
-to block i.  A block's FFN is SwiGLU (``mlp``) or the MoE layer (``moe``).
-An ssm block is ``{ln1, att, ln2, ffn}`` (RWKV-6 time and channel mixing),
-a hybrid block ``{ln, ssm}`` (Mamba2); the hybrid family's ``shared_attn``
+``blocks`` per layer here (``enc_blocks`` for the whisper encoder), its
+``dense_blocks`` (DeepSeek's leading dense layers) first, so a reference
+init carries across as a copy (``repro_torch.convert.
+model_params_from_numpy``), ``repro_torch.models.flat`` lays them out as
+the reference's ``ravel_pytree`` does, and cache layer i belongs to block
+i.  A block's FFN is SwiGLU (``mlp``) or the MoE layer (``moe``).  An ssm
+block is ``{ln1, att, ln2, ffn}`` (RWKV-6 time and channel mixing), a
+hybrid block ``{ln, ssm}`` (Mamba2); the hybrid family's ``shared_attn``
 (``{ln, attn, ln2, mlp}``, one set of weights) runs after every
 ``hybrid_attn_every`` Mamba2 layers (:func:`_hybrid_groups`), each
 application with its own KV cache slot, its decode attention through K8.
-Logits cover the vocab padded to a multiple of 128, as the reference's do.
-Prefill and decode update the cache in place.  The vlm and audio families
-raise ``NotImplementedError`` naming their ROADMAP item.
+A whisper decoder block is ``{ln1, attn, ln_x, xattn, ln2, mlp}`` with
+LayerNorms and a GELU MLP, no rope, its self-attention decode through K8
+and its cross-attention against K/V cached once a prefill; its final norm
+is the RMS norm ``final_norm``, as the reference's.  The whisper encoder
+runs in the wider of the frames' dtype and the model's, as the
+reference's type promotion runs it: a bf16 model's encoder, and its cross
+K/V, in f32 on the f32 frames the serve entry draws.  The cache keeps the
+cross K/V in f32, as the reference's prefill does.
+Logits cover the vocab padded to a multiple of 128, as the reference's
+do.  ``remat`` is accepted and ignored: it changes memory, not values.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -32,15 +51,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, rwkv, ssm
 
-# the families still to port and their ROADMAP items (queue 1, slice 7)
-_PENDING_FAMILIES = {
-    "vlm": "item 19d (VLM inputs)",
-    "audio": "item 19d (audio encoder-decoder)",
-}
-
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
+
+
+def _promoted(tree, dtype: torch.dtype) -> dict:
+    """A block's parameters (nested dicts) in ``dtype``: the reference's
+    promotion of a bf16 weight that meets an f32 activation."""
+    return {k: v.to(dtype) if isinstance(v, torch.Tensor)
+            else _promoted(v, dtype) for k, v in tree.items()}
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -49,16 +69,17 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.family in _PENDING_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family={cfg.family!r} is not ported yet: ROADMAP "
-            f"queue 1, {_PENDING_FAMILIES[cfg.family]}")
     plain = cfg.moe is None and cfg.mla is None
     if cfg.family == "ssm":
         ok = plain and cfg.attention == "none" and cfg.rwkv is not None
     elif cfg.family == "hybrid":
         ok = (plain and cfg.attention == "gqa" and cfg.ssm is not None
               and cfg.hybrid_attn_every > 0)
+    elif cfg.family == "audio":
+        ok = (plain and cfg.attention == "gqa" and cfg.encoder_layers > 0
+              and cfg.encoder_seq_len > 0)
+    elif cfg.family == "vlm":
+        ok = plain and cfg.attention == "gqa"
     else:
         ok = (cfg.family in ("dense", "moe")
               and cfg.attention in ("gqa", "mla")
@@ -69,10 +90,12 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: family={cfg.family!r} attention={cfg.attention!r} "
             f"moe={cfg.moe is not None} mla={cfg.mla is not None} "
             f"rwkv={cfg.rwkv is not None} ssm={cfg.ssm is not None} "
-            f"hybrid_attn_every={cfg.hybrid_attn_every}: the port runs the "
-            "dense and moe families with gqa or mla attention, ssm with rwkv "
-            "and attention none, and hybrid with ssm, gqa attention and "
-            "hybrid_attn_every > 0")
+            f"hybrid_attn_every={cfg.hybrid_attn_every} "
+            f"encoder_layers={cfg.encoder_layers}: the port runs the dense "
+            "and moe families with gqa or mla attention, ssm with rwkv and "
+            "attention none, hybrid with ssm, gqa attention and "
+            "hybrid_attn_every > 0, vlm with gqa attention, and audio with "
+            "gqa attention and an encoder")
 
 
 def _params(tree: dict) -> nn.ParameterDict:
@@ -140,8 +163,9 @@ def _hybrid_groups(cfg: ModelConfig):
 
 class Model(nn.Module):
     """Pre-norm GQA / MLA transformer with SwiGLU or MoE FFNs (yi, smollm,
-    phi3, minicpm3; mixtral, deepseek-v2-lite), an RWKV-6 stack (rwkv6) or
-    a Mamba2 stack with a shared attention block (zamba2)."""
+    phi3, minicpm3; mixtral, deepseek-v2-lite; llava-next-mistral behind
+    its image embeddings), an RWKV-6 stack (rwkv6), a Mamba2 stack with a
+    shared attention block (zamba2) or the whisper encoder-decoder."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -159,6 +183,14 @@ class Model(nn.Module):
             nn.ModuleDict({part: _params(tree) for part, tree
                            in params["shared_attn"].items()})
             if cfg.family == "hybrid" else None)
+        if cfg.family == "audio":
+            self.enc_blocks = nn.ModuleList(
+                nn.ModuleDict({part: _params(tree)
+                               for part, tree in bp.items()})
+                for bp in params["enc_blocks"])
+            self.enc_norm = _params(params["enc_norm"])
+            self.dec_pos = nn.Parameter(params["dec_pos"],
+                                        requires_grad=False)
         self.last_aux = None        # the router aux of the last forward
 
     # ------------------------------------------------------------- init ---
@@ -191,6 +223,15 @@ class Model(nn.Module):
                 "mlp": layers.swiglu_init(generator, cfg.d_model, cfg.d_ff,
                                           dt),
             }
+        elif cfg.family == "audio":
+            params["enc_blocks"] = [cls._whisper_block_init(cfg, generator)
+                                    for _ in range(cfg.encoder_layers)]
+            params["enc_norm"] = layers.layer_norm_init(cfg.d_model, dt, dev)
+            params["blocks"] = [
+                cls._whisper_block_init(cfg, generator, cross=True)
+                for _ in range(cfg.num_layers)]
+            params["dec_pos"] = (0.02 * layers._normal(
+                generator, (dec_pos_rows(cfg), cfg.d_model))).to(dt)
         elif cfg.moe is None:
             params["blocks"] = [cls._dense_block_init(cfg, generator)
                                 for _ in range(cfg.num_layers)]
@@ -248,25 +289,78 @@ class Model(nn.Module):
             "ffn": rwkv.rwkv6_ffn_init(gen, cfg, dt),
         }
 
+    @staticmethod
+    def _whisper_block_init(cfg: ModelConfig, gen: torch.Generator,
+                            cross: bool = False) -> dict:
+        """An encoder block, or with ``cross`` a decoder block (its
+        cross-attention ``xattn`` and the norm before it)."""
+        dt, dev = _dtype(cfg), gen.device
+        bp = {"ln1": layers.layer_norm_init(cfg.d_model, dt, dev),
+              "attn": attn.gqa_init(gen, cfg, dt)}
+        if cross:
+            bp["ln_x"] = layers.layer_norm_init(cfg.d_model, dt, dev)
+            bp["xattn"] = attn.gqa_init(gen, cfg, dt)
+        bp["ln2"] = layers.layer_norm_init(cfg.d_model, dt, dev)
+        bp["mlp"] = layers.gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, dt)
+        return bp
+
     @property
     def device(self) -> torch.device:
         return self.embed["table"].device
 
     # ---------------------------------------------------------- forward ---
 
-    def _embed_inputs(self, tokens: torch.Tensor) -> torch.Tensor:
-        return layers.embed(self.embed, tokens)
+    def _embed_inputs(self, tokens: torch.Tensor,
+                      image_embeds: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+        """[B, S, D]: the image embeddings (cast to the model's dtype)
+        ahead of the text for the vlm family; the learned positions added
+        for the audio one, taken mod their rows."""
+        x = layers.embed(self.embed, tokens)
+        if self.cfg.family == "vlm":
+            x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
+        if self.cfg.family == "audio":
+            rows = self.dec_pos.shape[0]
+            pos = torch.arange(x.shape[1], device=x.device) % rows
+            x = x + self.dec_pos[pos]
+        return x
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence logits [B, S, V] (the train / prefill compute); the
-        router aux summed over the MoE layers is kept as ``last_aux`` (a
-        zero without MoE layers)."""
+    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The whisper encoder over the stub frame embeddings [B, Se, D]:
+        the sinusoidal table, then non-causal self-attention without
+        rope."""
         cfg = self.cfg
-        x = self._embed_inputs(tokens)
+        x = frames + sinusoidal(frames.shape[1], cfg.d_model,
+                                frames.device).to(frames.dtype)
+        # each weight meets x in the wider dtype, as jnp promotes them
+        dt = torch.promote_types(x.dtype, _dtype(cfg))
+        x = x.to(dt)
+        for bp in self.enc_blocks:
+            bp = _promoted(bp, dt)
+            h = layers.layer_norm(bp["ln1"], x, cfg.norm_eps)
+            x = x + attn.gqa_forward(bp["attn"], h, None, cfg,
+                                     use_rope=False, causal=False)
+            h = layers.layer_norm(bp["ln2"], x, cfg.norm_eps)
+            x = x + layers.gelu_mlp(bp["mlp"], h)
+        return layers.layer_norm(self.enc_norm, x, cfg.norm_eps)
+
+    def forward(self, tokens: torch.Tensor, *,
+                image_embeds: torch.Tensor | None = None,
+                frames: torch.Tensor | None = None, remat: bool = True,
+                remat_policy: str | None = None) -> torch.Tensor:
+        """Full-sequence logits [B, S, V] (the train / prefill compute; a
+        vlm's S counts its image tokens); the router aux summed over the
+        MoE layers is kept as ``last_aux`` (a zero without MoE layers)."""
+        cfg = self.cfg
+        x = self._embed_inputs(tokens, image_embeds)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if cfg.family == "ssm":
+        if cfg.family == "audio":
+            enc_out = self._encode(frames)
+            for bp in self.blocks:
+                x = self._whisper_block(bp, x, positions, enc_out)[0]
+        elif cfg.family == "ssm":
             for bp in self.blocks:
                 x, _ = _rwkv_block(bp, x, cfg)
         elif cfg.family == "hybrid":
@@ -287,6 +381,38 @@ class Model(nn.Module):
         self.last_aux = aux
         x = layers.rms_norm(self.final_norm, x, cfg.norm_eps)
         return self._logits(x)
+
+    def loss(self, tokens: torch.Tensor, labels: torch.Tensor, *,
+             mask: torch.Tensor | None = None,
+             image_embeds: torch.Tensor | None = None,
+             frames: torch.Tensor | None = None, remat: bool = True,
+             remat_policy: str | None = None):
+        """Next-token cross-entropy plus the router aux; returns (loss,
+        {"ce", "router_aux"}).  A vlm's logits are taken past its image
+        tokens, as its labels cover the text alone."""
+        logits = self.forward(tokens, image_embeds=image_embeds,
+                              frames=frames)
+        if self.cfg.family == "vlm":
+            logits = logits[:, image_embeds.shape[1]:, :]
+        ce = layers.cross_entropy(logits, labels, mask)
+        aux = self.last_aux
+        return ce + aux, {"ce": ce, "router_aux": aux}
+
+    def _whisper_block(self, bp, x, positions, enc_out):
+        """A whisper decoder block over a whole sequence; also returns its
+        self-attention's K and V and its cross K and V, [B,S,KV,Dh] and
+        [B,Se,KV,Dh]."""
+        cfg = self.cfg
+        h = layers.layer_norm(bp["ln1"], x, cfg.norm_eps)
+        out, k, v = attn.gqa_forward(bp["attn"], h, positions, cfg,
+                                     use_rope=False, causal=True,
+                                     return_kv=True)
+        x = x + out
+        h = layers.layer_norm(bp["ln_x"], x, cfg.norm_eps)
+        xk, xv = attn.cross_kv(bp["xattn"], enc_out, cfg)
+        x = x + attn.cross_attend(bp["xattn"], h, xk, xv, cfg)
+        h = layers.layer_norm(bp["ln2"], x, cfg.norm_eps)
+        return x + layers.gelu_mlp(bp["mlp"], h), (k, v, xk, xv)
 
     def _shared_block(self, x, positions):
         """The hybrid family's shared attention + SwiGLU block; also returns
@@ -319,7 +445,15 @@ class Model(nn.Module):
             return c
         init = (attn.mla_init_cache if cfg.attention == "mla"
                 else attn.gqa_init_cache)
-        return init(cfg, batch_size, cache_len, L, dt, dev)
+        c = init(cfg, batch_size, cache_len, L, dt, dev)
+        if cfg.family == "audio":
+            shape = (L, batch_size, cfg.encoder_seq_len, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            # f32: the promoted encoder's K/V, as the reference's prefill
+            # stores them
+            c["xk"] = torch.zeros(shape, dtype=torch.float32, device=dev)
+            c["xv"] = torch.zeros(shape, dtype=torch.float32, device=dev)
+        return c
 
     # ----------------------------------------------------------- decode ---
 
@@ -330,7 +464,12 @@ class Model(nn.Module):
         cfg = self.cfg
         x = layers.embed(self.embed, tokens[:, None])          # [B,1,D]
         pos = cache["pos"]
-        if cfg.family == "ssm":
+        if cfg.family == "audio":
+            rows = self.dec_pos.shape[0]
+            x = x + self.dec_pos.index_select(
+                0, torch.remainder(pos, rows).reshape(1).to(torch.int64))
+            x = self._decode_whisper(x, cache)
+        elif cfg.family == "ssm":
             x = self._decode_rwkv(x, cache)
         elif cfg.family == "hybrid":
             x = self._decode_hybrid(x, cache)
@@ -352,6 +491,24 @@ class Model(nn.Module):
         for i, bp in enumerate(self.blocks):
             x = self._dense_decode_block(bp, x, c0[i], c1[i], pos, slot,
                                          nvalid)
+        return x
+
+    def _decode_whisper(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
+        """Decoder steps: self-attention (no rope) through K8 over the
+        ring, cross-attention against the prefill's K/V."""
+        cfg = self.cfg
+        pos = cache["pos"]
+        slot, nvalid = attn.gqa_decode_slots(pos, cache["k"].shape[2])
+        for i, bp in enumerate(self.blocks):
+            h = layers.layer_norm(bp["ln1"], x, cfg.norm_eps)
+            x = x + attn.gqa_decode(bp["attn"], h, cache["k"][i],
+                                    cache["v"][i], pos, slot, nvalid, cfg,
+                                    use_rope=False)
+            h = layers.layer_norm(bp["ln_x"], x, cfg.norm_eps)
+            x = x + attn.cross_attend(bp["xattn"], h, cache["xk"][i],
+                                      cache["xv"][i], cfg)
+            h = layers.layer_norm(bp["ln2"], x, cfg.norm_eps)
+            x = x + layers.gelu_mlp(bp["mlp"], h)
         return x
 
     def _decode_rwkv(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
@@ -406,19 +563,24 @@ class Model(nn.Module):
     # ---------------------------------------------------------- prefill ---
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, max_len: int = 0):
-        """Run the prompt [B, S], build the decode cache, return the last
-        position's logits [B, V] and the cache.
+    def prefill(self, tokens: torch.Tensor, max_len: int = 0, *,
+                image_embeds: torch.Tensor | None = None,
+                frames: torch.Tensor | None = None):
+        """Run the prompt [B, S] (a vlm's image embeddings ahead of it),
+        build the decode cache, return the last position's logits [B, V]
+        and the cache.
 
         max_len: cache capacity (>= prompt + expected decode tokens),
         defaults to prompt + 64; a sliding-window arch caps it at the
         window (a ring)."""
         cfg = self.cfg
-        x = self._embed_inputs(tokens)
+        x = self._embed_inputs(tokens, image_embeds)
         B, S, _ = x.shape
         cache = self.init_cache(B, max_len or S + 64)
         positions = torch.arange(S, device=x.device).expand(B, S)
-        if cfg.family == "ssm":
+        if cfg.family == "audio":
+            x = self._prefill_whisper(x, positions, cache, frames)
+        elif cfg.family == "ssm":
             x = self._prefill_rwkv(x, cache)
         elif cfg.family == "hybrid":
             x = self._prefill_hybrid(x, positions, cache)
@@ -458,6 +620,17 @@ class Model(nn.Module):
             x = x + _ffn(bp, h, cfg)[0]
         return x, cache
 
+    def _prefill_whisper(self, x, positions, cache, frames):
+        enc_out = self._encode(frames)
+        for i, bp in enumerate(self.blocks):
+            x, (k, v, xk, xv) = self._whisper_block(bp, x, positions,
+                                                    enc_out)
+            self._fill_ring(cache["k"][i], k)
+            self._fill_ring(cache["v"][i], v)
+            cache["xk"][i].copy_(xk)
+            cache["xv"][i].copy_(xv)
+        return x
+
     def _prefill_rwkv(self, x, cache):
         for i, bp in enumerate(self.blocks):
             x, state = _rwkv_block(bp, x, self.cfg)
@@ -477,3 +650,20 @@ class Model(nn.Module):
                 self._fill_ring(cache["attn_v"][a], v)
                 a += 1
         return x
+
+
+def dec_pos_rows(cfg: ModelConfig) -> int:
+    """Rows of whisper's learned decoder positions: ``max_seq_len``, or
+    2^16 where that is 2^17 or more (the reference's cap)."""
+    return cfg.max_seq_len if cfg.max_seq_len < 1 << 17 else 1 << 16
+
+
+def sinusoidal(length: int, dim: int, device=None) -> torch.Tensor:
+    """The encoder's sinusoidal positions [length, dim] f32: sines then
+    cosines, computed in f64 on the host as the reference's numpy does."""
+    pos = np.arange(length)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    return torch.tensor(
+        np.concatenate([np.sin(angle), np.cos(angle)], axis=-1),
+        dtype=torch.float32, device=device)

@@ -17,8 +17,10 @@ once a group and read by each of its heads.
 Above the diagonal of a chunk ``exp(L_t - L_s)`` overflows; the reference
 selects 0 there with ``where``.  Here the log-decay differences are set to
 -inf before the ``exp``, which gives the same 0 (a 0/1 mask multiplied in
-would turn inf into NaN).  The decode step updates its ``h`` and conv
-window in place and reads nothing back to the host.
+would turn inf into NaN).  Without grad (prefill) that [Q, Q] block is
+transformed in place; with grad enabled each step makes a new tensor, as
+``exp`` keeps its output for the backward.  The decode step updates its
+``h`` and conv window in place and reads nothing back to the host.
 """
 from __future__ import annotations
 
@@ -139,11 +141,18 @@ def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig,
     M = Lh[..., :, None] - Lh[..., None, :]                        # [B,nc,H,Q(t),Q(s)]
     upper = torch.ones((Q, Q), dtype=torch.bool,
                        device=x.device).triu_(1)
-    M.masked_fill_(upper, float("-inf")).exp_()
     CB = torch.einsum("bcqgn,bcsgn->bcgqs", C_c, B_c)               # [B,nc,G,Q,Q]
-    M.view(B_, nc, G, rep, Q, Q).mul_(CB[:, :, :, None])
+    dt_s = dt_c.permute(0, 1, 3, 2)[:, :, :, None, :]
+    if torch.is_grad_enabled():
+        # autograd keeps exp's output for its backward: new tensors
+        M = M.masked_fill(upper, float("-inf")).exp()
+        M = (M.view(B_, nc, G, rep, Q, Q) * CB[:, :, :, None]).view(M.shape)
+        M = M * dt_s
+    else:
+        M.masked_fill_(upper, float("-inf")).exp_()
+        M.view(B_, nc, G, rep, Q, Q).mul_(CB[:, :, :, None])
+        M.mul_(dt_s)                                               # dt_s
     del CB
-    M.mul_(dt_c.permute(0, 1, 3, 2)[:, :, :, None, :])             # dt_s
     Y_intra = torch.einsum("bchqs,bcshp->bcqhp", M,
                            xc_c.reshape(B_, nc, Q, H, P))
     del M

@@ -1318,3 +1318,116 @@ def test_fleet_workers_on_two_streams_at_once(cuda, tmp_path):
         t.join()
     assert together == alone
     assert any(r["flushed"] for r in alone[0])
+
+
+# the federated LM's width: smollm-135m's parameters (embed 49152 x 576,
+# 30 layers of 3,540,096, the final norm)
+SMOLLM_D = 134_515_008
+
+
+@pytest.mark.parametrize("L", [2, 4])
+def test_round_kernels_at_smollm_width(cuda, L):
+    """K1, K2 (none and mask) and K3 at (P, L, D) = (4, L, 134,515,008),
+    f32, against their plain versions: at L = 4, P L D = 2.15e9 elements
+    index past 2^31.  Inputs scaled as a round's: the gradients 1e-3, the
+    parameters 0.05, the masks and noise 0.01."""
+    P, D = 4, SMOLLM_D
+    g = 1e-3 * torch.randn((P, L, D), generator=cuda, device="cuda")
+    sq = rf.fold_norms(g)
+    torch.testing.assert_close(sq, rf.fold_norms_plain(g), atol=0,
+                               rtol=1e-5)
+    w = 0.05 * torch.randn((P, D), generator=cuda, device="cuda")
+    ss = 0.5 * torch.clamp(5.0 / torch.sqrt(sq), max=1.0)
+    fw = torch.full((P, L), 1.0 / L, device="cuda")
+    seeds = torch.arange(P, device="cuda") * 2654435761 + 7
+    for mode in ("none", "mask"):
+        kw = dict(mode=mode, sigma=0.01, seeds=seeds)
+        psi = rf.fold_apply(w, g, ss, fw, fw, **kw)
+        torch.testing.assert_close(
+            psi, rf.fold_apply_plain(w, g, ss, fw, fw, **kw), atol=1e-5,
+            rtol=0)
+        assert torch.equal(psi, rf.fold_apply(w, g, ss, fw, fw, **kw))
+    del g
+    A = torch.tensor([[0.5, 0.25, 0.0, 0.25], [0.25, 0.5, 0.25, 0.0],
+                      [0.0, 0.25, 0.5, 0.25], [0.25, 0.0, 0.25, 0.5]],
+                     device="cuda")
+    noise = 0.01 * torch.randn((P, D), generator=cuda, device="cuda")
+    got = gc.graph_combine(A, psi, noise)
+    torch.testing.assert_close(got, gc.graph_combine_plain(A, psi, noise),
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "llava-next-mistral-7b"])
+def test_vlm_and_audio_decode_step_is_capturable(cuda, arch):
+    """One decode step of reduced whisper (K8 without rope, the
+    cross-attention against the prefill's K/V) and llava (the ring past
+    its image tokens) captured in a CUDA graph and replayed: logits and
+    every cache entry bitwise the eager step's."""
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.models.model import Model
+    cfg = get_config(arch).reduced()
+    model = Model.init(cfg, rng(1, "cuda"))
+    toks = torch.randint(0, cfg.vocab_size, (2, 81), generator=cuda,
+                         device="cuda")
+    _, cache = model.prefill(toks[:, :80], **stub_inputs(cfg, 2, cuda))
+
+    def copy_of(c):
+        return {name: t.clone() for name, t in c.items()}
+
+    eager, graphed, warm = copy_of(cache), copy_of(cache), copy_of(cache)
+    tok = toks[:, 80].clone()
+    want, eager = model.decode_step(tok, eager)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        model.decode_step(tok, warm)                    # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, graphed = model.decode_step(tok, graphed)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert set(graphed) == set(eager)
+    for name in eager:
+        assert torch.equal(graphed[name], eager[name]), name
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "mixtral-8x7b",
+                                  "whisper-tiny"])
+def test_reduced_model_backward_on_cuda_matches_the_cpu(cuda, arch):
+    """The loss and its flat gradient on the card against the CPU, from
+    one init: Mamba2's backward (zamba2), the MoE dispatch's (mixtral),
+    the encoder-decoder's (whisper).  Each leaf within 1e-5 x its largest
+    |g| plus rtol 1e-4 (f32 sums in another order)."""
+    import copy
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.models.flat import FlatView
+    from repro_torch.models.model import Model
+    cfg = get_config(arch).reduced()
+    on_cpu = Model.init(cfg, rng(1, "cpu"))
+    on_card = copy.deepcopy(on_cpu).to("cuda")
+    gen = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 41), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+             **stub_inputs(cfg, 2, gen)}
+    grads, losses = [], []
+    for model, dev in ((on_cpu, "cpu"), (on_card, "cuda")):
+        view = FlatView(model)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        grads.append(view.grad(model, view.ravel(model),
+                               lambda: model.loss(**b)[0]).cpu())
+        with torch.no_grad():
+            losses.append(float(model.loss(**b)[0]))
+    assert losses[1] == pytest.approx(losses[0], rel=1e-4)
+    for lf in FlatView(on_cpu).leaves:
+        n = lf.numel * len(lf.names)
+        want = grads[0][lf.offset:lf.offset + n]
+        scale = float(want.abs().max())
+        assert scale > 0, lf.path
+        torch.testing.assert_close(grads[1][lf.offset:lf.offset + n], want,
+                                   atol=1e-5 * scale, rtol=1e-4)

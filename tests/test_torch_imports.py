@@ -143,6 +143,28 @@ def test_import_check_covers_the_ssm_rwkv_slice():
     assert {PORT / "models" / "ssm.py", PORT / "models" / "rwkv.py"} <= walked
 
 
+def test_import_check_covers_the_training_and_last_families_slice():
+    slice_ = {"repro_torch.data.synthetic",
+              "repro_torch.optim.clip",
+              "repro_torch.optim.optimizers",
+              "repro_torch.optim.schedules",
+              "repro_torch.models.flat",
+              "repro_torch.launch.federated_lm",
+              "repro_torch.configs.llava_next_mistral_7b",
+              "repro_torch.configs.whisper_tiny"}
+    assert slice_ <= set(_port_modules())
+    walked = set(_port_files())
+    assert {PORT / "optim" / "__init__.py",
+            PORT / "data" / "__init__.py"} <= walked
+
+
+def test_federated_lm_without_card_raises(monkeypatch):
+    from repro_torch.launch import federated_lm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        federated_lm.main(["--steps", "1"])
+
+
 def test_fleet_demo_without_card_raises(monkeypatch):
     from repro_torch.launch import fleet_demo
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -175,12 +175,15 @@ def test_decode_matches_forward(S):
 
 @pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "whisper-tiny"])
 def test_unported_families_name_their_item(arch):
+    """The vlm and audio families, once pending, now run; a config whose
+    sub-configs disagree with its family is still refused, naming it."""
     cfg = _to_port_config(ref_registry.get_config(arch).reduced())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item "
-                       "19d"):
-        check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="19d"):
-        Model.init(cfg, torch.Generator())
+    check_supported(cfg)
+    assert Model.init(cfg, torch.Generator()).cfg.family == cfg.family
+    bad = (dict(encoder_layers=0) if cfg.family == "audio"
+           else dict(attention="mla"))
+    with pytest.raises(NotImplementedError, match=cfg.family):
+        check_supported(dataclasses.replace(cfg, **bad))
 
 
 def test_attention_and_family_must_agree():

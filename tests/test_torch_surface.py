@@ -217,10 +217,5 @@ def test_all_configs_lists_every_arch_id():
     assert list(got) == [a for a in ref_registry.ARCH_IDS
                          if a != "gfl-logreg"]
     for arch, cfg in got.items():
-        if arch in registry.PORTED_ARCH_IDS:
-            assert cfg == registry.get_config(arch)
-            assert cfg.name == ref_registry.get_config(arch).name
-        else:
-            assert cfg is None
-            with pytest.raises(NotImplementedError, match="not ported"):
-                registry.get_config(arch)
+        assert cfg == registry.get_config(arch)
+        assert cfg.name == ref_registry.get_config(arch).name

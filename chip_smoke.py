@@ -245,7 +245,36 @@ Phases, each printing JSON lines:
              centroid eval loss and eps(i) every 10 rounds, finite and
              falling.  Last K1-K3 at (4, 2, 134,515,008) against their
              plain versions and library calls, with their bounds.
-14. swa    — K8 swa_decode against its plain version at the serving shapes
+14. mesh   — the mesh trainer (repro_torch.launch.train, the port of
+             launch/train.py) at smollm-135m's full width in bf16, as the
+             reference trainer builds it, on mesh 4x1 in one process: 4
+             servers, L = 2 clients of 2 x 64 tokens, hybrid at sigma
+             0.01, mu 0.1, B 10.  First `python -m repro_torch.launch.train
+             --mesh 4x1 --steps 3 --combine dense --use-kernels` as a user
+             calls it, K3 counted from 0 just before: 11 launches a step
+             (one a leaf of the reference's tree), K1 and K2 none, the loss
+             finite.  Then 2 steps each of dense through K3, dense plain,
+             rotate and sparse from one init, each run twice: reruns
+             bitwise, K3 launched 11 times a dense kernel step and never in
+             the others, the embedding centroid of each within 5e-3 of
+             dense's (the reference's own bound, tests/test_dryrun.py).  K3
+             against its plain version on every leaf of the final state,
+             with a hybrid noise tree and without: within one bf16 ulp of
+             the leaf's largest |value| (both sum in f32 and round once).
+             The step's split: the 8 clients' gradients, the noise tree
+             and each variant's combine (CUDA events), each variant's
+             step; rotate and sparse on that psi and g against the f32
+             einsum, every leaf within 4 bf16 ulps of its largest |value|
+             (the centroid cannot see a wrong mix: A is doubly
+             stochastic).  K3 in bf16 at the table's [4, 28,311,552] and
+             blocks/mlp/w_up's [4, 26,542,080], with g and without,
+             against its plain version, `addmm` / `mm` in bf16 and its
+             bound (3 x 4 x N x 2 bytes with g; a step's 11 leaves
+             0.963 ms).  Last `serve --mesh 1x1` of reduced phi3 against
+             serve.generate (the same tokens), and private_serving runs,
+             each with K8 counted from 0 just before it: one launch an
+             attention layer and decode step.
+15. swa    — K8 swa_decode against its plain version at the serving shapes
              (B, H, KV, C, Dh) = (4, 32, 32, 2047, 96) bf16,
              (4, 32, 32, 1064, 96) bf16, mixtral's and llava's (4, 32, 8,
              4096, 128) and (4, 32, 8, 1064, 128) bf16 (Dh 128, G 4),
@@ -262,7 +291,7 @@ Phases, each printing JSON lines:
              replayed at C; and a stall probe at the phi3 shapes and
              mixtral's 4 x 4096 (the kernel beside its loads-only build,
              built here).
-15. serve  — eight archs at full width, bf16, random weights from seed 0,
+16. serve  — eight archs at full width, bf16, random weights from seed 0,
              each freed before the next, through
              repro_torch.launch.serve.generate: phi3-mini-3.8b (32 layers,
              d 3072), request A, 4 x 4096-token prompts + 32 greedy tokens
@@ -3505,6 +3534,353 @@ def phase_train(torch) -> dict:
     return {"launches": launches}
 
 
+# ------------------------------------------------------------------- mesh
+
+
+MESH_ARCH, MESH_SPEC = "smollm-135m", "4x1"
+MESH_P, MESH_L, MESH_PER_CLIENT, MESH_SEQ = 4, 2, 2, 64
+MESH_STEPS = 3                  # the main path's steps (launch.train)
+# each variant's steps, run twice: cut from 3 when the whole smoke took
+# 953.8 s on one call's host (PERF.md, the mesh finding)
+MESH_VARIANT_STEPS = 2
+MESH_PRIVACY, MESH_SIGMA, MESH_MU, MESH_BOUND = "hybrid", 0.01, 0.1, 10.0
+MESH_SEED = 7
+MESH_LEAVES = 11                # the reference's stacked tree of smollm-135m
+MESH_VARIANTS = {"dense_k": ("dense", True), "dense": ("dense", False),
+                 "rotate": ("rotate", False), "sparse": ("sparse", False)}
+MESH_CENTROID_ATOL = 5e-3       # the reference's own, tests/test_dryrun.py
+# rotate and sparse against the f32 einsum on one step's psi and g, in
+# bf16 ulps (2^-7) of each leaf's largest |value|: psi + g rounds once,
+# the bf16 wire rounds after each of the 3 products and 3 sums, and the
+# result once more (A's weights in bf16 add a quarter)
+MESH_COMBINE_ULPS = 4
+MESH_K3_LEAVES = {"embed/table": 28_311_552, "blocks/mlp/w_up": 26_542_080}
+
+
+def mesh_gfl(variant):
+    from repro_torch.configs.base import GFLConfig
+    combine, kernels = MESH_VARIANTS[variant]
+    return GFLConfig(topology="ring", privacy=MESH_PRIVACY,
+                     sigma_g=MESH_SIGMA, mu=MESH_MU, grad_bound=MESH_BOUND,
+                     combine_impl=combine, use_kernels=kernels)
+
+
+def mesh_run(torch, model, variant, batches, counts=False):
+    """One variant's steps on ``batches`` from the model's weights and
+    fresh draws of MESH_SEED: (state, losses, host seconds a step, K1-K3
+    launches of each step)."""
+    from repro_torch import kernels as K
+    from repro_torch.draws import Draws
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import parse_mesh
+
+    gcfg = mesh_gfl(variant)
+    mesh = parse_mesh(MESH_SPEC, "cuda")
+    step = S.make_train_step(model, gcfg, mesh)
+    state = S.init_train_state(model, gcfg, mesh, Draws(MESH_SEED, "cuda"))
+    losses, secs, launches = [], [], []
+    for batch in batches:
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches.append({k: K.LAUNCHES[k] for k in ROUND_KERNELS})
+        losses.append(float(m["loss"]))
+    K.reset_launches()
+    return state, losses, secs, launches
+
+
+def mesh_combine_fn(torch, variant, A, psi, g):
+    """What the step does after its noise is drawn, for one variant."""
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import parse_mesh
+    combine, kernels = MESH_VARIANTS[variant]
+    if combine == "dense":
+        return ((lambda: S._kernel_dense_combine(A, psi, g)) if kernels
+                else (lambda: S._dense_combine(A, psi, g)))
+    fn = S._rotate_combine if combine == "rotate" else S._sparse_combine
+    mesh, gcfg = parse_mesh(MESH_SPEC, "cuda"), mesh_gfl(variant)
+
+    def run():
+        mixed = fn(mesh, gcfg, {k: x + g[k] for k, x in psi.items()}, A)
+        return {k: (m.float() - g[k].float()).to(m.dtype)
+                for k, m in mixed.items()}
+    return run
+
+
+def k3_bf16_rows(torch, A, gen) -> dict:
+    """K3 in bf16 at the mesh's two largest leaves, [4, N], with g and
+    without, beside its plain version, the library call (addmm / mm in
+    bf16, A^T as a view) and its bound: 3 (or 2) x 4 x N x 2 bytes."""
+    from repro_torch.kernels import graph_combine as gc
+    from repro_torch.launch.kernel_bench import time_ms
+
+    bf = torch.bfloat16
+    a_bf = A.to(bf)
+    rows = {}
+    for leaf, N in MESH_K3_LEAVES.items():
+        psi = torch.randn((MESH_P, N), generator=gen, device="cuda").to(bf)
+        gn = (MESH_SIGMA * torch.randn((MESH_P, N), generator=gen,
+                                       device="cuda")).to(bf)
+        x, neg_g = psi + gn, -gn
+        for variant, g_ in (("g", gn), ("none", None)):
+            lib = ((lambda: torch.addmm(neg_g, a_bf.T, x)) if g_ is not None
+                   else (lambda: torch.mm(a_bf.T, psi)))
+            ms, lib_ms = paired_ms(
+                torch, lambda: gc.graph_combine(A, psi, g_), lib)
+            plain = gc.graph_combine_plain(A, psi, g_)
+            got = gc.graph_combine(A, psi, g_)
+            ulp = 2.0 ** -7 * float(plain.float().abs().max())
+            err = max_err(torch, got, plain)
+            require(err <= ulp, f"mesh: K3 bf16 {leaf} [{variant}] max abs "
+                    f"err {err} > one bf16 ulp {ulp}")
+            rows[f"{leaf}[{variant}]"] = bound({
+                "shape": [MESH_P, N], "ms": ms, "library_ms": lib_ms,
+                "plain_ms": time_ms(lambda: gc.graph_combine_plain(
+                    A, psi, g_), budget_s=0.3, max_reps=20),
+                "max_abs_err": err, "ulp": ulp,
+                "bytes": MESH_P * MESH_P * 4
+                + (3 if g_ is not None else 2) * MESH_P * N * 2,
+                "flops": 2 * MESH_P * MESH_P * N
+                + (2 * MESH_P * N if g_ is not None else 0)})
+            del plain, got
+        del psi, gn, x, neg_g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_mesh(torch) -> dict:
+    """The mesh trainer (repro_torch.launch.train) at smollm-135m's full
+    width in bf16 on mesh 4x1 in one process (module docstring, phase
+    14).  Returns K3's launches of its main path, counted from 0 just
+    before it."""
+    import io
+    import statistics
+    from repro_torch import kernels as K
+    from repro_torch import rng
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.privacy.mechanism import (RoundContext,
+                                                    mechanism_for)
+    from repro_torch.data.synthetic import TokenStream, federated_token_batches
+    from repro_torch.draws import DrawKey, Draws
+    from repro_torch.kernels import graph_combine as gc
+    from repro_torch.launch import private_serving, serve
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train
+    from repro_torch.launch.kernel_bench import time_ms
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.models.flat import FlatView
+    from repro_torch.models.model import Model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MESH_ARCH)
+    require(cfg.num_layers == 30 and cfg.d_model == 576
+            and (cfg.num_heads, cfg.num_kv_heads) == (9, 3)
+            and cfg.d_ff == 1536 and cfg.vocab_size == 49152
+            and cfg.tie_embeddings and cfg.param_dtype == "bfloat16",
+            f"{cfg.name} is not at full width in bf16")
+    # the main path: the entry a user calls, K3 counted from 0 just before
+    out_lines = io.StringIO()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out_lines):
+        run = train.main([
+            "--arch", MESH_ARCH, "--mesh", MESH_SPEC, "--steps",
+            str(MESH_STEPS), "--seq", str(MESH_SEQ), "--clients",
+            str(MESH_L), "--per-client", str(MESH_PER_CLIENT), "--privacy",
+            MESH_PRIVACY, "--sigma", str(MESH_SIGMA), "--mu", str(MESH_MU),
+            "--combine", "dense", "--use-kernels"])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {k: K.LAUNCHES[k] for k in ROUND_KERNELS}
+    want = {"fold_norms": 0, "fold_apply": 0,
+            "graph_combine": MESH_LEAVES * MESH_STEPS}
+    require(launches == want, f"mesh: {MESH_STEPS} dense kernel steps "
+            f"launched {launches}, expected {want}")
+    losses = [h["loss"] for h in run["history"]]
+    require(all(map(math.isfinite, losses)), f"mesh: loss {losses}")
+    tree = run["state"].params
+    require(len(tree) == MESH_LEAVES
+            and all(v.dtype == torch.bfloat16 for v in tree.values())
+            and sum(v[0].numel() for v in tree.values()) == TRAIN_D,
+            "mesh: the state is not the bf16 tree of smollm-135m")
+    for line in out_lines.getvalue().splitlines():
+        emit({"phase": "mesh", "log": line})
+    emit({"phase": "mesh", "main": "python -m repro_torch.launch.train",
+          "mesh": MESH_SPEC, "steps": MESH_STEPS, "loss": losses,
+          "launches": launches, "run_s": main_s,
+          "leaves": {k: list(v.shape) for k, v in tree.items()}})
+    del run, tree
+    torch.cuda.empty_cache()
+
+    # the four variants from one init, each twice: bitwise reruns
+    model = Model.init(cfg, rng(MESH_SEED, "cuda"))
+    stream = TokenStream(vocab=cfg.vocab_size, seed=0)
+    batches = [federated_token_batches(stream, 0, i, MESH_P, MESH_L,
+                                       MESH_PER_CLIENT, MESH_SEQ)
+               for i in range(MESH_VARIANT_STEPS)]
+    finals, records = {}, {}
+    for variant in MESH_VARIANTS:
+        state, loss, secs, counts = mesh_run(torch, model, variant, batches)
+        again = mesh_run(torch, model, variant, batches)
+        require(all(torch.equal(v, again[0].params[k])
+                    for k, v in state.params.items())
+                and again[1] == loss, f"mesh: a rerun of {variant} differs")
+        require(all(map(math.isfinite, loss)), f"mesh: {variant} loss {loss}")
+        k3 = MESH_LEAVES if variant == "dense_k" else 0
+        require(all(c == {"fold_norms": 0, "fold_apply": 0,
+                          "graph_combine": k3} for c in counts),
+                f"mesh: {variant} launched {counts} a step, expected K3 "
+                f"{k3} times")
+        finals[variant] = state.params
+        records[variant] = {"loss": loss, "step_s": secs,
+                            "rerun_step_s": again[2],
+                            "k3_launches_a_step": k3}
+        del again
+    cent = {v: p["embed/table"].float().mean(dim=0)
+            for v, p in finals.items()}
+    cerr = {v: max_err(torch, cent[v], cent["dense"])
+            for v in ("dense_k", "rotate", "sparse")}
+    for v, e in cerr.items():
+        require(e <= MESH_CENTROID_ATOL, f"mesh: {v}'s embedding centroid "
+                f"{e} from dense's, over {MESH_CENTROID_ATOL}")
+    emit({"phase": "mesh", "variants": records,
+          "centroid_max_abs_err_from_dense": cerr,
+          "centroid_atol": MESH_CENTROID_ATOL, "rerun_bitwise": True})
+
+    # K3 against its plain version on every leaf, bf16: one ulp of the
+    # leaf's largest |value| (both sum in f32 and round once)
+    psi = finals["dense_k"]
+    del finals, cent
+    torch.cuda.empty_cache()
+    mech = mechanism_for(mesh_gfl("dense_k"))
+    shapes = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in psi.items()}
+
+    def noise(seed):
+        return mech.combine_noise_tree(DrawKey(Draws(seed, "cuda"), 0),
+                                       shapes, RoundContext(step=0))
+    g = noise(MESH_SEED + 1)
+    A = torch.as_tensor(S.make_combination_matrix(
+        parse_mesh(MESH_SPEC, "cuda"), mesh_gfl("dense_k")),
+        dtype=torch.float32, device="cuda")
+    leaf_err = {}
+    for tag, g_ in (("g", g), ("none", None)):
+        got = S._kernel_dense_combine(A, psi, g_)
+        for k, x in psi.items():
+            plain = gc.graph_combine_plain(
+                A, x.reshape(MESH_P, -1),
+                None if g_ is None else g_[k].reshape(MESH_P, -1))
+            ulp = 2.0 ** -7 * float(plain.float().abs().max())
+            err = max_err(torch, got[k].reshape(MESH_P, -1), plain)
+            require(err <= ulp, f"mesh: K3 on {k} [{tag}] max abs err "
+                    f"{err} > one bf16 ulp {ulp}")
+            leaf_err[f"{k}[{tag}]"] = [err, ulp]
+            del plain
+        del got
+    emit({"phase": "mesh", "k3_leaf_max_abs_err_and_ulp": leaf_err})
+
+    # a step's split: the clients' gradients, the noise tree, the combine
+    view = FlatView(model)
+    w = {k: v[0] for k, v in psi.items()}
+
+    # the 8 clients' gradients of one step, once (warm: the steps above
+    # ran them), on the host clock ending in a synchronize
+    b = batches[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p in range(MESH_P):
+        for l in range(MESH_L):
+            view.tree_grad(model, w, lambda: model.loss(
+                tokens=b["tokens"][p, l].cuda(),
+                labels=b["labels"][p, l].cuda())[0])
+    torch.cuda.synchronize()
+    seeds = iter(range(1000, 10 ** 6))
+    split = {"grads_ms": (time.perf_counter() - t0) * 1e3,
+             "noise_ms": time_ms(lambda: noise(next(seeds)), budget_s=0.5,
+                                 max_reps=10)}
+    # rotate and sparse on the same psi and g against the f32 einsum,
+    # every leaf (the centroid above cannot see a wrong mix: A is doubly
+    # stochastic, so any combine keeps the mean over servers)
+    einsum = S._dense_combine(A, psi, g)
+    comb_err = {}
+    for variant in MESH_VARIANTS:
+        fn = mesh_combine_fn(torch, variant, A, psi, g)
+        split[f"combine_ms[{variant}]"] = time_ms(fn, budget_s=0.5,
+                                                  max_reps=20)
+        if variant not in ("rotate", "sparse"):
+            continue
+        got = fn()
+        for k, x in got.items():
+            ulp = 2.0 ** -7 * float(einsum[k].float().abs().max())
+            err = max_err(torch, x, einsum[k])
+            require(err <= MESH_COMBINE_ULPS * ulp, f"mesh: {variant} on "
+                    f"{k} max abs err {err} from the f32 einsum > "
+                    f"{MESH_COMBINE_ULPS} bf16 ulps {MESH_COMBINE_ULPS * ulp}")
+            comb_err[f"{variant}:{k}"] = [err, ulp]
+        del got
+    del einsum
+    emit({"phase": "mesh", "combine_max_abs_err_and_ulp_from_einsum": comb_err,
+          "ulps_allowed": MESH_COMBINE_ULPS})
+    for variant, rec in records.items():
+        split[f"step_ms[{variant}]"] = statistics.median(
+            rec["step_s"] + rec["rerun_step_s"]) * 1e3
+    # K3's 11 leaves a step: psi and g read, out written, in bf16
+    split["k3_leaves_bound_ms"] = bound({
+        "bytes": 3 * MESH_P * TRAIN_D * 2
+        + MESH_LEAVES * MESH_P * MESH_P * 4, "flops": 0})["bound_ms"]
+    emit({"phase": "mesh", "split": split})
+    del psi, g, w, view, model
+    torch.cuda.empty_cache()
+
+    # K3 in bf16 at the two largest leaves
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    rows = k3_bf16_rows(torch, A, gen)
+    emit({"phase": "mesh", "k3_bf16": rows})
+
+    # serve --mesh 1x1 is the one-process path; private_serving runs;
+    # each decodes through K8, counted from 0 just before it: one launch
+    # an attention application and decode step
+    pcfg = get_config("phi3-mini-3.8b").reduced()
+    args = ["--reduced", "--mesh", "1x1", "--seed", "0", "--batch", "4",
+            "--prompt-len", "64", "--new-tokens", "16"]
+    k8 = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        K.reset_launches()
+        got = serve.main(args)["tokens"]
+        k8["serve_mesh_1x1"] = (K.LAUNCHES["swa_decode"],
+                                (got.shape[1] - 1) * attn_per_step(pcfg))
+        gen = rng(0, "cuda")
+        pm = Model.init(pcfg, gen)
+        prompt = torch.randint(0, pcfg.vocab_size, (4, 64), generator=gen,
+                               device="cuda")
+        want = serve.generate(pm, prompt, 16)["tokens"]
+        ps = io.StringIO()
+        with contextlib.redirect_stdout(ps):
+            K.reset_launches()
+            ptoks = private_serving.main([])["tokens"]
+            k8["private_serving"] = (K.LAUNCHES["swa_decode"],
+                                     (ptoks.shape[1] - 1)
+                                     * attn_per_step(pcfg))
+        K.reset_launches()
+    for what, (n, n_want) in k8.items():
+        require(n == n_want > 0, f"mesh: {what} launched K8 {n} times, "
+                f"expected {n_want}")
+    require(torch.equal(got, want), "mesh: serve --mesh 1x1 tokens differ "
+            "from serve.generate's")
+    require("OK" in ps.getvalue(), "mesh: private_serving did not finish")
+    emit({"phase": "mesh", "serve_mesh_1x1_tokens_equal": True,
+          "k8_launches_and_expected": k8,
+          "private_serving": ps.getvalue().splitlines()[-3:]})
+    del pm, prompt
+    torch.cuda.empty_cache()
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t_phase})
+    return {"launches": launches}
+
+
 # ------------------------------------------------------------ K8 (swa)
 
 
@@ -4199,6 +4575,7 @@ def main() -> int:
         timed("observe", phase_observe, torch, smi)
         fl = timed("fleet", phase_fleet, torch)
         train = timed("train", phase_train, torch)
+        mesh = timed("mesh", phase_mesh, torch)
         swa_row = timed("swa", phase_swa, torch)
         launches["swa_decode"] = timed("serve", phase_serve, torch)
     except SmokeFailure as exc:
@@ -4212,6 +4589,8 @@ def main() -> int:
     for name, n in fl["launches"].items():     # the fleet phase's K1-K3
         launches[name] += n
     for name, n in train["launches"].items():  # the federated LM's K1-K3
+        launches[name] += n
+    for name, n in mesh["launches"].items():   # the mesh trainer's K3
         launches[name] += n
     table = []
     main_t = timings[MAIN_SHAPE]

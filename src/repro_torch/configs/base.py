@@ -6,16 +6,33 @@ field (names, defaults, ``resolved_head_dim``, ``subquadratic`` and
 every family of the reference (``repro_torch.models``), and
 :class:`TrainConfig` feeds ``repro_torch.optim.make_optimizer``.
 ``GFLConfig.async_spec`` is read by the event engine
-(``repro_torch.core.events``).  :class:`GFLConfig` fields the engines do
-not run yet (``telemetry``, ``sanitize``, and the mesh knobs) are kept so a
-config round-trips, and the engines raise ``NotImplementedError`` when one
-is set.
+(``repro_torch.core.events``), ``sanitize`` by :mod:`repro_torch.sanitize`,
+``telemetry`` by :mod:`repro_torch.telemetry`, and the mesh knobs
+(``combine_impl``, ``combine_wire``, ``grad_acc_dtype``,
+``client_parallel``) by the mesh trainer (``repro_torch.launch.steps``).
+Input shapes come from the fixed :data:`INPUT_SHAPES` registry.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -42,16 +59,17 @@ class GFLConfig:
     epsilon_target: float = 0.0      # scheduled mechanism: total eps budget
     epsilon_horizon: int = 0         # scheduled mechanism: budget horizon
     secure_agg: bool = True          # pairwise-mask SMC at client level
-    combine_impl: str = "dense"      # mesh combine (later slice)
+    combine_impl: str = "dense"      # mesh combine: dense | rotate | sparse
     combine_every: int = 1           # combine every tau steps
     use_kernels: bool = False        # whole-run switch: route the round
                                      # through the CUDA kernels
                                      # (repro_torch.kernels.ops)
-    combine_wire: str = "bf16"       # mesh knob (later slice)
-    grad_acc_dtype: str = "float32"  # mesh knob (later slice)
-    client_parallel: bool = False    # mesh knob (later slice)
-    sanitize: bool = False           # runtime sanitizer (later slice)
-    telemetry: str = "off"           # telemetry sinks (later slice)
+    combine_wire: str = "bf16"       # mesh combine's accumulation: bf16
+                                     # (the leaf dtype) | f32
+    grad_acc_dtype: str = "float32"  # mesh step's client-gradient sum
+    client_parallel: bool = False    # mesh step: clients over "model"
+    sanitize: bool = False           # runtime sanitizer
+    telemetry: str = "off"           # telemetry sinks
 
     @property
     def effective_clients(self) -> int:

@@ -8,9 +8,12 @@ A :class:`PrivacyMechanism` owns both protocol hooks of a scheme
   server level (eq. 8):  ``server_combine(psi, draws, A, ctx) -> w``
 
 plus :meth:`~PrivacyMechanism.fold_spec` (how the client level enters the
-fused round-fold kernel) and a declarative ``noise_profile()`` for the
-accountant.  The reference vmaps its hooks over servers; here the server
-dimension is written out: ``w_clients`` is [P, L, D] and ``psi`` [P, D].
+fused round-fold kernel), the tree hooks the mesh trainer uses
+(``client_noise_tree`` / ``combine_noise_tree``, on a
+:class:`~repro_torch.draws.DrawKey`) and a declarative ``noise_profile()``
+for the accountant.  The reference vmaps its hooks over servers; here the
+server dimension is written out: ``w_clients`` is [P, L, D] and ``psi``
+[P, D].
 Randomness comes from the run's ``draws``
 (:class:`~repro_torch.draws.Draws`), at the round ``ctx.step``, on the
 ``client`` and ``combine`` streams — where the reference splits its
@@ -40,7 +43,8 @@ from repro_torch.core.privacy.homomorphic import (
     homomorphic_combine_noise,
     iid_noise_combine,
 )
-from repro_torch.core.privacy.noise import draw_noise
+from repro_torch.core.privacy.noise import (draw_noise, sample_gaussian,
+                                            sample_laplace)
 from repro_torch.core.privacy.secure_agg import (
     masked_client_mean_dropout_vec,
     num_pairs,
@@ -94,6 +98,33 @@ class RoundContext:
     sigma: Any = None
     traced_step: bool = False
     sigma_traced: bool = False
+
+
+def _tree_noise(key, stream: str, tree: dict, sigma, distribution: str
+                ) -> dict:
+    """Additive-noise tree matching ``tree`` ({name: tensor}, the leading
+    server dim included; only shapes and dtypes are read): one draw of
+    ``key``'s ``stream`` at its round, one tensor a leaf, sampled in f32
+    and cast to each leaf's dtype, as the reference's ``_tree_noise``
+    samples each leaf on its own split key.  ``sigma`` is a number, a 0-d
+    tensor or a [P] tensor (a per-server scale, broadcast over each leaf's
+    server dim)."""
+    shapes = [tuple(t.shape) for t in tree.values()]
+    if distribution == "laplace":
+        drawn = key.draws.laplace_uniform_tree(key.round, stream, shapes)
+    elif distribution == "gaussian":
+        drawn = key.draws.normal_tree(key.round, stream, shapes)
+    else:
+        raise ValueError(f"unknown noise distribution {distribution!r}")
+    out = {}
+    for (name, leaf), d in zip(tree.items(), drawn):
+        s = sigma
+        if isinstance(s, torch.Tensor) and s.dim() == 1:
+            s = s.reshape(s.shape + (1,) * (leaf.dim() - 1))
+        out[name] = (sample_laplace(d.shape, s, uniforms=d, dtype=leaf.dtype)
+                     if distribution == "laplace" else
+                     sample_gaussian(d.shape, s, normals=d, dtype=leaf.dtype))
+    return out
 
 
 class PrivacyMechanism:
@@ -155,6 +186,24 @@ class PrivacyMechanism:
         if self.cfg.use_kernels:
             return kops.graph_combine(A, psi, None, cache=cache, gate=gate)
         return combine_nonprivate(A, kops.apply_gate(psi, gate, cache))
+
+    def client_noise_tree(self, key, tree: dict, L,
+                          ctx: RoundContext) -> Optional[dict]:
+        """Client-level residual noise for the mesh step, or None.
+
+        Mechanisms whose client noise cancels in the mean (secure
+        aggregation) return None: the mesh computes the aggregate
+        directly.  Non-cancelling ones return one variance-equivalent draw
+        (sigma / sqrt(L)); ``L`` is a number or a [P] tensor (each server's
+        survivor count under dropout)."""
+        return None
+
+    def combine_noise_tree(self, key, tree: dict,
+                           ctx: RoundContext) -> Optional[dict]:
+        """Server-level noise tree g for the mesh combine, or None.  The
+        combines mix ``psi + g`` and, when ``noise_profile().
+        server_cancels_exactly``, subtract each server's own g after."""
+        return None
 
     def noise_profile(self) -> NoiseProfile:
         return NoiseProfile(distribution="none", client_sigma=0.0,
@@ -255,6 +304,10 @@ class _HomomorphicServerMixin:
         return homomorphic_combine_noise(A, kops.apply_gate(psi, gate, cache),
                                          g)
 
+    def combine_noise_tree(self, key, tree, ctx):
+        return _tree_noise(key, "combine", tree, self.sigma(ctx),
+                           self.distribution)
+
 
 @register_mechanism("hybrid")
 class HybridMechanism(_SecureAggClientMixin, _HomomorphicServerMixin,
@@ -325,6 +378,19 @@ class IIDLaplaceDP(PrivacyMechanism):
         g = draw_noise(draws, ctx.step, "combine", "laplace", (P, P, D),
                        self.sigma(ctx), psi.dtype)
         return iid_noise_combine(A, kops.apply_gate(psi, gate, cache), g)
+
+    def client_noise_tree(self, key, tree, L, ctx):
+        # the variance-equivalent single draw: the mean of L iid draws has
+        # std sigma / sqrt(L); L may be each server's survivor count [P]
+        sqrt_l = torch.sqrt(torch.as_tensor(L, dtype=torch.float32,
+                                            device=key.draws.device))
+        sigma = torch.div(torch.as_tensor(self.sigma(ctx),
+                                          dtype=torch.float32,
+                                          device=sqrt_l.device), sqrt_l)
+        return _tree_noise(key, "client", tree, sigma, "laplace")
+
+    def combine_noise_tree(self, key, tree, ctx):
+        return _tree_noise(key, "combine", tree, self.sigma(ctx), "laplace")
 
     def noise_profile(self):
         return NoiseProfile(distribution="laplace",
@@ -416,6 +482,14 @@ class ScheduledMechanism(PrivacyMechanism):
         return self.inner.server_combine(psi, draws, A,
                                          self._inner_ctx(ctx, psi.device),
                                          cache=cache, gate=gate)
+
+    def client_noise_tree(self, key, tree, L, ctx):
+        return self.inner.client_noise_tree(
+            key, tree, L, self._inner_ctx(ctx, key.draws.device))
+
+    def combine_noise_tree(self, key, tree, ctx):
+        return self.inner.combine_noise_tree(
+            key, tree, self._inner_ctx(ctx, key.draws.device))
 
     def noise_profile(self):
         inner = self.inner.noise_profile()

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import os
 from collections import deque
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -135,6 +136,33 @@ class Draws:
         gen = self.generator(step, stream)
         return torch.randn(tuple(shape), generator=gen, device=self.device)
 
+    def laplace_uniform_tree(self, step: int, stream: str, shapes) -> list:
+        """One draw of ``stream`` for a tree: f32 uniforms in the Laplace
+        sampler's open interval, one tensor a leaf of ``shapes``, drawn
+        leaf after leaf from the round's generator."""
+        gen = self.generator(step, stream)
+        return [torch.rand(tuple(s), generator=gen, device=self.device)
+                * (LAPLACE_U_HI - LAPLACE_U_LO) + LAPLACE_U_LO
+                for s in shapes]
+
+    def normal_tree(self, step: int, stream: str, shapes) -> list:
+        """One draw of ``stream`` for a tree: f32 standard normals, one
+        tensor a leaf of ``shapes``."""
+        gen = self.generator(step, stream)
+        return [torch.randn(tuple(s), generator=gen, device=self.device)
+                for s in shapes]
+
+
+class DrawKey(NamedTuple):
+    """A mesh train state's randomness, where the reference's state holds
+    a ``jax.random`` key: the run's draws and the round the next step
+    draws at.  Each step draws at ``round`` and hands ``round + 1`` on, as
+    the reference splits its key and threads the first part on, so a
+    chain of steps replays; a rerun from one state needs draws that have
+    not drawn that round yet (a new :class:`Draws` of the same seed)."""
+    draws: Draws
+    round: int
+
 
 class ReplayDraws(Draws):
     """Draws made in advance, handed out in the order the run asks for them.
@@ -142,7 +170,9 @@ class ReplayDraws(Draws):
     ``rounds[i]`` lists round i's draws as ``(stream, kind, value)`` with
     kind one of ``cohort`` or ``weighted_cohort`` (value = (client_idx,
     batch_idx)),
-    ``mask_seeds``, ``laplace_uniform`` or ``normal``.  Every request is
+    ``mask_seeds``, ``laplace_uniform`` or ``normal``, or (the mesh
+    step's noise trees) ``laplace_uniform_tree`` or ``normal_tree`` (value
+    = a list of arrays, one a leaf).  Every request is
     checked against the next entry's round, stream, kind and shape, so a
     run that asks in another order than the reference fails loudly.  In
     the sanitizer's scope (:func:`repro_torch.sanitize.sanitizer_scope`) a
@@ -215,6 +245,21 @@ class ReplayDraws(Draws):
     def normal(self, step, stream, shape):
         return self._tensor(self._next(step, stream, "normal", shape),
                             torch.float32)
+
+    def _tree(self, step, stream, kind, shapes):
+        v = self._next(step, stream, kind)
+        got = [tuple(np.shape(x)) for x in v]
+        if got != [tuple(s) for s in shapes]:
+            raise RuntimeError(f"replay shape: round {step} {stream}/{kind} "
+                               f"asked {[tuple(s) for s in shapes]}, has "
+                               f"{got}")
+        return [self._tensor(x, torch.float32) for x in v]
+
+    def laplace_uniform_tree(self, step, stream, shapes):
+        return self._tree(step, stream, "laplace_uniform_tree", shapes)
+
+    def normal_tree(self, step, stream, shapes):
+        return self._tree(step, stream, "normal_tree", shapes)
 
     @property
     def remaining(self) -> int:

@@ -56,7 +56,7 @@ def gfl_config(servers: int, clients: int, privacy: str, sigma: float,
 def make_grad_fn(model: Model, view: FlatView):
     """grad_fn(params [P, D], batch) -> [P, L, D]: each client's gradient
     of ``model.loss`` at its server's parameters, one forward and backward
-    each, written into one buffer."""
+    each (without remat, as the example's), written into one buffer."""
     def grad_fn(params: torch.Tensor, batch: dict) -> torch.Tensor:
         P, L = batch["tokens"].shape[:2]
         out = torch.empty((P, L, view.size), dtype=params.dtype,
@@ -64,7 +64,8 @@ def make_grad_fn(model: Model, view: FlatView):
         for p in range(P):
             for l in range(L):
                 b = {k: v[p, l] for k, v in batch.items()}
-                view.grad(model, params[p], lambda: model.loss(**b)[0],
+                view.grad(model, params[p],
+                          lambda: model.loss(**b, remat=False)[0],
                           out=out[p, l])
         return out
     return grad_fn

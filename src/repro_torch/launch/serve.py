@@ -19,8 +19,15 @@ block and whisper's self-attention too) goes through the K8 kernel there,
 MLA decode attends in its latent space, and whisper's cross-attention
 and the Mamba2 and RWKV-6 recurrences run in plain torch (the reference
 has no kernel for them).  Prints the prefill time and the decode rate.
-The reference's ``--mesh`` (several cards) is not ported: ROADMAP queue
-1, item 20.
+
+``--mesh DxM`` (the reference's flag) splits the requests over the data
+ranks of a ``torch.distributed`` world (``torchrun``; one process holds
+every data position of its mesh) and gathers the tokens at the end;
+``1x1``, the default, is the one-process path.  A model axis above 1 is
+tensor parallelism, which the port does not run yet (ROADMAP item 20c).
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --reduced --mesh 2x1 --device cpu
 """
 from __future__ import annotations
 
@@ -29,8 +36,9 @@ import time
 
 import torch
 
-from repro_torch import resolve_device, rng
+from repro_torch import rng
 from repro_torch.configs.registry import get_config
+from repro_torch.launch.mesh import init_world, parse_mesh
 from repro_torch.models.model import Model
 
 
@@ -86,25 +94,45 @@ def main(argv=None) -> dict:
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--mesh", default="1x1",
+                    help="DxM: requests split over the data ranks")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    dev = init_world(args.device)
+    mesh = parse_mesh(args.mesh, dev)
+    if mesh.shape["model"] > 1:
+        raise NotImplementedError(
+            f"a model axis of {mesh.shape['model']} is tensor parallelism "
+            "over 'model', which the port does not run yet: ROADMAP item "
+            "20c.  Use a model axis of 1")
+    lay = mesh.layout()
+    if args.batch % lay["server_ranks"]:
+        raise ValueError(f"{args.batch} requests do not split over "
+                         f"{lay['server_ranks']} data ranks")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    # every rank draws the same weights and the whole batch, then serves
+    # its block of the requests
     gen = rng(args.seed, dev)
     model = Model.init(cfg, gen)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
-    out = generate(model, prompt, args.new_tokens,
-                   **stub_inputs(cfg, args.batch, gen))
+    inputs = stub_inputs(cfg, args.batch, gen)
+    per = args.batch // lay["server_ranks"]
+    rows = slice(lay["block"] * per, (lay["block"] + 1) * per)
+    out = generate(model, prompt[rows], args.new_tokens,
+                   **{k: v[rows] for k, v in inputs.items()})
+    out["tokens"] = mesh.all_gather_servers(out["tokens"])
     n = args.batch * args.new_tokens
-    print(f"prefill {args.batch}x{args.prompt_len} in "
-          f"{out['prefill_s'] * 1e3:.0f} ms ({dev})")
-    print(f"decoded {n} tokens in {out['decode_s'] * 1e3:.0f} ms "
-          f"({n / max(out['decode_s'], 1e-9):.0f} tok/s, {dev})")
+    if mesh.rank == 0:
+        print(f"prefill {args.batch}x{args.prompt_len} in "
+              f"{out['prefill_s'] * 1e3:.0f} ms ({dev}, {mesh.world} "
+              f"rank(s))")
+        print(f"decoded {n} tokens in {out['decode_s'] * 1e3:.0f} ms "
+              f"({n / max(out['decode_s'], 1e-9):.0f} tok/s, {dev})")
     if not torch.isfinite(out["logits"].float()).all():
         raise RuntimeError("non-finite logits")
     return out

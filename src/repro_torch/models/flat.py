@@ -18,6 +18,14 @@ back.
     with view.bind(model, w):                   # the model reads w
         loss, aux = model.loss(tokens, labels)
     g = view.grad(model, w, lambda: model.loss(tokens, labels)[0])  # [D]
+
+The same leaves as a tree, the mesh trainer's form: one tensor a leaf of
+the reference's tree, keyed by its ``/``-joined path (``blocks/attn/w_q``
+[n_layers, ...]), in the flat order and each in its own dtype.
+
+    tree = view.tree(model)                     # {path: tensor}
+    loss, grads = view.tree_grad(model, tree,
+                                 lambda: model.loss(tokens, labels)[0])
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ from torch import nn
 
 # the port's block stacks: module attribute -> the reference's stack key
 _STACKS = ("blocks", "enc_blocks")
+# the reference's stacked leaves: [n_layers, ...] under these keys
+_REF_STACKS = ("blocks", "dense_blocks", "enc_blocks")
 
 
 class Leaf(NamedTuple):
@@ -147,3 +157,56 @@ class FlatView:
                               device=flat.device)
         self.scatter(out, grads)
         return out
+
+    # ------------------------------------------------------------- trees
+
+    @staticmethod
+    def key(leaf: Leaf) -> str:
+        """The leaf's ``/``-joined reference path (the tree's key)."""
+        return "/".join(leaf.path)
+
+    @staticmethod
+    def stacked(leaf: Leaf) -> bool:
+        """True for a block-stack leaf: [n_layers, ...] in the tree."""
+        return leaf.path[0] in _REF_STACKS
+
+    def tree_shapes(self) -> dict:
+        """{key: (shape, dtype)} of the tree, a stacked leaf's shape with
+        its layer dimension."""
+        return {self.key(lf): ((len(lf.names),) + lf.shape
+                               if self.stacked(lf) else lf.shape, lf.dtype)
+                for lf in self.leaves}
+
+    def tree(self, model: nn.Module) -> dict:
+        """The parameters as the reference's tree: {key: tensor}, a stacked
+        leaf's layers stacked into one new tensor."""
+        params = dict(model.named_parameters())
+        return {self.key(lf): (torch.stack([params[n].detach()
+                                            for n in lf.names])
+                               if self.stacked(lf)
+                               else params[lf.names[0]].detach().clone())
+                for lf in self.leaves}
+
+    def tree_tensors(self, tree: dict) -> dict:
+        """{parameter name: tensor} of a tree: a stacked leaf's layers are
+        its ``unbind`` views, so a gradient flows back as one stack."""
+        out = {}
+        for lf in self.leaves:
+            t = tree[self.key(lf)]
+            parts = t.unbind(0) if self.stacked(lf) else (t,)
+            out.update(zip(lf.names, parts))
+        return out
+
+    def tree_grad(self, model: nn.Module, tree: dict,
+                  loss_fn: Callable[[], torch.Tensor]):
+        """(loss, {key: gradient}) of ``loss_fn()`` at the parameters
+        ``tree``, each gradient in its leaf's dtype and shape; the
+        backward (and any remat recompute) runs with the tree bound."""
+        leaves = {k: t.detach().requires_grad_() for k, t in tree.items()}
+        with torch.enable_grad(), self.bind(model,
+                                            self.tree_tensors(leaves)):
+            loss = loss_fn()
+            # a leaf the loss does not read gets zeros, as jax.grad's
+            grads = torch.autograd.grad(loss, list(leaves.values()),
+                                        materialize_grads=True)
+        return loss.detach(), dict(zip(leaves, grads))

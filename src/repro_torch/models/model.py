@@ -39,9 +39,14 @@ reference's type promotion runs it: a bf16 model's encoder, and its cross
 K/V, in f32 on the f32 frames the serve entry draws.  The cache keeps the
 cross K/V in f32, as the reference's prefill does.
 Logits cover the vocab padded to a multiple of 128, as the reference's
-do.  ``remat`` is accepted and ignored: it changes memory, not values.
+do.  ``forward`` and ``loss`` take the reference's ``remat`` (default on)
+and ``remat_policy``: while autograd records, each block the reference
+wraps in ``jax.checkpoint`` runs under ``torch.utils.checkpoint`` and is
+recomputed in the backward (:func:`_remat`); it moves memory, not values.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -50,6 +55,14 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, rwkv, ssm
+
+# the reference's Model.REMAT_POLICIES, by name and by the jax policy each
+# names: None and "full" recompute every activation of a block, "dots"
+# keeps the products without batch dimensions, "nothing" keeps nothing
+REMAT_POLICIES = {None: None, "full": None, "dots": "dots",
+                  "nothing": None,
+                  "dots_with_no_batch_dims_saveable": "dots",
+                  "nothing_saveable": None}
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -145,6 +158,36 @@ def _store_rwkv(cache: dict, i: int, state) -> None:
     """Write layer i's (wkv, att_x, ffn_x) into the cache, in place."""
     for name, t in zip(("wkv", "att_x", "ffn_x"), state):
         cache[name][i].copy_(t)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``"dots"``: keep the outputs of the
+    2-D products (a weight times the flattened activations), recompute the
+    rest, batched attention products included."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: bool, policy):
+    """``fn`` (one block) under activation checkpointing when ``remat`` is
+    set and autograd is recording, as the reference wraps a block's scan
+    body in ``jax.checkpoint``; ``fn`` itself otherwise."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; expected one of "
+                         f"{sorted(map(str, REMAT_POLICIES))}")
+    if not remat or not torch.is_grad_enabled():
+        return fn
+    from torch.utils import checkpoint as ckpt
+    kw = {}
+    if REMAT_POLICIES[policy] == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
 
 
 def _hybrid_groups(cfg: ModelConfig):
@@ -350,32 +393,47 @@ class Model(nn.Module):
                 remat_policy: str | None = None) -> torch.Tensor:
         """Full-sequence logits [B, S, V] (the train / prefill compute; a
         vlm's S counts its image tokens); the router aux summed over the
-        MoE layers is kept as ``last_aux`` (a zero without MoE layers)."""
+        MoE layers is kept as ``last_aux`` (a zero without MoE layers).
+        ``remat`` checkpoints each decoder block (the Mamba2 blocks of the
+        hybrid family, not its shared block; not the whisper encoder), as
+        the reference does."""
         cfg = self.cfg
         x = self._embed_inputs(tokens, image_embeds)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device).expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def block(fn):
+            return _remat(fn, remat, remat_policy)
+
         if cfg.family == "audio":
             enc_out = self._encode(frames)
+            body = block(lambda x, bp: self._whisper_block(
+                bp, x, positions, enc_out)[0])
             for bp in self.blocks:
-                x = self._whisper_block(bp, x, positions, enc_out)[0]
+                x = body(x, bp)
         elif cfg.family == "ssm":
+            body = block(lambda x, bp: _rwkv_block(bp, x, cfg)[0])
             for bp in self.blocks:
-                x, _ = _rwkv_block(bp, x, cfg)
+                x = body(x, bp)
         elif cfg.family == "hybrid":
+            body = block(lambda x, bp: _mamba_block(bp, x, cfg)[0])
             for g0, g1, has_attn in _hybrid_groups(cfg):
                 for bp in self.blocks[g0:g1]:
-                    x, _ = _mamba_block(bp, x, cfg)
+                    x = body(x, bp)
                 if has_attn:
                     x = self._shared_block(x, positions)[0]
         else:
-            for bp in self.blocks:
+            def dense(x, bp):
                 h = layers.rms_norm(bp["ln1"], x, cfg.norm_eps)
                 x = x + _attn(bp, h, positions, cfg)
                 h = layers.rms_norm(bp["ln2"], x, cfg.norm_eps)
                 out, a = _ffn(bp, h, cfg)
-                x = x + out
+                return x + out, a
+
+            body = block(dense)
+            for bp in self.blocks:
+                x, a = body(x, bp)
                 if a is not None:
                     aux = aux + a
         self.last_aux = aux
@@ -391,7 +449,8 @@ class Model(nn.Module):
         {"ce", "router_aux"}).  A vlm's logits are taken past its image
         tokens, as its labels cover the text alone."""
         logits = self.forward(tokens, image_embeds=image_embeds,
-                              frames=frames)
+                              frames=frames, remat=remat,
+                              remat_policy=remat_policy)
         if self.cfg.family == "vlm":
             logits = logits[:, image_embeds.shape[1]:, :]
         ce = layers.cross_entropy(logits, labels, mask)

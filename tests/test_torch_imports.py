@@ -42,6 +42,13 @@ def _port_modules():
         for p in PORT.rglob("*.py") if p.name != "__init__.py")
 
 
+def test_import_check_covers_the_mesh_slice():
+    mesh = {"repro_torch.launch.mesh", "repro_torch.launch.sharding",
+            "repro_torch.launch.steps", "repro_torch.launch.train",
+            "repro_torch.launch.private_serving"}
+    assert mesh <= set(_port_modules())
+
+
 def test_import_check_covers_the_serving_slice():
     serving = {"repro_torch.models.layers", "repro_torch.models.attention",
                "repro_torch.models.model", "repro_torch.launch.serve",

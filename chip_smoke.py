@@ -341,6 +341,21 @@ Phases, each printing JSON lines:
              records).  A `profiler` line at the end reports the offsets
              (a marker's start less its launch call's) over the run's
              traces.
+17. analysis — gflint for the port: `python -m repro_torch.analysis` as a
+             user runs it, over the tree against
+             analysis/baseline_torch.json, must exit 0 (findings per rule
+             and the baselined count printed).  Then GFL003's claim at
+             run time: the four round bodies (StagedStep, the resilience
+             runtime's, the population engine's weighted one and the
+             event engine's tick) each run two eager rounds through their
+             entries (run_gfl at gfl-logreg's full size, static and under
+             every fault at once; run_gfl_population under the population
+             phase's "everything" specs and run_gfl_async under the event
+             phase's uniform spec, both at K = 1000), kernels on, with
+             every body and run_rounds' closure under
+             torch.cuda.set_sync_debug_mode("error") and each host stage()
+             outside it: none may raise.  A toy body calling .item() on a
+             CUDA tensor under the same mode must raise.
 
 Tolerances: f32 outputs within atol 1e-5 of the plain version (the
 reference's parity contract, docs/kernels.md); fold_norms' f32 sums within
@@ -4542,6 +4557,139 @@ KERNELS = {
 }
 
 
+# -------------------------------------------------------------- analysis
+
+# the four round bodies (StagedStep and its overrides) the phase must run
+ANALYSIS_BODIES = ("StagedStep", "StagedResilientStep", "StagedWeightedStep",
+                   "StagedEventTick")
+ANALYSIS_ROUNDS = 2             # eager rounds of each body, sync-checked
+ANALYSIS_K = 1000               # clients a server of the lazy populations
+ANALYSIS_FAULT = "links:0.2+outage:0.1+straggler:0.3,stale=2+dropout:0.3"
+
+
+def analysis_cli() -> dict:
+    """``python -m repro_torch.analysis`` as a user runs it, over the tree
+    against analysis/baseline_torch.json: exit 0, findings per rule."""
+    import os
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--format", "json"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    secs = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"analysis: python -m repro_torch.analysis exited "
+            f"{proc.returncode}:\n{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    out = json.loads(proc.stdout)
+    per_rule: dict = {}
+    for f in out["findings"]:
+        per_rule[f["rule"]] = per_rule.get(f["rule"], 0) + 1
+    return {"cli_seconds": secs, "exit": proc.returncode,
+            "findings_per_rule": per_rule, "baselined": out["baselined"],
+            "new": len(out["new"]), "stale": len(out["stale"])}
+
+
+def sync_checked_rounds(torch, graphed, ran):
+    """A stand-in for ``graphed.run_rounds`` that runs the rounds through
+    its eager executor with every round body, and run_rounds' own closure,
+    under ``torch.cuda.set_sync_debug_mode("error")``, and each host
+    ``stage()`` outside it, as the eager executor calls it: a host sync in
+    a body raises.  Mode 0 is restored in a ``finally``.  ``ran`` gets the
+    class of each step run to its end."""
+    run_rounds = graphed.run_rounds
+
+    def checked(step, draw_batch, draws, iters, w_ref, *, capture=True):
+        stage = step.stage
+
+        def host_stage(i, d):
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return stage(i, d)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+
+        step.stage = host_stage
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = run_rounds(step, draw_batch, draws, iters, w_ref,
+                             capture=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            del step.stage
+        ran.append(type(step).__name__)
+        return out
+
+    return checked
+
+
+def phase_analysis(torch) -> dict:
+    """gflint's CLI over the tree, then GFL003's claim held at run time:
+    one eager round pair of each round body under the sync check (module
+    docstring, phase 17), then a toy body that syncs, which must raise."""
+    import numpy as np
+    from dataclasses import replace
+    from repro_torch import rng
+    from repro_torch.configs import gfl_logreg
+    from repro_torch.core.events import run_gfl_async
+    from repro_torch.core.population import (graphed, population_from_spec,
+                                             run_gfl_population)
+    from repro_torch.core.simulate import generate_problem, run_gfl
+
+    rec = analysis_cli()
+    emit({"phase": "analysis", **rec})
+    t0 = time.perf_counter()
+    base = replace(gfl_logreg.GFL, privacy="hybrid", use_kernels=True)
+    prob = generate_problem(rng(0, "cuda"), P=base.num_servers,
+                            K=base.clients_per_server,
+                            N=gfl_logreg.SAMPLES_PER_CLIENT,
+                            M=gfl_logreg.DIM, rho=gfl_logreg.RHO)
+    weighted = replace(base, population=POP_EVERYTHING[0],
+                       cohort=POP_EVERYTHING[1], fault=POP_EVERYTHING[2],
+                       clients_per_server=ANALYSIS_K)
+    events = replace(events_config("uniform"), clients_per_server=ANALYSIS_K)
+    pops = {name: population_from_spec(cfg, device="cuda")
+            for name, cfg in (("weighted", weighted), ("events", events))}
+    ran: list = []
+    real = graphed.run_rounds
+    graphed.run_rounds = sync_checked_rounds(torch, graphed, ran)
+    try:
+        run_gfl(prob, base, iters=ANALYSIS_ROUNDS, seed=1)
+        run_gfl(prob, replace(base, fault=ANALYSIS_FAULT),
+                iters=ANALYSIS_ROUNDS, seed=1)
+        run_gfl_population(pops["weighted"], weighted, iters=ANALYSIS_ROUNDS,
+                           seed=1, w_ref=np.zeros(pops["weighted"].dim,
+                                                  np.float32),
+                           device="cuda")
+        run_gfl_async(pops["events"], events, ticks=ANALYSIS_ROUNDS, seed=1,
+                      w_ref=np.zeros(pops["events"].dim, np.float32),
+                      device="cuda")
+    finally:
+        graphed.run_rounds = real
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    require(sorted(ran) == sorted(ANALYSIS_BODIES),
+            f"analysis: round bodies run under the sync check {ran}, "
+            f"expected one run each of {ANALYSIS_BODIES}")
+    bodies_s = time.perf_counter() - t0
+
+    x = torch.ones(4, device="cuda")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x.sum().item()
+        raised = None
+    except RuntimeError as exc:
+        raised = str(exc).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    require(raised is not None,
+            "analysis: a toy body calling .item() on a CUDA tensor ran "
+            "under set_sync_debug_mode('error') without raising")
+    out = {"phase": "analysis", "bodies": ran, "rounds": ANALYSIS_ROUNDS,
+           "bodies_seconds": bodies_s, "toy_sync_raised": raised}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4578,6 +4726,7 @@ def main() -> int:
         mesh = timed("mesh", phase_mesh, torch)
         swa_row = timed("swa", phase_swa, torch)
         launches["swa_decode"] = timed("serve", phase_serve, torch)
+        timed("analysis", phase_analysis, torch)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

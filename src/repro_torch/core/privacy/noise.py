@@ -29,16 +29,18 @@ _CONSTANTS: dict = {}
 def f32_scalar(x, device) -> torch.Tensor:
     """``x`` as a 0-d f32 tensor on ``device``.  A tensor (a round's
     staged sigma) passes through; a Python number is made once per
-    (device, value) and kept: made in every round it would be a
-    synchronous copy from the host each time, which a CUDA graph cannot
-    capture."""
+    (device, value) and kept.  It is made by a fill on the device, not
+    copied from the host: a copy from pageable memory waits for the
+    device, which a round body may not do (gflint GFL003; an eager round
+    under ``torch.cuda.set_sync_debug_mode("error")`` raises on it), and
+    which a CUDA graph cannot capture."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
     key = (torch.device(device), float(x))
     t = _CONSTANTS.get(key)
     if t is None:
-        t = _CONSTANTS[key] = torch.tensor(float(x), dtype=torch.float32,
-                                           device=device)
+        t = _CONSTANTS[key] = torch.full((), float(x), dtype=torch.float32,
+                                         device=device)
     return t
 
 

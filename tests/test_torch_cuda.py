@@ -1431,3 +1431,20 @@ def test_reduced_model_backward_on_cuda_matches_the_cpu(cuda, arch):
         assert scale > 0, lf.path
         torch.testing.assert_close(grads[1][lf.offset:lf.offset + n], want,
                                    atol=1e-5 * scale, rtol=1e-4)
+
+
+def test_round_constants_are_made_without_a_sync(cuda):
+    """``f32_scalar`` makes a constant new to the process by a fill on the
+    card, not a copy from the host: an eager round body under the sync
+    check never waits on its first use (gflint GFL003's finding on the
+    card), and the value is bitwise the f32 of the number."""
+    from repro_torch.core.privacy.noise import f32_scalar
+    value = 0.1234567891
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = f32_scalar(value, "cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert t.dtype == torch.float32 and t.dim() == 0
+    assert t.cpu().reshape(1).view(torch.int32).item() == \
+        torch.tensor([value], dtype=torch.float32).view(torch.int32).item()

@@ -165,6 +165,27 @@ def test_import_check_covers_the_training_and_last_families_slice():
             PORT / "data" / "__init__.py"} <= walked
 
 
+def test_import_check_covers_the_analysis_slice():
+    slice_ = {"repro_torch.analysis.framework",
+              "repro_torch.analysis.baseline",
+              "repro_torch.analysis.cli",
+              "repro_torch.analysis.__main__",
+              "repro_torch.analysis.rules._graph",
+              "repro_torch.analysis.rules._torch",
+              "repro_torch.analysis.rules.keys",
+              "repro_torch.analysis.rules.accounting",
+              "repro_torch.analysis.rules.tracing",
+              "repro_torch.analysis.rules.parity",
+              "repro_torch.analysis.rules.specs",
+              "repro_torch.analysis.rules.callbacks",
+              "repro_torch.analysis.rules.bench",
+              "repro_torch.analysis.rules.net"}
+    assert slice_ <= set(_port_modules())
+    walked = set(_port_files())
+    assert {PORT / "analysis" / "__init__.py",
+            PORT / "analysis" / "rules" / "__init__.py"} <= walked
+
+
 def test_federated_lm_without_card_raises(monkeypatch):
     from repro_torch.launch import federated_lm
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

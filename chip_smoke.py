@@ -356,6 +356,31 @@ Phases, each printing JSON lines:
              torch.cuda.set_sync_debug_mode("error") and each host stage()
              outside it: none may raise.  A toy body calling .item() on a
              CUDA tensor under the same mode must raise.
+18. tp     — tensor parallelism for serving: four ranks spawned (the
+             fleet phase's spawn context, each joined within TP_JOIN_S)
+             that share the card over gloo (NCCL takes no two ranks on
+             one GPU; gloo takes CUDA tensors in all_reduce, the one
+             collective the split forward runs) serve on mesh 1x4 through
+             Model.init(group=) / prefill / decode_step: mixtral-8x7b at
+             the serve phase's 16 layers (the ff split, GQA: K8 on each
+             rank's 8 query and 2 K/V heads), request B, and
+             deepseek-v2-lite-16b at full depth (MLA, 64 experts
+             expert-parallel, 16 a rank), request A.  Each rank draws
+             every leaf whole from seed 0 and keeps its block, draws the
+             serve phase's prompts, and teacher-forces the 32 decode steps
+             on the tokens of the serve phase's 1 x 1 run of the same
+             request, whose prefill and step logits it recorded, and
+             every MoE routing call on the experts that run chose
+             (ForcedRoutes: a route is discrete, and the float order of
+             the split sums flips near ties, each of which moves a
+             sequence's logits by their own size), each rank's own
+             choice differing only at a near tie (below): the prefill and
+             every step's logits within the bound below, every
+             sequence's first greedy token equal.  K8
+             counted from 0 on every rank (16 layers x 32 steps each) and
+             held against its plain version on live inputs at the rank's
+             shape; none for MLA.  Prints each rank's prefill ms, decode
+             ms a step, weight bytes and peak bytes.
 
 Tolerances: f32 outputs within atol 1e-5 of the plain version (the
 reference's parity contract, docs/kernels.md); fold_norms' f32 sums within
@@ -376,6 +401,19 @@ plain version's add-and-take-away; each f32 add rounds by at most 2^-24 of
 its magnitude, which is below L scale); K6 in f32 within atol = rtol =
 1e-5 and K7 within atol 1e-6, the reference's own limits
 (tests/test_kernels.py).
+The tp logits: a rank of M splits each of the 2L sublayer outputs of the
+residual stream into M partial products, each rounded to bf16 before the
+sum (bf16_tol's model: half an ulp each), so each all_reduce moves a
+sublayer's output by up to M half ulps, 2^-9 M of its size, where the
+1 x 1 run rounds once.  Carried to the logits with a gain of 1 and added
+along the stream, the worst case is 2L M 2^-9 max|logits| (max abs,
+TP_LOGITS_ULPS of them: 2L M half ulps); added as independent errors
+(a random walk), sqrt(2L) M 2^-9 of the logits' RMS (the RMS of the
+difference, the gate's second part).  A wrong split moves the logits by
+their own size.  The router's input moves by the same worst case, so a
+rank may choose other experts than the 1 x 1 run only where the forced
+ones' probability lies within 2L M 2^-9 of its top one below its own
+k-th.
 The fig2 gates, both on the reference's problem: the reference's tails
 (FIG2_REF_TAILS) come from benchmarks/fig2_convergence.py at its defaults
 on the CPU, and the spread of its repeats on that problem from
@@ -489,9 +527,12 @@ SWA_PROBE_SHAPES = [(SWA_SERVE_SHAPE, "bfloat16"),
                     ((32, 32, 32, 2047, 96), "bfloat16"),
                     (SWA_MIXTRAL_SHAPE, "bfloat16"),
                     (SWA_ZAMBA2_SHAPE, "bfloat16")]
+SWA_TP_SHAPE = (4, 8, 2, 1064, 128)          # mixtral at 1x4: a rank's heads
 SWA_SHAPES = [(SWA_SERVE_SHAPE, "bfloat16"), ((4, 32, 32, 1064, 96), "bfloat16"),
               (SWA_MIXTRAL_SHAPE, "bfloat16"),
               ((4, 32, 8, 1064, 128), "bfloat16"),
+              ((4, 8, 2, 4096, 128), "bfloat16"), (SWA_TP_SHAPE, "bfloat16"),
+              ((4, 8, 2, 3944, 128), "bfloat16"),    # llava's B at 1x4
               (SWA_ZAMBA2_SHAPE, "bfloat16"),
               ((4, 32, 32, 1064, 64), "bfloat16"),
               (SWA_WHISPER_SHAPE, "bfloat16"),
@@ -4149,11 +4190,11 @@ class MoETap:
     def __exit__(self, *exc):
         self.moe.moe_forward = self.orig
 
-    def __call__(self, params, x, cfg, stats=None):
+    def __call__(self, params, x, cfg, stats=None, group=None):
         i = self.calls
         self.calls += 1
         st = self.stats["prefill" if i < self.n_moe else "decode"]
-        out, aux = self.orig(params, x, cfg, st)
+        out, aux = self.orig(params, x, cfg, st, group)
         if i == self.n_moe:
             self.captured = (params, x.clone(), out.clone())
         return out, aux
@@ -4434,7 +4475,9 @@ def phase_serve(torch):
     """Each of SERVE_MODELS at full width (mixtral's depth cut), in bf16
     (but SERVE_F32_LEAVES), random weights from seed 0, its requests
     through ``launch.serve.generate``, each model freed before the next.
-    Returns the K8 launches of the requests."""
+    Returns the K8 launches of the requests, and the tp phase's 1 x 1
+    references (TP_REQUESTS: tokens, prefill and step logits, on the
+    host)."""
     import dataclasses
     from repro_torch import rng
     from repro_torch.configs.registry import get_config
@@ -4444,7 +4487,7 @@ def phase_serve(torch):
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.model import Model
 
-    launches = 0
+    launches, refs = 0, {}
     for arch, requests in SERVE_MODELS:
         t_arch = time.perf_counter()
         cfg, cut = serve_config(arch)
@@ -4494,8 +4537,18 @@ def phase_serve(torch):
               "layers": cfg.num_layers, "d_model": cfg.d_model,
               "reduced": cut, "init_s": init_s})
         for name, B, S in requests:
-            rec, prompt, inputs, out = serve_request(
-                torch, model, name, B, S, gen, moe_mod, ops)
+            tp_ref = TP_REQUESTS.get(arch) == name    # the tp phase's 1 x 1
+            with (LogitsTap(model, moe_mod) if tp_ref
+                  else contextlib.nullcontext()) as logits_tap:
+                rec, prompt, inputs, out = serve_request(
+                    torch, model, name, B, S, gen, moe_mod, ops)
+            if tp_ref:
+                refs[arch] = {"request": name,
+                              "tokens": out["tokens"].cpu(),
+                              "prefill": logits_tap.prefill.cpu(),
+                              "steps": torch.stack(logits_tap.steps).cpu(),
+                              "routes": [r.cpu() for r in logits_tap.routes]}
+            del logits_tap
             launches += rec["launches"]["swa_decode"]
             cache_b = rec["step_cache_bytes"]
             step_bytes = weight_bytes - table_bytes + reread_bytes + cache_b
@@ -4532,7 +4585,317 @@ def phase_serve(torch):
         emit({"phase": "serve", "arch": arch,
               "freed_to_bytes": torch.cuda.memory_allocated(),
               "seconds": time.perf_counter() - t_arch})
-    return launches
+    return launches, refs
+
+
+class LogitsTap:
+    """Records the logits of a model's prefill and of each decode step,
+    and the experts every MoE routing call chose, during a request
+    (copies on the card), passing every call through: the 1 x 1 run the
+    tp phase holds its ranks against."""
+
+    def __init__(self, model, moe):
+        self.model, self.moe = model, moe
+        self.prefill, self.steps, self.routes = None, [], []
+
+    def __enter__(self):
+        prefill, decode = self.model.prefill, self.model.decode_step
+        route = self.route = self.moe.route
+
+        def tap_route(*args, **kw):
+            out = route(*args, **kw)
+            self.routes.append(out[2].clone())
+            return out
+
+        self.moe.route = tap_route
+
+        def tap_prefill(*args, **kw):
+            logits, cache = prefill(*args, **kw)
+            self.prefill = logits.clone()
+            return logits, cache
+
+        def tap_decode(*args, **kw):
+            logits, cache = decode(*args, **kw)
+            self.steps.append(logits.clone())
+            return logits, cache
+
+        self.model.prefill, self.model.decode_step = tap_prefill, tap_decode
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.prefill, self.model.decode_step
+        self.moe.route = self.route
+
+
+class ForcedRoutes:
+    """Stands in for ``models.moe.route`` in a tp rank: each call takes
+    the experts the 1 x 1 run chose at the same call (``routes``, in its
+    order), weighted by this rank's own probabilities, so the split run
+    and the 1 x 1 one differ only in float order.  On the card it keeps,
+    for each call, the rows whose own top-k differs and the largest tie
+    gap: the rank's own k-th probability less its least of the forced
+    experts', over its top one (0 where the sets agree)."""
+
+    def __init__(self, torch, moe, routes):
+        self.torch, self.moe, self.routes = torch, moe, routes
+        self.orig, self.calls, self.flips, self.gaps = moe.route, 0, [], []
+
+    def __enter__(self):
+        self.moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+    def __call__(self, params, xf, m):
+        torch = self.torch
+        probs, own_vals, own = self.orig(params, xf, m)
+        forced = self.routes[self.calls].to(xf.device)
+        self.calls += 1
+        raw = probs.gather(1, forced)
+        top = torch.topk(probs, m.top_k, dim=-1).values
+        self.flips.append((own.sort(-1).values
+                           != forced.sort(-1).values).any(-1).sum())
+        self.gaps.append(((top[:, -1] - raw.min(-1).values) / top[:, 0])
+                         .max())
+        vals = raw / torch.clamp(raw.sum(-1, keepdim=True), min=1e-9)
+        return probs, vals, forced
+
+
+# ------------------------------------------------------------------- tp
+
+TP_MESH = "1x4"
+TP_RANKS = 4
+# arch: the request served split, as the serve phase serves it whole
+TP_REQUESTS = {"mixtral-8x7b": "B", "deepseek-v2-lite-16b": "A"}
+TP_JOIN_S = 400             # a rank's join limit, seconds
+TP_LIVE_STEPS = (0, SERVE_NEW_TOKENS - 1)   # K8 held live at these steps
+
+
+def tp_rank(rank, port, arch, ref_path, out_dir):
+    """One rank of the tp phase (a spawned process): the split model of
+    ``arch`` on ``cuda:0`` in a gloo world of TP_RANKS, its request
+    teacher-forced on the 1 x 1 tokens at ``ref_path``; writes its record
+    to ``out_dir/rank<r>.json``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=TP_RANKS,
+                            timeout=timedelta(seconds=TP_JOIN_S))
+    try:
+        rec = tp_serve(torch, rank, arch, torch.load(ref_path))
+    finally:
+        dist.destroy_process_group()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def tp_serve(torch, rank, arch, ref):
+    """The body of :func:`tp_rank`: init, prefill, the teacher-forced
+    steps, their errors against ``ref`` and the live K8 checks."""
+    from repro_torch import kernels as K
+    from repro_torch import rng
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import swa_decode_attention_plain
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import Model
+    from repro_torch.models.parallel import ModelGroup
+
+    mesh = parse_mesh(TP_MESH, "cuda:0", "gloo")
+    group = ModelGroup.of(mesh)
+    cfg, _ = serve_config(arch)
+    gen = rng(0, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = Model.init(cfg, gen, group=group)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    # the serve phase's draws after the init: each request's prompt and
+    # stub inputs in turn
+    for name, B, S in dict(SERVE_MODELS)[arch]:
+        prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device="cuda")
+        inputs = stub_inputs(cfg, B, gen)
+        if name == ref["request"]:
+            break
+    n_attn = attn_per_step(cfg)
+    keep = [(a, step) for a in sorted({0, n_attn - 1}) if n_attn
+            for step in TP_LIVE_STEPS]
+    toks = ref["tokens"].cuda()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    with DecodeTap(ops, n_attn, keep) as tap, \
+            ForcedRoutes(torch, moe_mod, ref["routes"]) as routes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(prompt, **inputs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        steps = []
+        for t in range(SERVE_NEW_TOKENS):
+            step_logits, cache = model.decode_step(toks[:, t], cache)
+            steps.append(step_logits)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches = K.LAUNCHES["swa_decode"]
+    peak = torch.cuda.max_memory_allocated()
+
+    def errs(got, want):
+        got, want = got.float().cpu(), want.float()
+        d = got - want
+        return {"max_abs_err": float(d.abs().max()),
+                "rms_err": float(d.square().mean().sqrt()),
+                "max_abs": float(want.abs().max()),
+                "rms": float(want.square().mean().sqrt()),
+                "finite": bool(torch.isfinite(got).all())}
+
+    live = {}
+    for (layer, step), (q, k, v, nv, got) in sorted(tap.captured.items()):
+        want = swa_decode_attention_plain(q, k, v, nv)
+        tol = bf16_tol(torch, want)
+        live[f"layer{layer}_step{step}"] = {
+            "shape": [q.shape[0], q.shape[1], k.shape[2], k.shape[1],
+                      q.shape[2]],
+            "nvalid": int(nv), "max_abs_err": max_err(torch, got, want),
+            "atol": tol[0], "rtol": tol[1],
+            "close": bool(torch.allclose(got.float(), want.float(),
+                                         atol=tol[0], rtol=tol[1]))}
+    return {"rank": rank, "group": [group.size, group.index],
+            "heads": [model.attn_cfg.num_heads, model.attn_cfg.num_kv_heads],
+            "layers": cfg.num_layers, "init_s": init_s,
+            "weight_bytes": weight_bytes, "peak_memory_bytes": peak,
+            "prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms_per_step": (t2 - t1) * 1e3 / SERVE_NEW_TOKENS,
+            "k8_launches": launches, "k8_calls": tap.calls,
+            "route_calls": [routes.calls, len(ref["routes"])],
+            "route_rows_flipped": int(sum(routes.flips)) if routes.flips
+            else 0,
+            "route_tie_gap_max": float(max(routes.gaps)) if routes.gaps
+            else 0.0,
+            "prefill": errs(logits, ref["prefill"]),
+            "steps": [errs(g, w) for g, w in zip(steps, ref["steps"])],
+            "first_tokens": logits.argmax(-1).tolist(),
+            "step_argmax_agree": sum(
+                bool(torch.equal(g.argmax(-1).cpu(), w.argmax(-1)))
+                for g, w in zip(steps, ref["steps"])),
+            "live_k8": live}
+
+
+def tp_within(e, L, M) -> dict:
+    """The tp logits gate (module docstring) on one errs record."""
+    worst = 2 * L * M * 2.0 ** -9 * e["max_abs"]
+    walk = math.sqrt(2 * L) * M * 2.0 ** -9 * e["rms"]
+    return {"atol": worst, "rms_tol": walk,
+            "ok": e["finite"] and e["max_abs_err"] <= worst
+            and e["rms_err"] <= walk}
+
+
+def phase_tp(torch, refs) -> dict:
+    """Tensor parallelism for serving (module docstring, phase 18).
+    Returns the K8 launches of the ranks' runs, each counted from 0."""
+    import multiprocessing as mp
+    import socket
+    import tempfile
+
+    M = int(TP_MESH.split("x")[1])
+    require(M == TP_RANKS and sorted(refs) == sorted(TP_REQUESTS),
+            f"tp: references for {sorted(refs)}, expected "
+            f"{sorted(TP_REQUESTS)}")
+    ctx = mp.get_context("spawn")
+    launches = 0
+    for arch, request in TP_REQUESTS.items():
+        t_arch = time.perf_counter()
+        cfg, cut = serve_config(arch)
+        L = cfg.num_layers
+        ref = refs[arch]
+        with tempfile.TemporaryDirectory(prefix="tp_smoke_") as root:
+            ref_path = Path(root) / "ref.pt"
+            torch.save(ref, ref_path)
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            procs = [ctx.Process(target=tp_rank,
+                                 args=(r, port, arch, str(ref_path), root))
+                     for r in range(TP_RANKS)]
+            for p in procs:
+                p.start()
+            deadline = time.perf_counter() + TP_JOIN_S
+            try:
+                for p in procs:
+                    p.join(max(1.0, deadline - time.perf_counter()))
+            finally:
+                hung = [p.pid for p in procs if p.is_alive()]
+                for p in procs:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+            codes = [p.exitcode for p in procs]
+            require(not hung and codes == [0] * TP_RANKS,
+                    f"tp {arch}: rank exit codes {codes}, still running "
+                    f"after {TP_JOIN_S} s: {hung}")
+            ranks = [json.loads((Path(root) / f"rank{r}.json").read_text())
+                     for r in range(TP_RANKS)]
+        want_first = ref["tokens"][:, 0].tolist()
+        want_k8 = attn_per_step(cfg) * SERVE_NEW_TOKENS
+        route_tol = 2 * L * M * 2.0 ** -9
+        steps = [e for rk in ranks for e in rk["steps"]]
+        worst_step = max(steps, key=lambda e: e["max_abs_err"] / e["max_abs"])
+        emit({"phase": "tp", "arch": arch, "request": request,
+              "mesh": TP_MESH, "backend": "gloo", "layers": L,
+              "reduced": cut,
+              "ranks": [dict({k: v for k, v in rk.items() if k != "steps"},
+                             steps_max_abs_err=max(
+                                 e["max_abs_err"] for e in rk["steps"]),
+                             steps_rms_err_max=max(
+                                 e["rms_err"] for e in rk["steps"]))
+                        for rk in ranks],
+              "prefill_ms_max": max(rk["prefill_ms"] for rk in ranks),
+              "decode_ms_per_step_max": max(rk["decode_ms_per_step"]
+                                            for rk in ranks),
+              "peak_memory_bytes_max": max(rk["peak_memory_bytes"]
+                                           for rk in ranks),
+              "prefill_gate": tp_within(ranks[0]["prefill"], L, M),
+              "worst_step": worst_step,
+              "worst_step_gate": tp_within(worst_step, L, M),
+              "route_tie_tol": route_tol,
+              "seconds": time.perf_counter() - t_arch})
+        for rk in ranks:
+            r = rk["rank"]
+            require(rk["group"] == [M, r],
+                    f"tp {arch} rank {r}: model group {rk['group']}")
+            require(rk["k8_launches"] == want_k8 == rk["k8_calls"],
+                    f"tp {arch} rank {r}: {rk['k8_launches']} K8 launches, "
+                    f"expected {want_k8}")
+            require(rk["route_calls"][0] == rk["route_calls"][1]
+                    and rk["route_tie_gap_max"] <= route_tol,
+                    f"tp {arch} rank {r}: routing calls {rk['route_calls']}"
+                    f", a flipped route's tie gap {rk['route_tie_gap_max']}"
+                    f" (limit {route_tol})")
+            require(rk["first_tokens"] == want_first,
+                    f"tp {arch} rank {r}: first greedy tokens "
+                    f"{rk['first_tokens']}, the 1 x 1 run's {want_first}")
+            for what, e in [("prefill", rk["prefill"])] + [
+                    (f"step {t}", e) for t, e in enumerate(rk["steps"])]:
+                gate = tp_within(e, L, M)
+                require(gate["ok"],
+                        f"tp {arch} rank {r} {what}: logits max abs err "
+                        f"{e['max_abs_err']} (limit {gate['atol']}), rms err "
+                        f"{e['rms_err']} (limit {gate['rms_tol']}), scale "
+                        f"{e['max_abs']}")
+            require(sorted(rk["live_k8"]) == sorted(
+                f"layer{a}_step{s}" for a in sorted({0, attn_per_step(cfg)
+                                                     - 1})
+                if attn_per_step(cfg) for s in TP_LIVE_STEPS)
+                    and all(c["close"] for c in rk["live_k8"].values()),
+                    f"tp {arch} rank {r}: live K8 checks {rk['live_k8']}")
+            launches += rk["k8_launches"]
+    return {"launches": launches}
 
 
 # ----------------------------------------------------------------- main
@@ -4725,8 +5088,10 @@ def main() -> int:
         train = timed("train", phase_train, torch)
         mesh = timed("mesh", phase_mesh, torch)
         swa_row = timed("swa", phase_swa, torch)
-        launches["swa_decode"] = timed("serve", phase_serve, torch)
+        launches["swa_decode"], tp_refs = timed("serve", phase_serve, torch)
         timed("analysis", phase_analysis, torch)
+        tp = timed("tp", phase_tp, torch, tp_refs)
+        del tp_refs
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4741,6 +5106,7 @@ def main() -> int:
         launches[name] += n
     for name, n in mesh["launches"].items():   # the mesh trainer's K3
         launches[name] += n
+    launches["swa_decode"] += tp["launches"]   # the tp ranks' K8
     table = []
     main_t = timings[MAIN_SHAPE]
     for name, (source, replaces, key) in KERNELS.items():

@@ -191,7 +191,7 @@ def _stack_layers(stack, shapes: dict, n: int, dt, where: str, dev) -> list:
 
 
 def model_params_from_numpy(tree: dict, cfg: ModelConfig,
-                            device=None) -> dict:
+                            device=None, group=None) -> dict:
     """The params of ``repro_torch.models.model.Model(cfg, params)`` from
     the reference's param pytree (numpy leaves) of a dense, vlm or MoE
     model with GQA or MLA attention, an RWKV-6 model (``blocks`` of
@@ -201,9 +201,14 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig,
     stacked ``[n_layers, ...]`` block arrays are split into one dict per
     layer, the ``dense_blocks`` of a MoE model with leading dense layers
     first; every tensor is checked for shape and dtype
-    (``cfg.param_dtype``, f32 for ``F32_LEAVES``)."""
+    (``cfg.param_dtype``, f32 for ``F32_LEAVES``).  With a ``group``
+    (:class:`~repro_torch.models.parallel.ModelGroup`), the rank's block
+    of each leaf (:func:`repro_torch.launch.sharding.shard_tree`), for
+    ``Model(cfg, params, group=group)``."""
+    from repro_torch.launch.sharding import shard_tree
     from repro_torch.models.model import check_supported, padded_vocab
-    check_supported(cfg)
+    from repro_torch.models.parallel import group_size
+    check_supported(cfg, group_size(group))
     dev = resolve_device(device)
     dt = getattr(torch, cfg.param_dtype)
     d, vocab = cfg.d_model, padded_vocab(cfg)
@@ -250,7 +255,7 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig,
     params["blocks"] = [
         layer for name, (n, shapes) in stacks.items()
         for layer in _stack_layers(tree[name], shapes, n, dt, name, dev)]
-    return params
+    return shard_tree(params, cfg, group) if group is not None else params
 
 
 def is_state_from_numpy(norm_est, counts, device=None):

@@ -11,7 +11,7 @@ Ranks are laid out row-major over (server block, model): rank ``r`` holds
 server block ``r // model_ranks`` at model index ``r % model_ranks``.  Its
 *server group* is the ranks of its model index (the combines permute rows
 there), its *model group* the ranks of its server block (the
-client-parallel mode's all-reduce).
+client-parallel mode's all-reduce, and tensor parallelism's collectives).
 
     mesh = make_test_mesh((4, 1))                # world 1: servers 0-3 here
     mesh.local_servers                           # range(0, 4)
@@ -20,8 +20,13 @@ client-parallel mode's all-reduce).
 A world of 1 needs no process group.  A larger world takes the group
 ``torch.distributed`` already has, or starts one from ``torchrun``'s
 environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``):
-NCCL for ``cuda`` tensors, gloo for CPU ones.  A group whose backend does
-not fit the device raises; nothing falls back to another backend.
+NCCL for ``cuda`` tensors, gloo for CPU ones, unless the caller names the
+backend.  Ranks that share one card (NCCL refuses two ranks on one GPU)
+ask for gloo on ``cuda`` tensors and name their card (``cuda:0``); gloo
+takes CUDA tensors in ``all_reduce`` and ``broadcast``, the only
+collectives tensor parallelism runs (:mod:`repro_torch.models.parallel`).
+A group whose backend is not the one asked for, or not the device's
+default when none is, raises; nothing falls back to another backend.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from typing import Optional
 import torch
 
 _BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+_BACKENDS = {"nccl": ("cuda",), "gloo": ("cuda", "cpu")}
 
 
 def _dist():
@@ -48,10 +54,14 @@ class Mesh:
     raises without a card, and never picks the CPU on its own.  The
     layout is checked when a collective or a rank's servers are first
     asked for, so a mesh of any shape can describe specs
-    (:mod:`repro_torch.launch.sharding`) on a machine without a card."""
+    (:mod:`repro_torch.launch.sharding`) on a machine without a card.
+    ``backend`` (``"nccl"`` or ``"gloo"``) is the process group's backend
+    the caller asks for; None takes the device's default (NCCL for cuda,
+    gloo for cpu)."""
 
     def __init__(self, shape, axis_names, *, device=None,
-                 world: Optional[int] = None, rank: Optional[int] = None):
+                 world: Optional[int] = None, rank: Optional[int] = None,
+                 backend: Optional[str] = None):
         shape, axis_names = tuple(int(n) for n in shape), tuple(axis_names)
         if len(shape) != len(axis_names) or axis_names[-1] != "model":
             raise ValueError(f"mesh axes {axis_names} of shape {shape}: "
@@ -59,6 +69,10 @@ class Mesh:
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, shape))
         self._device = None if device is None else torch.device(device)
+        if backend is not None and backend not in _BACKENDS:
+            raise ValueError(f"backend {backend!r}: expected one of "
+                             f"{sorted(_BACKENDS)} or None")
+        self.backend = backend
         dist = _dist()
         up = dist.is_available() and dist.is_initialized()
         self.world = int(world if world is not None else
@@ -109,13 +123,13 @@ class Mesh:
                                      for m in range(m_ranks)]}
         if W > 1:
             dist = _dist()
-            want = _BACKEND.get(self.device.type)
+            want = _backend_for(self.device, self.backend)
             have = dist.get_backend()
-            if want is None or have != want:
+            if have != want:
                 raise RuntimeError(
                     f"the process group's backend is {have!r}; tensors on "
-                    f"{self.device} need {want!r} (no other backend is "
-                    "taken in its place)")
+                    f"{self.device} were asked to go over {want!r} (no "
+                    "other backend is taken in its place)")
             # every rank makes every group, in one order
             for m in range(m_ranks):
                 g = dist.new_group([b * m_ranks + m for b in range(s_ranks)])
@@ -209,6 +223,19 @@ class Mesh:
         return x
 
 
+def _backend_for(device: torch.device, backend: Optional[str]) -> str:
+    """The backend asked for, checked against the device, or the device's
+    default."""
+    if backend is None:
+        if device.type not in _BACKEND:
+            raise RuntimeError(f"no process-group backend for {device}")
+        return _BACKEND[device.type]
+    if device.type not in _BACKENDS.get(backend, ()):
+        raise ValueError(f"backend {backend!r} does not take tensors on "
+                         f"{device}")
+    return backend
+
+
 def _device_for(device) -> torch.device:
     """The rank's device: ``cuda:LOCAL_RANK`` for cuda, else as given."""
     dev = torch.device("cuda" if device is None else device)
@@ -217,18 +244,22 @@ def _device_for(device) -> torch.device:
     return dev
 
 
-def init_world(device=None) -> torch.device:
+def init_world(device=None, dist_backend: Optional[str] = None
+               ) -> torch.device:
     """Join ``torchrun``'s world when its environment names one of more
-    than one rank (NCCL for ``cuda``, gloo for ``cpu``); returns the
-    rank's device.  A world of 1 starts nothing."""
+    than one rank (``dist_backend``, or NCCL for ``cuda`` and gloo for
+    ``cpu``); returns the rank's device (``cuda:LOCAL_RANK`` unless the
+    device names its card, as ranks sharing one card do).  A world of 1
+    starts nothing."""
     from repro_torch import resolve_device
     dev = _device_for(resolve_device(device))
+    backend = _backend_for(dev, dist_backend)
     world = int(os.environ.get("WORLD_SIZE", "1"))
     dist = _dist()
     if world > 1 and not dist.is_initialized():
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        dist.init_process_group(_BACKEND[dev.type], init_method="env://")
+        dist.init_process_group(backend, init_method="env://")
     return dev
 
 
@@ -239,17 +270,18 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
 
 
 def make_test_mesh(shape=(2, 4), axes=("data", "model"), *,
-                   device=None) -> Mesh:
+                   device=None, dist_backend: Optional[str] = None) -> Mesh:
     """A small mesh for CPU runs and tests."""
-    return Mesh(shape, axes, device=device)
+    return Mesh(shape, axes, device=device, backend=dist_backend)
 
 
-def parse_mesh(spec: str, device=None) -> Mesh:
+def parse_mesh(spec: str, device=None,
+               dist_backend: Optional[str] = None) -> Mesh:
     """``DxM`` or ``PODxDxM``: a test mesh of those axes."""
     dims = tuple(int(x) for x in spec.split("x"))
-    if len(dims) == 2:
-        return make_test_mesh(dims, ("data", "model"), device=device)
-    return make_test_mesh(dims, ("pod", "data", "model"), device=device)
+    axes = ("data", "model") if len(dims) == 2 else ("pod", "data", "model")
+    return make_test_mesh(dims, axes, device=device,
+                          dist_backend=dist_backend)
 
 
 def mesh_from_arg(spec: str, device=None) -> Mesh:

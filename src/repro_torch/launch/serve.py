@@ -20,14 +20,24 @@ MLA decode attends in its latent space, and whisper's cross-attention
 and the Mamba2 and RWKV-6 recurrences run in plain torch (the reference
 has no kernel for them).  Prints the prefill time and the decode rate.
 
-``--mesh DxM`` (the reference's flag) splits the requests over the data
-ranks of a ``torch.distributed`` world (``torchrun``; one process holds
-every data position of its mesh) and gathers the tokens at the end;
-``1x1``, the default, is the one-process path.  A model axis above 1 is
-tensor parallelism, which the port does not run yet (ROADMAP item 20c).
+``--mesh DxM`` (the reference's flag) splits the requests over the D
+data ranks of a ``torch.distributed`` world (``torchrun``) and the model
+over the M ranks of each data block (tensor parallelism: the dense, vlm
+and moe families, GQA or MLA; :mod:`repro_torch.models.parallel`), and
+gathers the tokens at the end; rank 0 prints.  ``1x1``, the default, is
+the one-process path, and a world of 1 holds every data position and the
+whole model at any mesh.  The ssm, hybrid and audio families split over a
+model axis above 1 raise (ROADMAP item 20d).  ``--backend`` names the
+process group's backend: NCCL (the default on ``cuda``) for ranks on
+distinct cards, gloo (the default on ``cpu``) for ranks that share one
+card, each then given it by ``--device cuda:0``.
 
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
         --reduced --mesh 2x1 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --reduced --mesh 1x4 --backend gloo --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch phi3-mini-3.8b --mesh 1x4 --backend gloo --device cuda:0
 """
 from __future__ import annotations
 
@@ -40,6 +50,7 @@ from repro_torch import rng
 from repro_torch.configs.registry import get_config
 from repro_torch.launch.mesh import init_world, parse_mesh
 from repro_torch.models.model import Model
+from repro_torch.models.parallel import ModelGroup
 
 
 def _sync(device: torch.device) -> None:
@@ -95,18 +106,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--mesh", default="1x1",
-                    help="DxM: requests split over the data ranks")
+                    help="DxM: requests split over the D data ranks, the "
+                         "model over the M ranks of each")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="the process group's backend: nccl (default on "
+                         "cuda) for ranks on distinct cards, gloo (default "
+                         "on cpu) for ranks sharing one card")
     ap.add_argument("--device", default=None,
-                    help="cuda (default) or cpu")
+                    help="cuda (default), cuda:N or cpu")
     args = ap.parse_args(argv)
 
-    dev = init_world(args.device)
-    mesh = parse_mesh(args.mesh, dev)
-    if mesh.shape["model"] > 1:
-        raise NotImplementedError(
-            f"a model axis of {mesh.shape['model']} is tensor parallelism "
-            "over 'model', which the port does not run yet: ROADMAP item "
-            "20c.  Use a model axis of 1")
+    dev = init_world(args.device, args.backend)
+    mesh = parse_mesh(args.mesh, dev, args.backend)
     lay = mesh.layout()
     if args.batch % lay["server_ranks"]:
         raise ValueError(f"{args.batch} requests do not split over "
@@ -114,10 +125,11 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    # every rank draws the same weights and the whole batch, then serves
-    # its block of the requests
+    # every rank draws the same weights (keeping its block of each under
+    # tensor parallelism) and the whole batch, then serves its block of
+    # the requests
     gen = rng(args.seed, dev)
-    model = Model.init(cfg, gen)
+    model = Model.init(cfg, gen, group=ModelGroup.of(mesh))
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
     inputs = stub_inputs(cfg, args.batch, gen)

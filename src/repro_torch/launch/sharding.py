@@ -11,14 +11,30 @@ vocab-parallel embeddings, expert-parallel MoE stacks); in GFL training
 every leaf gains a leading server dim over the data (and pod) axes.  The
 port places the server dim by these specs (a rank holds a block of
 servers, :mod:`repro_torch.launch.mesh`) and, under ``client_parallel``,
-the client dim; splitting a leaf over ``"model"`` (tensor parallelism) is
-ROADMAP item 20c, and the mesh step refuses a model axis above 1 without
-``client_parallel``.
+the client dim.  Serving splits each leaf over ``"model"`` by the same
+specs (:func:`shard_leaf`, the collectives in
+:mod:`repro_torch.models.parallel`) for the dense, vlm and MoE families;
+the ssm, hybrid and audio families under a model axis above 1 are ROADMAP
+item 20d, and training under one (without ``client_parallel``) item 20e.
+
+Run-time layout of a split leaf.  A spec names the dimension; the rank
+takes its block of it, but attention leaves split by whole heads
+(:func:`gqa_heads`, :func:`mla_heads`): K/V heads are replicated over
+the ranks that share them when the model axis is a multiple of their
+count, and otherwise padded with zero heads (zero ``w_o`` rows), as GSPMD
+pads the dims it cannot split evenly, so a padded head adds exactly 0.
+The reference's ``cache_specs`` split the K/V cache's head_dim over
+``"model"``; the port's caches hold the rank's whole K/V heads (and MLA's
+latent cache whole on every rank): a run-time layout, the specs stay the
+reference's.
 """
 from __future__ import annotations
 
+import dataclasses
 import re
-from typing import Optional
+from typing import NamedTuple, Optional
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 
@@ -108,6 +124,151 @@ def params_specs(paths, cfg: ModelConfig, *,
     return {ps: param_spec(ps, cfg, stacked=True, server_axes=server_axes,
                            model_axis=model_axis)
             for ps in paths}
+
+
+# ---------------------------------------------------------------------------
+# Splitting leaves over the model group (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+
+class Heads(NamedTuple):
+    """Each rank's attention heads: global query (and K/V) head indices,
+    -1 for a zero head that pads the split."""
+    q: tuple
+    kv: tuple
+
+
+def gqa_heads(h: int, kv: int, M: int) -> Heads:
+    """GQA's h query heads (G = h / kv a K/V head) over M ranks, each
+    rank a run of consecutive query heads and the K/V heads they read:
+    one K/V head shared by M / kv ranks where kv divides M and M / kv
+    divides G; else kv / M K/V heads a rank, the K/V heads padded with
+    zero heads (G zero query heads each) to a multiple of M first where
+    M does not divide kv."""
+    G = h // kv
+    if kv % M and M % kv == 0 and G % (M // kv) == 0:
+        r = M // kv
+        gl = G // r
+        return Heads(tuple(tuple((m // r) * G + (m % r) * gl + g
+                                 for g in range(gl)) for m in range(M)),
+                     tuple((m // r,) for m in range(M)))
+    per = -(-kv // M)
+    runs = [range(m * per, (m + 1) * per) for m in range(M)]
+    return Heads(tuple(tuple(j * G + g if j < kv else -1 for j in run
+                             for g in range(G)) for run in runs),
+                 tuple(tuple(j if j < kv else -1 for j in run)
+                       for run in runs))
+
+
+def mla_heads(h: int, M: int) -> Heads:
+    """MLA's h heads over M ranks, padded with zero heads to a multiple of
+    M; its latent cache is every rank's whole (``kv`` names no head)."""
+    per = -(-h // M)
+    q = tuple(tuple(j if j < h else -1 for j in range(m * per, (m + 1) * per))
+              for m in range(M))
+    return Heads(q, ())
+
+
+def heads(cfg: ModelConfig, M: int) -> Heads:
+    if cfg.attention == "mla":
+        return mla_heads(cfg.num_heads, M)
+    return gqa_heads(cfg.num_heads, cfg.num_kv_heads, M)
+
+
+def local_config(cfg: ModelConfig, M: int) -> ModelConfig:
+    """The config the rank's attention runs with: its own head counts (at
+    the global head dim); ``cfg`` itself at M = 1."""
+    if M == 1 or cfg.attention not in ("gqa", "mla"):
+        return cfg
+    hd = heads(cfg, M)
+    h = len(hd.q[0])
+    return dataclasses.replace(cfg, num_heads=h,
+                               num_kv_heads=len(hd.kv[0]) if hd.kv else h,
+                               head_dim=cfg.resolved_head_dim)
+
+
+# the attention leaves split by heads: (regex, which heads) -- the query
+# heads, or GQA's K/V heads
+_HEAD_LEAVES = ((r"attn/w_(k|v)$", "kv"),
+                (r"attn/w_(q|o|uq|uk|uv)$", "q"))
+
+
+def _model_dim(path: str, cfg: ModelConfig) -> Optional[int]:
+    spec = param_spec(path, cfg)
+    return spec.index("model") if "model" in spec else None
+
+
+def _head_set(path: str, cfg: ModelConfig, M: int):
+    """(the rank's heads, heads in the leaf) of an attention leaf split
+    by heads, or None."""
+    for pat, which in _HEAD_LEAVES:
+        if re.search(pat, path) and cfg.attention in ("gqa", "mla"):
+            hd = heads(cfg, M)
+            if which == "kv" and cfg.attention == "gqa":
+                return hd.kv, cfg.num_kv_heads
+            if which == "q":
+                return hd.q, cfg.num_heads
+    return None
+
+
+def local_shape(path: str, shape, cfg: ModelConfig, M: int) -> tuple:
+    """The shape of a rank's block of the leaf at ``path`` (one layer, no
+    server dim) of whole shape ``shape``, at a model group of M."""
+    shape = tuple(shape)
+    dim = _model_dim(path, cfg) if M > 1 else None
+    if dim is None:
+        return shape
+    hs = _head_set(path, cfg, M)
+    n = shape[dim]
+    if hs is not None:
+        width = n // hs[1]
+        return shape[:dim] + (len(hs[0][0]) * width,) + shape[dim + 1:]
+    if n % M:
+        raise ValueError(f"{path}: dim {dim} of {n} does not split over a "
+                         f"model group of {M}")
+    return shape[:dim] + (n // M,) + shape[dim + 1:]
+
+
+def shard_leaf(path: str, full: torch.Tensor, cfg: ModelConfig,
+               group) -> torch.Tensor:
+    """The rank's block of the whole leaf ``full`` at ``path`` (one
+    layer, no server dim): the block of the dimension ``param_spec``
+    names (the MoE stacks' ff dim where their experts do not split), an
+    attention leaf's whole heads (zeros for a padding head), a copy of its
+    own so ``full`` can be freed; ``full`` itself where the leaf is
+    replicated or ``group`` is None.  A vocab, ff or expert count the
+    group does not divide raises, naming the leaf."""
+    M = 1 if group is None else group.size
+    dim = _model_dim(path, cfg) if M > 1 else None
+    if dim is None:
+        return full
+    want = local_shape(path, full.shape, cfg, M)
+    hs = _head_set(path, cfg, M)
+    if hs is None:
+        per = want[dim]
+        return full.narrow(dim, group.index * per, per).clone()
+    mine, n_heads = hs[0][group.index], hs[1]
+    by_head = full.unflatten(dim, (n_heads, full.shape[dim] // n_heads))
+    idx = torch.tensor([max(j, 0) for j in mine], device=full.device)
+    out = by_head.index_select(dim, idx)
+    pad = [i for i, j in enumerate(mine) if j < 0]
+    if pad:
+        out.index_fill_(dim, torch.tensor(pad, device=full.device), 0)
+    return out.flatten(dim, dim + 1)
+
+
+def shard_tree(params: dict, cfg: ModelConfig, group) -> dict:
+    """:func:`shard_leaf` over a ``Model``'s params tree (``embed``,
+    ``lm_head``, ``blocks`` as a list of layers, nested dicts), each leaf
+    by its reference path (``blocks/<part>/<leaf>``)."""
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}/{k}" if prefix else k)
+                    for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(layer, prefix) for layer in tree]
+        return shard_leaf(prefix, tree, cfg, group)
+    return walk(params, "")
 
 
 # ---------------------------------------------------------------------------

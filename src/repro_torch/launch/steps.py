@@ -28,8 +28,11 @@ Privacy noise comes from the mechanism's tree hooks
 :class:`~repro_torch.draws.DrawKey`.  Each rank draws the noise of all P
 servers and keeps its own rows, so a run's noise is the same whatever the
 rank layout.  A model axis above 1 is tensor parallelism in the reference
-(GSPMD splits each leaf over ``"model"``); the port runs it only as the
-client-parallel mode and otherwise raises (ROADMAP item 20c).
+(GSPMD splits each leaf over ``"model"``).  The serving steps run a model
+split over its model group as they run a whole one (``Model(...,
+group=)``, :mod:`repro_torch.models.parallel`); the train step runs a
+model axis above 1 only as the client-parallel mode and otherwise raises
+(training under tensor parallelism is ROADMAP item 20e).
 """
 from __future__ import annotations
 
@@ -272,9 +275,10 @@ def make_train_step(model: Model, gfl: GFLConfig, mesh: Mesh,
     if mesh.shape["model"] > 1 and not gfl.client_parallel:
         raise NotImplementedError(
             f"a model axis of {mesh.shape['model']} without client_parallel "
-            "is tensor parallelism over 'model' (the megatron splits of "
-            "launch.sharding._RULES), which the port does not run yet: "
-            "ROADMAP item 20c.  Use a model axis of 1, or client_parallel")
+            "is training under tensor parallelism over 'model' (the "
+            "megatron splits of launch.sharding._RULES), which the port "
+            "does not run yet: ROADMAP item 20e (serving runs it).  Use a "
+            "model axis of 1, or client_parallel")
 
     acc_dtype = getattr(torch, gfl.grad_acc_dtype)
     view = FlatView(model)
@@ -496,6 +500,8 @@ def _bound(model: Model, params):
 
 
 def make_prefill_step(model: Model) -> Callable:
+    """``prefill(params, batch)`` over ``model`` (the rank's blocks and
+    its model group's collectives when it is split: any model axis)."""
     def prefill(params, batch):
         with _bound(model, params):
             return model.prefill(batch["tokens"], **{
@@ -504,6 +510,7 @@ def make_prefill_step(model: Model) -> Callable:
 
 
 def make_decode_step(model: Model) -> Callable:
+    """``decode(params, tokens, cache)`` over ``model``, split or whole."""
     def decode(params, tokens, cache):
         with _bound(model, params):
             return model.decode_step(tokens, cache)

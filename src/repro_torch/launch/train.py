@@ -17,8 +17,9 @@ privacy accounting and the consensus checkpoint.
         --arch smollm-135m --reduced --mesh 4x1 --device cpu
 
 ``--mesh`` takes ``production`` (16 x 16), ``production-multipod`` (2 x
-16 x 16) or ``DxM`` / ``PODxDxM``; a model axis above 1 is tensor
-parallelism, which the port does not run yet (ROADMAP item 20c).  The
+16 x 16) or ``DxM`` / ``PODxDxM``; a model axis above 1 (without
+``client_parallel``) is training under tensor parallelism, which the port
+does not run yet (ROADMAP item 20e; serving runs it).  The
 weights and the draws are random, from ``REPRO_SEED`` (0 by default); the
 token batches are drawn on the host, so every rank and device trains on
 the same data.  Runs on ``cuda``

@@ -19,6 +19,14 @@ kernel for it, so neither has the port.  Its cache is not a ring: a step
 writes at ``pos``, clamped to the last slot as the reference's
 ``dynamic_update_slice`` clamps.
 
+Under tensor parallelism a rank runs these functions on its own heads:
+the caller passes the rank's config (``launch.sharding.local_config``:
+its query and K/V head counts) and the rank's blocks of the weights,
+gets the rank's partial sum of the ``w_o`` product back, and sums it over
+the model group.  K8 then runs on the rank's heads; MLA's down
+projections and norms are whole on every rank, so each rank computes and
+caches the latents in full.
+
 Whisper's attention has no rope (``use_rope=False``), its encoder is not
 causal, and its decoder cross-attends to the encoder output through K/V
 computed once a prefill (:func:`cross_kv`, :func:`cross_attend`, plain
@@ -32,19 +40,20 @@ import torch
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, he_init
+from repro_torch.models.layers import apply_rope, he_init, whole
 
 NEG_INF = -1e30
 
 
-def gqa_init(gen, cfg: ModelConfig, dtype) -> dict:
+def gqa_init(gen, cfg: ModelConfig, dtype, keep=whole) -> dict:
     d, h, kv, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     return {
-        "w_q": he_init(gen, (d, h * dh), dtype),
-        "w_k": he_init(gen, (d, kv * dh), dtype),
-        "w_v": he_init(gen, (d, kv * dh), dtype),
-        "w_o": he_init(gen, (h * dh, d), dtype, fan_in=h * dh),
+        "w_q": keep("w_q", he_init(gen, (d, h * dh), dtype)),
+        "w_k": keep("w_k", he_init(gen, (d, kv * dh), dtype)),
+        "w_v": keep("w_v", he_init(gen, (d, kv * dh), dtype)),
+        "w_o": keep("w_o", he_init(gen, (h * dh, d), dtype,
+                                   fan_in=h * dh)),
     }
 
 
@@ -229,29 +238,27 @@ def cross_attend(params, x: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def mla_init(gen, cfg: ModelConfig, dtype) -> dict:
+def mla_init(gen, cfg: ModelConfig, dtype, keep=whole) -> dict:
     m: MLAConfig = cfg.mla
     d, h = cfg.d_model, cfg.num_heads
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    R = m.kv_lora_rank
     p = {
-        "w_dkv": he_init(gen, (d, m.kv_lora_rank), dtype),
-        "w_kr": he_init(gen, (d, dr), dtype),
-        "w_uk": he_init(gen, (m.kv_lora_rank, h * dn), dtype,
-                        fan_in=m.kv_lora_rank),
-        "w_uv": he_init(gen, (m.kv_lora_rank, h * dv), dtype,
-                        fan_in=m.kv_lora_rank),
-        "w_o": he_init(gen, (h * dv, d), dtype, fan_in=h * dv),
-        "kv_norm": torch.ones((m.kv_lora_rank,), dtype=dtype,
-                              device=gen.device),
+        "w_dkv": keep("w_dkv", he_init(gen, (d, R), dtype)),
+        "w_kr": keep("w_kr", he_init(gen, (d, dr), dtype)),
+        "w_uk": keep("w_uk", he_init(gen, (R, h * dn), dtype, fan_in=R)),
+        "w_uv": keep("w_uv", he_init(gen, (R, h * dv), dtype, fan_in=R)),
+        "w_o": keep("w_o", he_init(gen, (h * dv, d), dtype, fan_in=h * dv)),
+        "kv_norm": torch.ones((R,), dtype=dtype, device=gen.device),
     }
     if m.q_lora_rank:
-        p["w_dq"] = he_init(gen, (d, m.q_lora_rank), dtype)
-        p["w_uq"] = he_init(gen, (m.q_lora_rank, h * (dn + dr)), dtype,
-                            fan_in=m.q_lora_rank)
+        p["w_dq"] = keep("w_dq", he_init(gen, (d, m.q_lora_rank), dtype))
+        p["w_uq"] = keep("w_uq", he_init(gen, (m.q_lora_rank, h * (dn + dr)),
+                                         dtype, fan_in=m.q_lora_rank))
         p["q_norm"] = torch.ones((m.q_lora_rank,), dtype=dtype,
                                  device=gen.device)
     else:
-        p["w_q"] = he_init(gen, (d, h * (dn + dr)), dtype)
+        p["w_q"] = keep("w_q", he_init(gen, (d, h * (dn + dr)), dtype))
     return p
 
 

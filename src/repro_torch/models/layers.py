@@ -7,6 +7,15 @@ pytree carries across as a copy, and ``x @ W`` is the same product on both
 sides.  Draws come from an explicit :class:`torch.Generator`, on its
 device.  ``jax.nn.gelu`` is the tanh approximation, and ``jnp.var`` the
 population variance; the GELU MLP and the LayerNorm here are those.
+
+Under tensor parallelism (a :class:`~repro_torch.models.parallel.ModelGroup`
+``group``) the embedding table is split by rows and the head by columns
+(vocab-parallel): :func:`embed` looks up the rank's rows alone and sums
+over the group, :func:`unembed` and :func:`lm_head` gather the ranks'
+logits.  An init function's ``keep(name, leaf)`` receives each leaf as
+it is drawn, whole, and returns what the model keeps (the rank's block,
+:func:`repro_torch.launch.sharding.shard_leaf`), so only one whole leaf
+is held at a time.
 """
 from __future__ import annotations
 
@@ -15,6 +24,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.parallel import gather_from_group, reduce_from_group
+
+
+def whole(name: str, leaf: torch.Tensor) -> torch.Tensor:
+    """The ``keep`` of a model that holds every leaf whole."""
+    return leaf
 
 
 def _normal(gen: torch.Generator, shape) -> torch.Tensor:
@@ -97,15 +113,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def swiglu_init(gen, d_model, d_ff, dtype) -> dict:
+def swiglu_init(gen, d_model, d_ff, dtype, keep=whole) -> dict:
     return {
-        "w_gate": he_init(gen, (d_model, d_ff), dtype),
-        "w_up": he_init(gen, (d_model, d_ff), dtype),
-        "w_down": he_init(gen, (d_ff, d_model), dtype, fan_in=d_ff),
+        "w_gate": keep("w_gate", he_init(gen, (d_model, d_ff), dtype)),
+        "w_up": keep("w_up", he_init(gen, (d_model, d_ff), dtype)),
+        "w_down": keep("w_down", he_init(gen, (d_ff, d_model), dtype,
+                                         fan_in=d_ff)),
     }
 
 
 def swiglu(params, x: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU MLP; with ``w_gate``/``w_up`` split by columns and
+    ``w_down`` by rows, the rank's partial sum."""
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     return h @ params["w_down"]
 
@@ -129,25 +148,40 @@ def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def embed_init(gen, vocab, d_model, dtype) -> dict:
-    return {"table": (_normal(gen, (vocab, d_model)) * 0.02).to(dtype)}
+def embed_init(gen, vocab, d_model, dtype, keep=whole) -> dict:
+    return {"table": keep("table", (_normal(gen, (vocab, d_model))
+                                    * 0.02).to(dtype))}
 
 
-def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+def embed(params, tokens: torch.Tensor, group=None) -> torch.Tensor:
+    """The tokens' rows of the table.  Vocab-parallel: the rank's table
+    holds rows [index * V/M, (index + 1) * V/M); a token outside them
+    looks up zeros, and the sum over the group holds each row once."""
+    table = params["table"]
+    if group is None:
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens - group.index * n
+    mine = (local >= 0) & (local < n)
+    rows = table[torch.where(mine, local, 0)]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return reduce_from_group(rows, group)
 
 
-def unembed(params, x: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding from the embed table."""
-    return x @ params["table"].T
+def unembed(params, x: torch.Tensor, group=None) -> torch.Tensor:
+    """Tied unembedding from the embed table (its rows the rank's vocab
+    block under tensor parallelism, the logits gathered)."""
+    return gather_from_group(x @ params["table"].T, group)
 
 
-def lm_head_init(gen, d_model, vocab, dtype) -> dict:
-    return {"w": he_init(gen, (d_model, vocab), dtype)}
+def lm_head_init(gen, d_model, vocab, dtype, keep=whole) -> dict:
+    return {"w": keep("w", he_init(gen, (d_model, vocab), dtype))}
 
 
-def lm_head(params, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["w"]
+def lm_head(params, x: torch.Tensor, group=None) -> torch.Tensor:
+    """The head (its columns the rank's vocab block under tensor
+    parallelism, the logits gathered)."""
+    return gather_from_group(x @ params["w"], group)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -43,6 +43,19 @@ do.  ``forward`` and ``loss`` take the reference's ``remat`` (default on)
 and ``remat_policy``: while autograd records, each block the reference
 wraps in ``jax.checkpoint`` runs under ``torch.utils.checkpoint`` and is
 recomputed in the backward (:func:`_remat`); it moves memory, not values.
+
+Tensor parallelism: ``Model.init(cfg, gen, group=)`` and ``Model(cfg,
+params, group=)`` with a :class:`~repro_torch.models.parallel.ModelGroup`
+of M ranks hold the rank's block of every leaf
+(:func:`repro_torch.launch.sharding.shard_leaf`; norms, routers and MLA's
+down projections whole) for the dense, vlm and MoE families.  Attention
+runs on the rank's heads (``self.attn_cfg``), its cache holds the rank's
+K/V heads (MLA's latents whole), and each sublayer's partial sum (the
+``w_o`` product; the MLP's or MoE layer's ``w_down`` products, shared
+experts included) is summed over the group; the embedding and the
+logits are vocab-parallel (:mod:`repro_torch.models.layers`).  The
+logits come out whole on every rank.  The ssm, hybrid and audio families
+under a group raise (ROADMAP item 20d).
 """
 from __future__ import annotations
 
@@ -53,8 +66,11 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, rwkv, ssm
+from repro_torch.models.parallel import (copy_to_group, group_size,
+                                         reduce_from_group)
 
 # the reference's Model.REMAT_POLICIES, by name and by the jax policy each
 # names: None and "full" recompute every activation of a block, "dots"
@@ -81,7 +97,18 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return -(-cfg.vocab_size // 128) * 128
 
 
-def check_supported(cfg: ModelConfig) -> None:
+TP_FAMILIES = ("dense", "vlm", "moe")
+
+
+def check_supported(cfg: ModelConfig, model_ranks: int = 1) -> None:
+    """Raises NotImplementedError for a config the port does not run, or
+    does not run split over ``model_ranks`` > 1 ranks."""
+    if model_ranks > 1 and cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family split over a model group "
+            f"of {model_ranks} is tensor parallelism the port does not run "
+            "yet (ROADMAP item 20d); it runs the dense, vlm and moe "
+            "families split, or any family on one rank of the model axis")
     plain = cfg.moe is None and cfg.mla is None
     if cfg.family == "ssm":
         ok = plain and cfg.attention == "none" and cfg.rwkv is not None
@@ -120,21 +147,39 @@ def _params(tree: dict) -> nn.ParameterDict:
         for name, t in tree.items()})
 
 
-def _attn(bp, h, positions, cfg: ModelConfig, *, return_kv: bool = False):
-    """The block's attention: MLA or GQA.  ``return_kv`` also returns what
-    the cache keeps (c_kv and k_rope, or the roped K and the V)."""
+def _attn(bp, h, positions, cfg: ModelConfig, *, return_kv: bool = False,
+          group=None):
+    """The block's attention: MLA or GQA, on the rank's heads (``cfg``
+    the rank's config) and summed over ``group``.  ``return_kv`` also
+    returns what the cache keeps (c_kv and k_rope, or the roped K and the
+    V)."""
+    h = copy_to_group(h, group)
     if cfg.attention == "mla":
-        return attn.mla_forward(bp["attn"], h, positions, cfg,
-                                return_kv=return_kv)
-    return attn.gqa_forward(bp["attn"], h, positions, cfg,
-                            return_kv=return_kv)
+        out = attn.mla_forward(bp["attn"], h, positions, cfg,
+                               return_kv=return_kv)
+    else:
+        out = attn.gqa_forward(bp["attn"], h, positions, cfg,
+                               return_kv=return_kv)
+    if return_kv:
+        return (reduce_from_group(out[0], group),) + out[1:]
+    return reduce_from_group(out, group)
 
 
-def _ffn(bp, h, cfg: ModelConfig):
-    """The block's FFN: (out, router aux), the aux None for SwiGLU."""
+def _ffn(bp, h, cfg: ModelConfig, group=None):
+    """The block's FFN: (out, router aux), the aux None for SwiGLU; the
+    out summed over ``group``."""
+    h = copy_to_group(h, group)
     if "moe" in bp:
-        return moe.moe_forward(bp["moe"], h, cfg)
-    return layers.swiglu(bp["mlp"], h), None
+        out, aux = moe.moe_forward(bp["moe"], h, cfg, group=group)
+    else:
+        out, aux = layers.swiglu(bp["mlp"], h), None
+    return reduce_from_group(out, group), aux
+
+
+def _whole_parts(part: str):
+    """The leaf keeper of every part of a model that holds its leaves
+    whole (``Model.init``'s ``keep``)."""
+    return layers.whole
 
 
 def _mamba_block(bp, x, cfg: ModelConfig):
@@ -210,10 +255,13 @@ class Model(nn.Module):
     its image embeddings), an RWKV-6 stack (rwkv6), a Mamba2 stack with a
     shared attention block (zamba2) or the whisper encoder-decoder."""
 
-    def __init__(self, cfg: ModelConfig, params: dict):
+    def __init__(self, cfg: ModelConfig, params: dict, group=None):
         super().__init__()
-        check_supported(cfg)
+        check_supported(cfg, group_size(group))
         self.cfg = cfg
+        self.group = group
+        # the config the rank's attention runs with (its heads)
+        self.attn_cfg = sharding.local_config(cfg, group_size(group))
         self.padded_vocab = padded_vocab(cfg)
         self.embed = _params(params["embed"])
         self.final_norm = _params(params["final_norm"])
@@ -239,20 +287,33 @@ class Model(nn.Module):
     # ------------------------------------------------------------- init ---
 
     @classmethod
-    def init(cls, cfg: ModelConfig, generator: torch.Generator) -> "Model":
+    def init(cls, cfg: ModelConfig, generator: torch.Generator,
+             group=None) -> "Model":
         """Random weights from ``generator``, on its device: the reference's
-        shapes and distributions (its threefry bits are not reproduced)."""
-        check_supported(cfg)
+        shapes and distributions (its threefry bits are not reproduced).
+        With a ``group``, each leaf is drawn whole in the same order and
+        the rank keeps its block, the rest freed before the next draw: the
+        rank's weights are the blocks of the whole model's for the same
+        generator, bit for bit."""
+        check_supported(cfg, group_size(group))
         dt = _dtype(cfg)
         dev = generator.device
         vocab = padded_vocab(cfg)
+
+        def keep(part):         # the rank's keeper of a part's leaves
+            if group is None:
+                return layers.whole
+            return lambda name, leaf: sharding.shard_leaf(
+                f"{part}/{name}", leaf, cfg, group)
+
         params = {
-            "embed": layers.embed_init(generator, vocab, cfg.d_model, dt),
+            "embed": layers.embed_init(generator, vocab, cfg.d_model, dt,
+                                       keep("embed")),
             "final_norm": layers.rms_norm_init(cfg.d_model, dt, dev),
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = layers.lm_head_init(generator, cfg.d_model,
-                                                    vocab, dt)
+            params["lm_head"] = layers.lm_head_init(
+                generator, cfg.d_model, vocab, dt, keep("lm_head"))
         if cfg.family == "ssm":
             params["blocks"] = [cls._rwkv_block_init(cfg, generator)
                                 for _ in range(cfg.num_layers)]
@@ -276,42 +337,47 @@ class Model(nn.Module):
             params["dec_pos"] = (0.02 * layers._normal(
                 generator, (dec_pos_rows(cfg), cfg.d_model))).to(dt)
         elif cfg.moe is None:
-            params["blocks"] = [cls._dense_block_init(cfg, generator)
+            params["blocks"] = [cls._dense_block_init(cfg, generator,
+                                                      keep=keep)
                                 for _ in range(cfg.num_layers)]
         else:
             nd = cfg.moe.first_dense_layers
             d_ff = cfg.moe.first_dense_d_ff or cfg.d_ff
             params["blocks"] = (
-                [cls._dense_block_init(cfg, generator, d_ff)
+                [cls._dense_block_init(cfg, generator, d_ff, keep)
                  for _ in range(nd)]
-                + [cls._moe_block_init(cfg, generator)
+                + [cls._moe_block_init(cfg, generator, keep)
                    for _ in range(cfg.num_layers - nd)])
-        return cls(cfg, params)
+        return cls(cfg, params, group)
 
     @staticmethod
-    def _attn_init(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    def _attn_init(cfg: ModelConfig, gen: torch.Generator,
+                   keep=layers.whole) -> dict:
         a_init = attn.mla_init if cfg.attention == "mla" else attn.gqa_init
-        return a_init(gen, cfg, _dtype(cfg))
+        return a_init(gen, cfg, _dtype(cfg), keep)
 
     @classmethod
     def _dense_block_init(cls, cfg: ModelConfig, gen: torch.Generator,
-                          d_ff: int = 0) -> dict:
+                          d_ff: int = 0, keep=_whole_parts) -> dict:
+        """A dense block; ``keep(part)`` gives the part's leaf keeper."""
         dt = _dtype(cfg)
         return {
             "ln1": layers.rms_norm_init(cfg.d_model, dt, gen.device),
-            "attn": cls._attn_init(cfg, gen),
+            "attn": cls._attn_init(cfg, gen, keep("blocks/attn")),
             "ln2": layers.rms_norm_init(cfg.d_model, dt, gen.device),
-            "mlp": layers.swiglu_init(gen, cfg.d_model, d_ff or cfg.d_ff, dt),
+            "mlp": layers.swiglu_init(gen, cfg.d_model, d_ff or cfg.d_ff, dt,
+                                      keep("blocks/mlp")),
         }
 
     @classmethod
-    def _moe_block_init(cls, cfg: ModelConfig, gen: torch.Generator) -> dict:
+    def _moe_block_init(cls, cfg: ModelConfig, gen: torch.Generator,
+                        keep=_whole_parts) -> dict:
         dt = _dtype(cfg)
         return {
             "ln1": layers.rms_norm_init(cfg.d_model, dt, gen.device),
-            "attn": cls._attn_init(cfg, gen),
+            "attn": cls._attn_init(cfg, gen, keep("blocks/attn")),
             "ln2": layers.rms_norm_init(cfg.d_model, dt, gen.device),
-            "moe": moe.moe_init(gen, cfg, dt),
+            "moe": moe.moe_init(gen, cfg, dt, keep("blocks/moe")),
         }
 
     @staticmethod
@@ -359,7 +425,7 @@ class Model(nn.Module):
         """[B, S, D]: the image embeddings (cast to the model's dtype)
         ahead of the text for the vlm family; the learned positions added
         for the audio one, taken mod their rows."""
-        x = layers.embed(self.embed, tokens)
+        x = layers.embed(self.embed, tokens, self.group)
         if self.cfg.family == "vlm":
             x = torch.cat([image_embeds.to(x.dtype), x], dim=1)
         if self.cfg.family == "audio":
@@ -424,11 +490,13 @@ class Model(nn.Module):
                 if has_attn:
                     x = self._shared_block(x, positions)[0]
         else:
+            acfg, group = self.attn_cfg, self.group
+
             def dense(x, bp):
                 h = layers.rms_norm(bp["ln1"], x, cfg.norm_eps)
-                x = x + _attn(bp, h, positions, cfg)
+                x = x + _attn(bp, h, positions, acfg, group=group)
                 h = layers.rms_norm(bp["ln2"], x, cfg.norm_eps)
-                out, a = _ffn(bp, h, cfg)
+                out, a = _ffn(bp, h, cfg, group)
                 return x + out, a
 
             body = block(dense)
@@ -485,9 +553,10 @@ class Model(nn.Module):
         return x + layers.swiglu(sh["mlp"], h), k, v
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = copy_to_group(x, self.group)
         if self.cfg.tie_embeddings:
-            return layers.unembed(self.embed, x)
-        return layers.lm_head(self.lm_head, x)
+            return layers.unembed(self.embed, x, self.group)
+        return layers.lm_head(self.lm_head, x, self.group)
 
     # ------------------------------------------------------------ cache ---
 
@@ -504,7 +573,7 @@ class Model(nn.Module):
             return c
         init = (attn.mla_init_cache if cfg.attention == "mla"
                 else attn.gqa_init_cache)
-        c = init(cfg, batch_size, cache_len, L, dt, dev)
+        c = init(self.attn_cfg, batch_size, cache_len, L, dt, dev)
         if cfg.family == "audio":
             shape = (L, batch_size, cfg.encoder_seq_len, cfg.num_kv_heads,
                      cfg.resolved_head_dim)
@@ -521,7 +590,7 @@ class Model(nn.Module):
         """One token for every sequence.  tokens: [B] int.  Returns
         (logits [B, V], cache) with the cache advanced in place."""
         cfg = self.cfg
-        x = layers.embed(self.embed, tokens[:, None])          # [B,1,D]
+        x = layers.embed(self.embed, tokens[:, None], self.group)  # [B,1,D]
         pos = cache["pos"]
         if cfg.family == "audio":
             rows = self.dec_pos.shape[0]
@@ -607,17 +676,17 @@ class Model(nn.Module):
                             nvalid):
         """One block of a decode step; its caches (c_kv and k_rope, or K
         and V) are written in place at ``slot``."""
-        cfg = self.cfg
+        cfg, acfg = self.cfg, self.attn_cfg
         h = layers.rms_norm(bp["ln1"], x, cfg.norm_eps)
         if cfg.attention == "mla":
             out = attn.mla_decode(bp["attn"], h, cache_0, cache_1, pos, slot,
-                                  cfg)
+                                  acfg)
         else:
             out = attn.gqa_decode(bp["attn"], h, cache_0, cache_1, pos,
-                                  slot, nvalid, cfg)
-        x = x + out
+                                  slot, nvalid, acfg)
+        x = x + reduce_from_group(out, self.group)
         h = layers.rms_norm(bp["ln2"], x, cfg.norm_eps)
-        return x + _ffn(bp, h, cfg)[0]
+        return x + _ffn(bp, h, cfg, self.group)[0]
 
     # ---------------------------------------------------------- prefill ---
 
@@ -667,7 +736,8 @@ class Model(nn.Module):
         S = x.shape[1]
         for i, bp in enumerate(self.blocks):
             h = layers.rms_norm(bp["ln1"], x, cfg.norm_eps)
-            out, c0, c1 = _attn(bp, h, positions, cfg, return_kv=True)
+            out, c0, c1 = _attn(bp, h, positions, self.attn_cfg,
+                                return_kv=True, group=self.group)
             if mla:         # the latent cache's first S slots
                 cache["c_kv"][i, :, :S].copy_(c0)
                 cache["k_rope"][i, :, :S].copy_(c1)
@@ -676,7 +746,7 @@ class Model(nn.Module):
                 self._fill_ring(cache["v"][i], c1)
             x = x + out
             h = layers.rms_norm(bp["ln2"], x, cfg.norm_eps)
-            x = x + _ffn(bp, h, cfg)[0]
+            x = x + _ffn(bp, h, cfg, self.group)[0]
         return x, cache
 
     def _prefill_whisper(self, x, positions, cache, frames):

@@ -19,6 +19,16 @@ Three departures in mechanics, none in the numbers:
   a scatter-add of ones: integer math either way, and ``bincount`` would
   read its size on the host.
 
+Under tensor parallelism every rank routes every token with the same
+(replicated) router and runs the same capacity dispatch, so drops are the
+same on every rank, and returns its partial sum, which the caller sums
+over the model group: with the ff dim of every expert split (mixtral's
+8 experts: ``launch.sharding.param_spec`` splits the experts themselves
+only where 16 divides their count), the rank's block of each expert's
+products; expert-parallel (DeepSeek's 64), the products of the rank's
+block of experts, every other expert's slots contributing zeros.  Shared
+experts are split as the dense MLP is.
+
 Nothing here waits on the host: the capacity reads the shape, so a decode
 step stays capturable in a CUDA graph.
 """
@@ -28,22 +38,25 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.models.layers import he_init, swiglu, swiglu_init
+from repro_torch.models.layers import he_init, swiglu, swiglu_init, whole
 
 
-def moe_init(gen, cfg: ModelConfig, dtype) -> dict:
+def moe_init(gen, cfg: ModelConfig, dtype, keep=whole) -> dict:
     m: MoEConfig = cfg.moe
-    d = cfg.d_model
+    d, E = cfg.d_model, m.num_experts
     dff = m.expert_d_ff or cfg.d_ff
     p = {
-        "router": he_init(gen, (d, m.num_experts), dtype),
+        "router": keep("router", he_init(gen, (d, E), dtype)),
         # stacked expert weights [E, ...]
-        "w_gate": he_init(gen, (m.num_experts, d, dff), dtype, fan_in=d),
-        "w_up": he_init(gen, (m.num_experts, d, dff), dtype, fan_in=d),
-        "w_down": he_init(gen, (m.num_experts, dff, d), dtype, fan_in=dff),
+        "w_gate": keep("w_gate", he_init(gen, (E, d, dff), dtype, fan_in=d)),
+        "w_up": keep("w_up", he_init(gen, (E, d, dff), dtype, fan_in=d)),
+        "w_down": keep("w_down", he_init(gen, (E, dff, d), dtype,
+                                         fan_in=dff)),
     }
     if m.num_shared_experts:
-        p["shared"] = swiglu_init(gen, d, dff * m.num_shared_experts, dtype)
+        p["shared"] = swiglu_init(
+            gen, d, dff * m.num_shared_experts, dtype,
+            keep=lambda name, leaf: keep(f"shared/{name}", leaf))
     return p
 
 
@@ -53,20 +66,23 @@ def capacity(tokens: int, m: MoEConfig) -> int:
     return (cap + 3) // 4 * 4  # pad to a friendly multiple
 
 
-def moe_forward(params, x: torch.Tensor, cfg: ModelConfig, stats=None):
+def moe_forward(params, x: torch.Tensor, cfg: ModelConfig, stats=None,
+                group=None):
     """x: [B,S,D] -> (out [B,S,D], aux_loss f32 scalar).
 
     dispatch="global": one token pool across the whole [B,S] batch;
     dispatch="row": each batch row dispatched on its own, aux the mean of
     the rows'.  ``stats``, a dict, gains ``entries`` (routed entries, an
-    int) and ``dropped`` (entries past capacity, a device tensor)."""
+    int) and ``dropped`` (entries past capacity, a device tensor).  With
+    ``params`` a rank's blocks (module note), ``out`` is the rank's
+    partial sum; ``group`` places an expert-parallel rank's experts."""
     m: MoEConfig = cfg.moe
     B, S, D = x.shape
     if m.dispatch == "row":
-        outs, auxes = zip(*(_moe_tokens(params, x[b], cfg, stats)
+        outs, auxes = zip(*(_moe_tokens(params, x[b], cfg, stats, group)
                             for b in range(B)))
         return torch.stack(outs), torch.stack(auxes).mean()
-    out, aux = _moe_tokens(params, x.reshape(B * S, D), cfg, stats)
+    out, aux = _moe_tokens(params, x.reshape(B * S, D), cfg, stats, group)
     return out.reshape(B, S, D), aux
 
 
@@ -82,11 +98,14 @@ def route(params, xf: torch.Tensor, m: MoEConfig):
     return probs, gate_vals, gate_idx
 
 
-def _moe_tokens(params, xf: torch.Tensor, cfg: ModelConfig, stats=None):
+def _moe_tokens(params, xf: torch.Tensor, cfg: ModelConfig, stats=None,
+                group=None):
     """Core dispatch over a flat token pool.  xf: [T,D]."""
     m: MoEConfig = cfg.moe
     T, D = xf.shape
     E, k = m.num_experts, m.top_k
+    El = params["w_gate"].shape[0]             # the experts held here
+    e0 = 0 if El == E else group.index * El    # the first of them
     C = capacity(T, m)
     dev = xf.device
     probs, gate_vals, gate_idx = route(params, xf, m)
@@ -100,21 +119,25 @@ def _moe_tokens(params, xf: torch.Tensor, cfg: ModelConfig, stats=None):
     counts = torch.searchsorted(e_s, experts, right=True) - offsets
     pos = torch.arange(T * k, device=dev) - offsets[e_s]  # rank in group
     keep = pos < C
-    dest = e_s * C + torch.clamp(pos, max=C - 1)
+    use, e_loc = keep, e_s
+    if El != E:     # expert-parallel: the entries of this rank's experts
+        mine = (e_s >= e0) & (e_s < e0 + El)
+        use, e_loc = keep & mine, torch.where(mine, e_s - e0, 0)
+    dest = e_loc * C + torch.clamp(pos, max=C - 1)
 
-    # expert input buffer [E*C, D]: kept entries to their unique slots,
-    # dropped ones to a spare row past the end
-    xe = xf.new_zeros((E * C + 1, D))
-    xe.index_copy_(0, torch.where(keep, dest, E * C), xf[tok_s])
-    xe = xe[:E * C].view(E, C, D)
+    # expert input buffer [El*C, D]: kept entries to their unique slots,
+    # dropped ones (and other ranks' experts') to a spare row past the end
+    xe = xf.new_zeros((El * C + 1, D))
+    xe.index_copy_(0, torch.where(use, dest, El * C), xf[tok_s])
+    xe = xe[:El * C].view(El, C, D)
 
     # ---- expert FFN -------------------------------------------------------
     h = F.silu(torch.bmm(xe, params["w_gate"])) \
         * torch.bmm(xe, params["w_up"])
-    ye = torch.bmm(h, params["w_down"]).reshape(E * C, D)
+    ye = torch.bmm(h, params["w_down"]).reshape(El * C, D)
 
     # ---- combine: each token's k contributions, added in k order ---------
-    gathered = ye[dest] * (w_s * keep)[:, None].to(xf.dtype)
+    gathered = ye[dest] * (w_s * use)[:, None].to(xf.dtype)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(T * k, device=dev)
     per_tok = gathered[inv].view(T, k, D)

@@ -1,0 +1,135 @@
+"""Tensor parallelism over a mesh's model group: the group handle and its
+collectives (the reference has no module of its own for them: GSPMD
+inserts them where ``launch/sharding.py``'s specs split a leaf over
+``"model"``).
+
+A model split over M ranks holds each rank's block of every split leaf
+(:func:`repro_torch.launch.sharding.shard_leaf`) and runs Megatron's
+pattern: a replicated activation enters a column-parallel product
+(:func:`copy_to_group`), the row-parallel product after it leaves a
+partial sum, and :func:`reduce_from_group` adds the partials over the
+group.  The vocab-parallel logits are gathered by :func:`gather_from_group`.
+
+Every collective here is one sum ``all_reduce`` over the model group
+(:meth:`repro_torch.launch.mesh.Mesh.all_reduce_model`): the gather too,
+each rank writing its slice into a zeroed full buffer (exact, since
+``x + 0 == x``).  So the same code runs on NCCL across cards, on gloo for
+ranks that share one card (torch's backend table lists gloo's CUDA support
+for ``all_reduce`` and ``broadcast`` alone), and on gloo CPU ranks.
+
+The three are ``torch.autograd.Function``s with Megatron's backward passes
+(copy <-> reduce, gather -> slice), for training under tensor parallelism;
+serving runs their forward passes under ``no_grad``, where the reduce
+works in place on the fresh partial product.
+
+A model whose ``group`` is ``None`` holds every shard: every world of 1,
+at any model axis, runs that way, with whole leaves and no collective.
+"""
+from __future__ import annotations
+
+import torch
+
+
+class ModelGroup:
+    """The ``size`` ranks that split one model, this one at ``index``;
+    its collectives go over ``mesh``'s model group."""
+
+    def __init__(self, size: int, index: int, mesh=None):
+        if not 0 <= index < size:
+            raise ValueError(f"model index {index} outside a group of {size}")
+        self.size, self.index, self.mesh = int(size), int(index), mesh
+
+    @classmethod
+    def of(cls, mesh) -> "ModelGroup | None":
+        """The rank's model group of ``mesh``; None where one rank holds
+        the whole model (a model axis of 1, or a world of 1)."""
+        lay = mesh.layout()
+        if lay["model_ranks"] == 1:
+            return None
+        return cls(lay["model_ranks"], lay["model_index"], mesh)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the group, in place."""
+        return self.mesh.all_reduce_model(x)
+
+
+def group_size(group: "ModelGroup | None") -> int:
+    return 1 if group is None else group.size
+
+
+def _all_gather_last(x: torch.Tensor, group: ModelGroup) -> torch.Tensor:
+    n = x.shape[-1]
+    full = x.new_zeros(*x.shape[:-1], n * group.size)
+    full[..., group.index * n:(group.index + 1) * n] = x
+    return group.all_reduce(full)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the gradient summed over the group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_reduce(grad.clone()), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """The sum over the group forward; the gradient as it is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce(x.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """The ranks' last-dim slices side by side forward; the rank's slice
+    of the gradient back."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.n = group, x.shape[-1]
+        return _all_gather_last(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        i, n = ctx.group.index, ctx.n
+        return grad[..., i * n:(i + 1) * n].contiguous(), None
+
+
+def _recording(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """A replicated activation entering a column-parallel product."""
+    if group is None or not _recording(x):
+        return x
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of a row-parallel product's partials over the group (in
+    place on ``x`` when autograd does not record)."""
+    if group is None:
+        return x
+    if _recording(x):
+        return _ReduceFromGroup.apply(x, group)
+    return group.all_reduce(x)
+
+
+def gather_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's last-dim slices of ``x`` side by side, in rank order:
+    [..., n] on each rank -> [..., n * size], bit for bit."""
+    if group is None:
+        return x
+    if _recording(x):
+        return _GatherFromGroup.apply(x, group)
+    return _all_gather_last(x, group)

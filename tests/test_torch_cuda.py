@@ -283,6 +283,74 @@ def test_swa_decode_matches_plain(cuda, dtype, B, H, KV, C, Dh):
         torch.testing.assert_close(a.float(), want, **tol)
 
 
+@pytest.mark.parametrize("C", [1064, 3944, 4096])
+def test_swa_decode_at_a_tensor_parallel_ranks_heads(cuda, C):
+    """K8 on a rank's heads at mesh 1x4: mixtral's and llava's 32 query
+    and 8 K/V heads split 8 and 2 a rank (G 4, Dh 128), at their
+    requests' rings (B: 1064 and 3944 slots; A: 4096), bf16."""
+    q, k, v = _swa_inputs(cuda, torch.bfloat16, 4, 8, 2, C, 128)
+    for nv in (1, C // 2, C):
+        nvalid = torch.tensor([nv], dtype=torch.int32, device="cuda")
+        before = K.LAUNCHES["swa_decode"]
+        a = swa.swa_decode(q, k, v, nvalid)
+        assert K.LAUNCHES["swa_decode"] == before + 1
+        assert torch.equal(a, swa.swa_decode(q, k, v, nvalid))
+        want = swa.swa_decode_attention_plain(q, k, v, nvalid)
+        torch.testing.assert_close(a.float(), want.float(),
+                                   **_swa_tol(want))
+
+
+def _gloo_rank(rank, port, out):
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    try:
+        from repro_torch.launch.mesh import parse_mesh
+        from repro_torch.models.parallel import ModelGroup, gather_from_group
+        mesh = parse_mesh("1x2", "cuda:0", "gloo")
+        group = ModelGroup.of(mesh)
+        res = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.full((3, 5), rank + 1.0, device="cuda").to(dtype)
+            res[str(dtype)] = mesh.all_reduce_model(x).cpu()
+        res["gather"] = gather_from_group(
+            torch.full((2, 3), rank + 1.0, device="cuda"), group).cpu()
+        torch.save(res, f"{out}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_gloo_all_reduce_on_cuda_tensors_of_ranks_sharing_a_card(
+        cuda, tmp_path):
+    """Two ranks on cuda:0 over gloo (NCCL takes no two ranks on one
+    card): the model group's sum and its exact gather in f32 and bf16."""
+    import socket
+
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.start_processes(_gloo_rank, args=(port, str(tmp_path)),
+                             nprocs=2, join=False, start_method="spawn")
+    try:
+        deadline = 120
+        while not ctx.join(timeout=1):
+            deadline -= 1
+            assert deadline > 0, "ranks did not finish in 120 s"
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt")
+        for dtype in (torch.float32, torch.bfloat16):
+            assert torch.equal(got[str(dtype)],
+                               torch.full((3, 5), 3.0).to(dtype))
+        assert torch.equal(got["gather"], torch.tensor(
+            [[1.0] * 3 + [2.0] * 3] * 2))
+
+
 def _swa_inputs(gen, dtype, B, H, KV, C, Dh):
     q = torch.randn((B, H, Dh), generator=gen, device="cuda").to(dtype)
     k = torch.randn((B, C, KV, Dh), generator=gen, device="cuda").to(dtype)

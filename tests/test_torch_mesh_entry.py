@@ -84,7 +84,7 @@ def test_train_entry_with_everything(tmp_path):
 def test_train_entry_refusals():
     base = ["--arch", "smollm-135m", "--reduced", "--steps", "1",
             "--device", "cpu", "--seq", "16"]
-    with pytest.raises(NotImplementedError, match="20c"):
+    with pytest.raises(NotImplementedError, match="20e"):
         train.main(base + ["--mesh", "2x2"])
     with pytest.raises(SystemExit):
         train.main(base + ["--mesh", "2x1", "--cohort", "uniform+trace:"
@@ -101,9 +101,15 @@ def test_private_serving_runs(arch, capsys):
     assert "OK" in capsys.readouterr().out
 
 
-def test_serve_mesh_refuses_a_model_axis():
-    with pytest.raises(NotImplementedError, match="20c"):
-        serve.main(["--reduced", "--device", "cpu", "--mesh", "1x2"])
+def test_serve_mesh_refuses_a_model_axis(monkeypatch):
+    """Serving splits the dense, vlm and moe families over a model group;
+    the ssm family split over one (a rank of a model group of 2 here)
+    raises, naming its ROADMAP item."""
+    monkeypatch.setattr(serve.ModelGroup, "of",
+                        staticmethod(lambda mesh: serve.ModelGroup(2, 0)))
+    with pytest.raises(NotImplementedError, match="20d"):
+        serve.main(["--arch", "rwkv6-3b", "--reduced", "--device", "cpu",
+                    "--mesh", "1x2"])
 
 
 def test_serve_steps_read_a_param_tree():
@@ -174,7 +180,7 @@ def test_train_step_guards():
                                                combine_impl="sparse"), pods)
     steps.make_train_step(model, GFLConfig(fault="links:0.1",
                                            combine_impl="rotate"), pods)
-    with pytest.raises(NotImplementedError, match="item 20c"):
+    with pytest.raises(NotImplementedError, match="item 20e"):
         steps.make_train_step(model, GFLConfig(),
                               make_test_mesh((2, 2), device="cpu"))
     steps.make_train_step(model, GFLConfig(client_parallel=True),

@@ -1,0 +1,492 @@
+"""Tensor parallelism for serving, on the CPU: gloo ranks spawned with
+``torch.multiprocessing`` (three spawns: world 2 on ``1x2``, world 4 on
+``1x4`` and on ``2x2``; one intra-op thread a rank, each spawn joined
+within its own timeout), every arch case run in each world.
+
+The cases are reduced configs in f32: phi3 (heads divide M; its window
+of 64 wrapped by a prompt of 96), smollm (2 K/V heads: one shared by two
+ranks at M = 4), smollm with 3 heads (K/V heads padded with zero heads),
+llava (vlm), mixtral (4 experts: the ff split), deepseek-v2-lite (MLA, a
+dense first layer, 4 experts: the ff split; and with 16 experts:
+expert-parallel), minicpm3 (MLA with query compression; and with 3
+heads: padded).  What they hold:
+
+- a rank's prefill and teacher-forced decode logits equal the world of
+  1's (the same seed's whole model) within atol = rtol = 1e-5: only the
+  order of the sums over the model group differs;
+- a rank's model built from the reference's params through
+  ``convert.model_params_from_numpy(..., group=)`` against the
+  reference's ``Model.prefill`` / ``decode_step`` within atol = rtol =
+  1e-4 (as tests/test_torch_models.py holds the whole models);
+- ``serve --mesh 1x4`` / ``2x2`` / ``1x2 --backend gloo`` gives the greedy
+  tokens of ``1x1``;
+- Megatron's group functions' backward passes (world 2) against the
+  whole product's gradients within 1e-5 of their largest.
+
+In this process: ``Model.init(group=)`` keeps bitwise the blocks of the
+whole init (each real head and each block where the whole leaf has it,
+padding heads zero); the vocab-parallel embedding and logits are bitwise
+the whole ones; a world of 1 at ``1x4`` is bitwise ``1x1``; the head
+layouts; and the refusals (the ssm, hybrid and audio families split over
+a model group, training under tensor parallelism, an uneven split).
+"""
+import dataclasses
+import os
+import socket
+import time
+from datetime import timedelta
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch import rng
+from repro_torch.configs.base import GFLConfig
+from repro_torch.configs.registry import get_config
+from repro_torch.convert import model_params_from_numpy
+from repro_torch.launch import serve, sharding
+from repro_torch.launch.mesh import Mesh, init_world, make_test_mesh
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import layers
+from repro_torch.models.model import Model
+from repro_torch.models.parallel import (ModelGroup, copy_to_group,
+                                         gather_from_group,
+                                         reduce_from_group)
+
+JOIN_TIMEOUT_S = 240
+SEED = 3
+B, N_DEC = 2, 4
+ATOL_WORLD1 = 1e-5
+ATOL_REF = 1e-4
+# name: (arch, reduced-config overrides, MoE overrides, prompt length)
+CASES = {
+    "phi3": ("phi3-mini-3.8b", {}, {}, 96),
+    "smollm": ("smollm-135m", {}, {}, 24),
+    "smollm-3heads": ("smollm-135m", {"num_heads": 3, "num_kv_heads": 3,
+                                      "head_dim": 64}, {}, 24),
+    "llava": ("llava-next-mistral-7b", {}, {}, 24),
+    "mixtral": ("mixtral-8x7b", {}, {}, 24),
+    "deepseek": ("deepseek-v2-lite-16b", {}, {}, 24),
+    "deepseek-16experts": ("deepseek-v2-lite-16b", {}, {"num_experts": 16},
+                           24),
+    "minicpm3": ("minicpm3-4b", {}, {}, 24),
+    "minicpm3-3heads": ("minicpm3-4b", {"num_heads": 3, "num_kv_heads": 3},
+                        {}, 24),
+}
+SPAWNS = {"1x2": 2, "1x4": 4, "2x2": 4}
+SERVE_ARCHS = ("phi3-mini-3.8b", "deepseek-v2-lite-16b")
+
+
+def _replace(cfg, name):
+    _, over, moe_over, _ = CASES[name]
+    if moe_over:
+        over = dict(over, moe=dataclasses.replace(cfg.moe, **moe_over))
+    return dataclasses.replace(cfg, **over)
+
+
+def port_config(name):
+    return _replace(get_config(CASES[name][0]).reduced(), name)
+
+
+def case_inputs(name, cfg):
+    """Tokens [B, S + N_DEC] (the last N_DEC fed to the decode steps) and
+    a vlm's image embeddings, numpy, from the prompt length's seed."""
+    S = CASES[name][3]
+    r = np.random.default_rng(S)
+    toks = r.integers(0, cfg.vocab_size, (B, S + N_DEC)).astype(np.int32)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["image_embeds"] = (0.1 * r.standard_normal(
+            (B, cfg.num_image_tokens, cfg.d_model))).astype(np.float32)
+    return toks, extra
+
+
+def run_model(model, name) -> torch.Tensor:
+    """The prefill logits and N_DEC teacher-forced decode steps' logits,
+    [1 + N_DEC, B, V]."""
+    S = CASES[name][3]
+    toks, extra = case_inputs(name, model.cfg)
+    toks = torch.tensor(toks, dtype=torch.int64)
+    logits, cache = model.prefill(
+        toks[:, :S], **{k: torch.tensor(v) for k, v in extra.items()})
+    out = [logits]
+    for t in range(N_DEC):
+        logits, cache = model.decode_step(toks[:, S + t], cache)
+        out.append(logits)
+    return torch.stack(out)
+
+
+def serve_args(arch):
+    return ["--arch", arch, "--reduced", "--device", "cpu", "--batch", "4",
+            "--prompt-len", "16", "--new-tokens", "4", "--seed", "0"]
+
+
+def backward_case(group):
+    """x -> copy -> column-split A -> tanh -> row-split B -> reduce ->
+    column-split C -> gather: the loss's gradient with respect to x and
+    the gathered output (A, B, C drawn whole from one seed)."""
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((3, 8), generator=gen, requires_grad=True)
+    A, Bw, C = (torch.randn(s, generator=gen) for s in
+                ((8, 12), (12, 8), (8, 6)))
+    M, i = (1, 0) if group is None else (group.size, group.index)
+    a = A[:, i * 12 // M:(i + 1) * 12 // M]
+    b = Bw[i * 12 // M:(i + 1) * 12 // M]
+    c = C[:, i * 6 // M:(i + 1) * 6 // M]
+    h = torch.tanh(copy_to_group(x, group) @ a) @ b
+    y = gather_from_group(copy_to_group(reduce_from_group(h, group), group)
+                          @ c, group)
+    (y * torch.arange(6.0)).square().sum().backward()
+    return x.grad, y.detach()
+
+
+def _worker(rank, world, port, out_dir, spec, tree_path):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=JOIN_TIMEOUT_S))
+    try:
+        mesh = make_test_mesh(tuple(int(n) for n in spec.split("x")),
+                              device="cpu", dist_backend="gloo")
+        group = ModelGroup.of(mesh)
+        trees = torch.load(tree_path, weights_only=False)
+        out = {"group": (group.size, group.index)}
+        for name in CASES:
+            cfg = port_config(name)
+            model = Model.init(cfg, rng(SEED, "cpu"), group=group)
+            out[("init", name)] = run_model(model, name)
+            params = model_params_from_numpy(trees[name], cfg, "cpu", group)
+            out[("ref", name)] = run_model(Model(cfg, params, group), name)
+        for arch in SERVE_ARCHS:
+            out[("serve", arch)] = serve.main(
+                serve_args(arch) + ["--mesh", spec, "--backend", "gloo"])[
+                    "tokens"]
+        if world == 2:
+            out["backward"] = backward_case(group)
+        torch.save(out, Path(out_dir) / f"{spec}_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(spec, out_dir, tree_path) -> list:
+    """Every rank's results of the cases on mesh ``spec``, its world
+    ``SPAWNS[spec]``.  The ranks inherit one OpenMP thread each."""
+    world = SPAWNS[spec]
+    omp = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"
+    try:
+        ctx = mp.start_processes(_worker, args=(world, _free_port(),
+                                                str(out_dir), spec,
+                                                str(tree_path)),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+    finally:
+        if omp is None:
+            del os.environ["OMP_NUM_THREADS"]
+        else:
+            os.environ["OMP_NUM_THREADS"] = omp
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{spec}: ranks did not finish in "
+                                   f"{JOIN_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [torch.load(Path(out_dir) / f"{spec}_{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+# ------------------------------------------------------------- fixtures
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """Per case: the reference's init (numpy leaves, saved for the ranks)
+    and its prefill and teacher-forced decode logits."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import registry as ref_registry
+    from repro.models import Model as RefModel
+    from repro.models import attention as ref_attn
+    from test_torch_models import _to_port_config
+
+    trees, logits = {}, {}
+    with pytest.MonkeyPatch.context() as mpatch:
+        # the reference's window prefill needs chunk + window <= S
+        # (tests/test_torch_models.py::test_short_prompt_window_prefill)
+        mpatch.setattr(ref_attn, "gqa_forward",
+                       functools.partial(ref_attn.gqa_forward, chunk=32))
+        for name in CASES:
+            cfg = _replace(ref_registry.get_config(CASES[name][0]).reduced(),
+                           name)
+            assert _to_port_config(cfg) == port_config(name), name
+            ref = RefModel(cfg)
+            params = ref.init(jax.random.PRNGKey(1))
+            trees[name] = jax.tree.map(np.asarray, params)
+            S = CASES[name][3]
+            toks, extra = case_inputs(name, cfg)
+            batch = {"tokens": jnp.asarray(toks[:, :S]),
+                     **{k: jnp.asarray(v) for k, v in extra.items()}}
+            want, cache = jax.jit(ref.prefill)(params, batch)
+            out = [np.asarray(want)]
+            decode = jax.jit(ref.decode_step)
+            for t in range(N_DEC):
+                want, cache = decode(params, jnp.asarray(toks[:, S + t]),
+                                     cache)
+                out.append(np.asarray(want))
+            logits[name] = np.stack(out)
+    path = tmp_path_factory.mktemp("tp_trees") / "trees.pt"
+    torch.save(trees, path)
+    return {"path": path, "logits": logits}
+
+
+@pytest.fixture(scope="module")
+def world1():
+    """Per case: the whole model's logits (a world of 1), and the 1x1
+    serve tokens."""
+    out = {name: run_model(Model.init(port_config(name), rng(SEED, "cpu")),
+                           name) for name in CASES}
+    out.update({("serve", arch): serve.main(serve_args(arch))["tokens"]
+                for arch in SERVE_ARCHS})
+    return out
+
+
+@pytest.fixture(scope="module")
+def ranks(reference, tmp_path_factory):
+    """Every spawn's ranks' results, spawned once each."""
+    torch.set_num_threads(1)
+    cache = {}
+
+    def get(spec):
+        if spec not in cache:
+            cache[spec] = _spawn(spec, tmp_path_factory.mktemp(spec),
+                                 reference["path"])
+        return cache[spec]
+    return get
+
+
+# --------------------------------------------------------- spawned ranks
+
+
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("spec", list(SPAWNS))
+def test_tp_logits_match_world1(spec, name, ranks, world1):
+    got = ranks(spec)
+    M = int(spec.split("x")[1])
+    assert [r["group"] for r in got] == [
+        (M, i % M) for i in range(SPAWNS[spec])]
+    for r in got:
+        torch.testing.assert_close(r[("init", name)], world1[name],
+                                   atol=ATOL_WORLD1, rtol=ATOL_WORLD1)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("spec", list(SPAWNS))
+def test_tp_rank_matches_reference(spec, name, ranks, reference):
+    want = reference["logits"][name]
+    for r in ranks(spec):
+        np.testing.assert_allclose(r[("ref", name)].numpy(), want,
+                                   atol=ATOL_REF, rtol=ATOL_REF,
+                                   err_msg=f"{spec} {name}")
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+@pytest.mark.parametrize("spec", list(SPAWNS))
+def test_serve_mesh_same_greedy_tokens(spec, arch, ranks, world1):
+    for r in ranks(spec):
+        assert torch.equal(r[("serve", arch)], world1[("serve", arch)])
+
+
+def test_group_functions_backward(ranks):
+    want_grad, want_y = backward_case(None)
+    for r in ranks("1x2"):
+        grad, y = r["backward"]
+        for got, want in ((y, want_y), (grad, want_grad)):
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got, want, atol=1e-5 * scale,
+                                       rtol=1e-5)
+
+
+# ------------------------------------------------------------ in process
+
+
+class _Partial(ModelGroup):
+    """A rank of a model group whose sum over the group is left to the
+    caller: ``all_reduce`` returns the rank's own term."""
+
+    def all_reduce(self, x):
+        return x
+
+
+def _blocks_of(path, full, cfg, M):
+    return [sharding.shard_leaf(path, full, cfg, _Partial(M, i))
+            for i in range(M)]
+
+
+def _assembled(path, full, cfg, M, blocks):
+    """Checks the M blocks against the whole leaf: a block split is their
+    concatenation; a head split holds each real head once, the same
+    values, and zeros for a padding head."""
+    dim = sharding.param_spec(path, cfg).index("model")
+    hs = sharding._head_set(path, cfg, M)
+    if hs is None:
+        assert torch.equal(torch.cat(blocks, dim), full), path
+        return
+    mine, n = hs
+    width = full.shape[dim] // n
+    seen = set()
+    for heads, block in zip(mine, blocks):
+        for j, head in enumerate(heads):
+            got = block.narrow(dim, j * width, width)
+            if head < 0:
+                assert not got.any(), path
+            else:
+                assert torch.equal(got, full.narrow(dim, head * width,
+                                                    width)), path
+                seen.add(head)
+    assert seen == set(range(n)), path
+
+
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("name", list(CASES))
+def test_init_keeps_the_blocks_of_the_whole_init(name, M):
+    cfg = port_config(name)
+    whole = dict(Model.init(cfg, rng(SEED, "cpu")).named_parameters())
+    parts = [dict(Model.init(cfg, rng(SEED, "cpu"),
+                             group=_Partial(M, i)).named_parameters())
+             for i in range(M)]
+    for key, full in whole.items():
+        path = sharding_path(key)
+        blocks = [p[key] for p in parts]
+        assert all(b.shape == sharding.local_shape(path, full.shape, cfg, M)
+                   for b in blocks), key
+        if "model" not in sharding.param_spec(path, cfg):
+            assert all(torch.equal(b, full) for b in blocks), key
+        else:
+            _assembled(path, full, cfg, M, blocks)
+            assert all(torch.equal(b, s) for b, s in
+                       zip(blocks, _blocks_of(path, full, cfg, M))), key
+
+
+def sharding_path(key: str) -> str:
+    """A ``named_parameters`` key (``blocks.3.attn.w_q``) as the
+    reference's path (``blocks/attn/w_q``)."""
+    parts = key.split(".")
+    if parts[0] == "blocks":
+        parts = ["blocks"] + parts[2:]
+    return "/".join(parts)
+
+
+@pytest.mark.parametrize("name", ["smollm", "phi3"])   # tied, untied head
+def test_vocab_parallel_embed_and_logits_are_bitwise(name):
+    cfg = port_config(name)
+    M = 4
+    model = Model.init(cfg, rng(SEED, "cpu"))
+    head = model.embed if cfg.tie_embeddings else model.lm_head
+    fn = layers.unembed if cfg.tie_embeddings else layers.lm_head
+    key = "table" if cfg.tie_embeddings else "w"
+    path = ("embed/table" if cfg.tie_embeddings else "lm_head/w")
+    toks = torch.randint(0, cfg.vocab_size, (2, 9),
+                         generator=torch.Generator().manual_seed(1))
+    x = torch.randn((2, 9, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2))
+    rows = _blocks_of("embed/table", model.embed["table"], cfg, M)
+    got = sum(layers.embed({"table": t}, toks, _Partial(M, i))
+              for i, t in enumerate(rows))
+    assert torch.equal(got, layers.embed(model.embed, toks))
+    cols = _blocks_of(path, head[key], cfg, M)
+    got = sum(fn({key: t}, x, _Partial(M, i)) for i, t in enumerate(cols))
+    assert torch.equal(got, fn(head, x))
+
+
+def test_world1_at_1x4_is_1x1_bitwise():
+    want = serve.main(serve_args("mixtral-8x7b"))
+    got = serve.main(serve_args("mixtral-8x7b") + ["--mesh", "1x4"])
+    assert torch.equal(got["tokens"], want["tokens"])
+    assert torch.equal(got["logits"], want["logits"])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b", "whisper-tiny"])
+def test_unsplit_families_refused_over_a_model_group(arch):
+    cfg = get_config(arch).reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP item 20d"):
+        Model.init(cfg, rng(0, "cpu"), group=ModelGroup(2, 0))
+    params = {n: p.data for n, p in Model.init(cfg, rng(0, "cpu"))
+              .named_parameters()}
+    with pytest.raises(NotImplementedError, match="ROADMAP item 20d"):
+        Model(cfg, params, group=ModelGroup(4, 1))
+    Model.init(cfg, rng(0, "cpu"), group=None)          # whole: it runs
+
+
+def test_train_step_refused_over_a_model_axis():
+    cfg = get_config("smollm-135m").reduced()
+    model = Model.init(cfg, rng(0, "cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 20e"):
+        make_train_step(model, GFLConfig(),
+                        make_test_mesh((2, 2), device="cpu"))
+
+
+@pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (4, 1), (9, 3), (32, 8),
+                                  (40, 40), (32, 32), (3, 3), (8, 2)])
+@pytest.mark.parametrize("M", [1, 2, 4, 8, 16])
+def test_gqa_head_layouts(h, kv, M):
+    """Every rank the same count of query and K/V heads, each real query
+    head on exactly one rank beside the K/V head it reads, padding heads
+    only in whole K/V groups."""
+    lay = sharding.gqa_heads(h, kv, M)
+    G = h // kv
+    assert len(lay.q) == len(lay.kv) == M
+    assert len({len(q) for q in lay.q}) == len({len(k) for k in lay.kv}) == 1
+    got = sorted(j for q in lay.q for j in q if j >= 0)
+    assert got == list(range(h))
+    for q, k in zip(lay.q, lay.kv):
+        assert len(q) % len(k) == 0
+        gl = len(q) // len(k)
+        for i, j in enumerate(q):
+            kvh = k[i // gl]
+            assert (j < 0) == (kvh < 0)
+            if j >= 0:
+                assert j // G == kvh
+    if M == 1:
+        assert lay.q == (tuple(range(h)),) and lay.kv == (tuple(range(kv)),)
+
+
+def test_mla_head_layouts():
+    for h, M in ((16, 4), (40, 16), (3, 2), (4, 4)):
+        q = sharding.mla_heads(h, M).q
+        assert len({len(r) for r in q}) == 1
+        assert sorted(j for r in q for j in r if j >= 0) == list(range(h))
+
+
+def test_uneven_split_raises_naming_the_leaf():
+    cfg = port_config("phi3")
+    with pytest.raises(ValueError, match=r"embed/table.* 3"):
+        sharding.shard_leaf("embed/table", torch.zeros(512, 4), cfg,
+                            ModelGroup(3, 0))
+    with pytest.raises(ValueError, match=r"mlp/w_down.* 3"):
+        sharding.local_shape("blocks/mlp/w_down", (512, 256), cfg, 3)
+
+
+def test_mesh_backend_is_the_callers():
+    with pytest.raises(ValueError, match="backend"):
+        Mesh((1, 2), ("data", "model"), backend="mpi")
+    with pytest.raises(ValueError, match="nccl"):
+        init_world("cpu", "nccl")
+    assert init_world("cpu", "gloo") == torch.device("cpu")
+    mesh = make_test_mesh((1, 4), device="cpu", dist_backend="gloo")
+    assert mesh.backend == "gloo" and ModelGroup.of(mesh) is None

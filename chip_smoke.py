@@ -362,14 +362,18 @@ Phases, each printing JSON lines:
              one GPU; gloo takes CUDA tensors in all_reduce, the one
              collective the split forward runs) serve on mesh 1x4 through
              Model.init(group=) / prefill / decode_step: mixtral-8x7b at
-             the serve phase's 16 layers (the ff split, GQA: K8 on each
+             8 layers (cut from the serve phase's 16 to keep the whole
+             smoke under 1000 s; its 1 x 1 run made here, in this
+             process, on the same draws) (the ff split, GQA: K8 on each
              rank's 8 query and 2 K/V heads), request B, and
              deepseek-v2-lite-16b at full depth (MLA, 64 experts
              expert-parallel, 16 a rank), request A.  Each rank draws
              every leaf whole from seed 0 and keeps its block, draws the
-             serve phase's prompts, and teacher-forces the 32 decode steps
-             on the tokens of the serve phase's 1 x 1 run of the same
-             request, whose prefill and step logits it recorded, and
+             prompts as the serve phase draws them after its init
+             (tp_prompt), and teacher-forces the 32 decode steps
+             on the tokens of the 1 x 1 run of the same request (the
+             serve phase's for deepseek), whose prefill and step logits
+             it recorded, and
              every MoE routing call on the experts that run chose
              (ForcedRoutes: a route is discrete, and the float order of
              the split sums flips near ties, each of which moves a
@@ -377,10 +381,34 @@ Phases, each printing JSON lines:
              choice differing only at a near tie (below): the prefill and
              every step's logits within the bound below, every
              sequence's first greedy token equal.  K8
-             counted from 0 on every rank (16 layers x 32 steps each) and
+             counted from 0 on every rank (8 layers x 32 steps each) and
              held against its plain version on live inputs at the rank's
              shape; none for MLA.  Prints each rank's prefill ms, decode
              ms a step, weight bytes and peak bytes.
+19. tp_train — training under tensor parallelism: the mesh phase's GFL
+             step (smollm-135m at full width in bf16, L = 2 clients of 2 x
+             64 tokens, hybrid sigma 0.01, mu 0.1, B 10) on mesh 2x2: four
+             ranks sharing the card over gloo as in the tp phase, each
+             holding one server and its half of the model (9 / 3 heads
+             padded to 12 / 4: the second rank's fourth K/V head and its
+             three query heads are zeros).  3 steps of dense through K3
+             (once a leaf on the rank's [2, D_local] blocks), then 2 each
+             of rotate and sparse, whose permutes run as one sum
+             all_reduce over the server group (gloo has no CUDA send or
+             recv), each from Model.init(group=) and the same draws as a
+             2x1 run of one process, which this process makes first.
+             Gates: every leaf, put back together over the model group
+             (sharding.unshard_leaf), within 4 bf16 ulps of its largest
+             |value| of the 2x1 run's (the mesh phase's bound for rotate
+             and sparse against the einsum); the loss within the bound
+             below; every padding head's rows exactly zero after every
+             step; the leaves the two ranks of a server replicate bitwise
+             equal; K3 bitwise its plain version on each rank's 11 local
+             leaves (a noise tree and none), 11 launches a rank a dense
+             step, counted into the kernel line.  Prints ms a step split
+             into the client gradients, the model group's collectives,
+             the noise tree and the combine, and each rank's weight and
+             peak bytes.
 
 Tolerances: f32 outputs within atol 1e-5 of the plain version (the
 reference's parity contract, docs/kernels.md); fold_norms' f32 sums within
@@ -414,6 +442,9 @@ their own size.  The router's input moves by the same worst case, so a
 rank may choose other experts than the 1 x 1 run only where the forced
 ones' probability lies within 2L M 2^-9 of its top one below its own
 k-th.
+The tp_train loss: the same stream as the tp logits at M = 2 over L =
+30 layers, in a mean over tokens: within sqrt(2L) M 2^-9 of the loss, the
+random walk's share of the tp logits gate.
 The fig2 gates, both on the reference's problem: the reference's tails
 (FIG2_REF_TAILS) come from benchmarks/fig2_convergence.py at its defaults
 on the CPU, and the spread of its repeats on that problem from
@@ -4537,7 +4568,9 @@ def phase_serve(torch):
               "layers": cfg.num_layers, "d_model": cfg.d_model,
               "reduced": cut, "init_s": init_s})
         for name, B, S in requests:
-            tp_ref = TP_REQUESTS.get(arch) == name    # the tp phase's 1 x 1
+            # the tp phase's 1 x 1, where it splits the serve phase's depth
+            tp_ref = (TP_REQUESTS.get(arch) == name
+                      and arch not in TP_DEPTH_CUTS)
             with (LogitsTap(model, moe_mod) if tp_ref
                   else contextlib.nullcontext()) as logits_tap:
                 rec, prompt, inputs, out = serve_request(
@@ -4670,6 +4703,63 @@ TP_RANKS = 4
 TP_REQUESTS = {"mixtral-8x7b": "B", "deepseek-v2-lite-16b": "A"}
 TP_JOIN_S = 400             # a rank's join limit, seconds
 TP_LIVE_STEPS = (0, SERVE_NEW_TOKENS - 1)   # K8 held live at these steps
+# archs served split at fewer layers than the serve phase's, and why;
+# their 1 x 1 reference is made in the tp phase, at that depth
+TP_DEPTH_CUTS = {
+    "mixtral-8x7b": (8, "the whole smoke ran 1003.8 s with the tp phase's "
+                        "mixtral at 16 layers, past the 1000 s it keeps "
+                        "under its 1200 s limit")}
+
+
+def tp_config(arch):
+    """The arch's config as the tp phase splits it: the serve phase's,
+    cut further by TP_DEPTH_CUTS; and the cuts' record."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    cfg, cut = serve_config(arch)
+    if arch not in TP_DEPTH_CUTS:
+        return cfg, cut
+    layers, why = TP_DEPTH_CUTS[arch]
+    return (dataclasses.replace(cfg, num_layers=layers),
+            {"num_layers": f"{get_config(arch).num_layers} -> {layers}",
+             "why": why})
+
+
+def tp_prompt(torch, cfg, arch, request, gen):
+    """The serve phase's draws after the init: each request's prompt and
+    stub inputs in turn, up to ``request``'s."""
+    from repro_torch.launch.serve import stub_inputs
+    for name, B, S in dict(SERVE_MODELS)[arch]:
+        prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device="cuda")
+        inputs = stub_inputs(cfg, B, gen)
+        if name == request:
+            return prompt, inputs
+    raise SmokeFailure(f"tp: no request {request} of {arch}")
+
+
+def tp_reference(torch, arch, request) -> dict:
+    """The 1 x 1 run a tp rank is held against, at the tp phase's depth:
+    the whole model from seed 0, the request as the ranks draw it,
+    ``launch.serve.generate``'s tokens, the prefill and step logits and
+    the routing calls' experts (LogitsTap), on the host."""
+    from repro_torch import rng
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import Model
+    cfg, _ = tp_config(arch)
+    gen = rng(0, "cuda")
+    model = Model.init(cfg, gen)
+    prompt, inputs = tp_prompt(torch, cfg, arch, request, gen)
+    with LogitsTap(model, moe_mod) as tap:
+        out = generate(model, prompt, SERVE_NEW_TOKENS, **inputs)
+    ref = {"request": request, "tokens": out["tokens"].cpu(),
+           "prefill": tap.prefill.cpu(),
+           "steps": torch.stack(tap.steps).cpu(),
+           "routes": [r.cpu() for r in tap.routes]}
+    del model, out, tap
+    torch.cuda.empty_cache()
+    return ref
 
 
 def tp_rank(rank, port, arch, ref_path, out_dir):
@@ -4700,14 +4790,13 @@ def tp_serve(torch, rank, arch, ref):
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import swa_decode_attention_plain
     from repro_torch.launch.mesh import parse_mesh
-    from repro_torch.launch.serve import stub_inputs
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.model import Model
     from repro_torch.models.parallel import ModelGroup
 
     mesh = parse_mesh(TP_MESH, "cuda:0", "gloo")
     group = ModelGroup.of(mesh)
-    cfg, _ = serve_config(arch)
+    cfg, _ = tp_config(arch)
     gen = rng(0, "cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4716,14 +4805,7 @@ def tp_serve(torch, rank, arch, ref):
     init_s = time.perf_counter() - t0
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
-    # the serve phase's draws after the init: each request's prompt and
-    # stub inputs in turn
-    for name, B, S in dict(SERVE_MODELS)[arch]:
-        prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                               device="cuda")
-        inputs = stub_inputs(cfg, B, gen)
-        if name == ref["request"]:
-            break
+    prompt, inputs = tp_prompt(torch, cfg, arch, ref["request"], gen)
     n_attn = attn_per_step(cfg)
     keep = [(a, step) for a in sorted({0, n_attn - 1}) if n_attn
             for step in TP_LIVE_STEPS]
@@ -4798,22 +4880,25 @@ def tp_within(e, L, M) -> dict:
 
 def phase_tp(torch, refs) -> dict:
     """Tensor parallelism for serving (module docstring, phase 18).
-    Returns the K8 launches of the ranks' runs, each counted from 0."""
+    ``refs``: the serve phase's 1 x 1 runs of the archs split at its
+    depth (the others' are made here, :func:`tp_reference`).  Returns the
+    K8 launches of the ranks' runs, each counted from 0."""
     import multiprocessing as mp
     import socket
     import tempfile
 
     M = int(TP_MESH.split("x")[1])
-    require(M == TP_RANKS and sorted(refs) == sorted(TP_REQUESTS),
-            f"tp: references for {sorted(refs)}, expected "
-            f"{sorted(TP_REQUESTS)}")
+    from_serve = sorted(a for a in TP_REQUESTS if a not in TP_DEPTH_CUTS)
+    require(M == TP_RANKS and sorted(refs) == from_serve,
+            f"tp: references for {sorted(refs)}, expected {from_serve}")
     ctx = mp.get_context("spawn")
     launches = 0
     for arch, request in TP_REQUESTS.items():
         t_arch = time.perf_counter()
-        cfg, cut = serve_config(arch)
+        cfg, cut = tp_config(arch)
         L = cfg.num_layers
-        ref = refs[arch]
+        ref = refs[arch] if arch in refs else tp_reference(torch, arch,
+                                                             request)
         with tempfile.TemporaryDirectory(prefix="tp_smoke_") as root:
             ref_path = Path(root) / "ref.pt"
             torch.save(ref, ref_path)
@@ -4895,6 +4980,400 @@ def phase_tp(torch, refs) -> dict:
                     and all(c["close"] for c in rk["live_k8"].values()),
                     f"tp {arch} rank {r}: live K8 checks {rk['live_k8']}")
             launches += rk["k8_launches"]
+    return {"launches": launches}
+
+
+# -------------------------------------------------------------- tp_train
+
+TPT_MESH, TPT_WHOLE = "2x2", "2x1"
+TPT_RANKS, TPT_P, TPT_M = 4, 2, 2
+TPT_RUNS = (("dense_k", 3), ("rotate", 2), ("sparse", 2))   # variant, steps
+TPT_JOIN_S = 500            # the ranks' join limit, seconds
+TPT_NOISE_SEED = MESH_SEED + 1      # the K3 check's noise tree
+
+
+def tpt_args(variant, mesh) -> list:
+    """``launch.train``'s arguments for a variant's run: the mesh phase's
+    settings at P = 2."""
+    combine, kernels = MESH_VARIANTS[variant]
+    return (["--arch", MESH_ARCH, "--mesh", mesh, "--steps",
+             str(dict(TPT_RUNS)[variant]), "--seq", str(MESH_SEQ),
+             "--clients", str(MESH_L), "--per-client", str(MESH_PER_CLIENT),
+             "--privacy", MESH_PRIVACY, "--sigma", str(MESH_SIGMA), "--mu",
+             str(MESH_MU), "--combine", combine]
+            + (["--use-kernels"] if kernels else []))
+
+
+class StepTap:
+    """Inside the ``with``, every train step ``launch.steps.
+    make_train_step`` builds is timed on the host clock between
+    synchronizes, split by bucket (each wrapped call bracketed by
+    synchronizes): the model group's all_reduces ("group"), the noise
+    draws and their cut to blocks ("noise"), the server group's gathers or
+    permutes with the mix ("combine"), the rest the clients' gradients
+    ("grads"); ``after(state)`` runs after each step and its value is
+    kept.  Everything is restored on exit."""
+
+    def __init__(self, torch, after=None):
+        self.torch, self.after = torch, after
+        self.steps, self.ms, self.saved = [], {}, []
+
+    def wrap(self, owner, name, fn):
+        self.saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, fn)
+
+    def timed(self, fn, bucket):
+        torch = self.torch
+
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms[bucket] = (self.ms.get(bucket, 0.0)
+                               + (time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def __enter__(self):
+        from repro_torch.core.privacy import mechanism
+        from repro_torch.launch import sharding
+        from repro_torch.launch import steps as S
+        from repro_torch.launch.mesh import Mesh
+        for owner, name, bucket in (
+                (Mesh, "all_reduce_model", "group"),
+                (mechanism, "_tree_noise", "noise"),
+                (sharding, "shard_leaf", "noise"),
+                (S, "_kernel_dense_combine", "combine"),
+                (S, "_dense_combine", "combine"),
+                (S, "_rotate_combine", "combine"),
+                (S, "_sparse_combine", "combine"),
+                (Mesh, "all_gather_servers", "combine")):
+            self.wrap(owner, name, self.timed(getattr(owner, name), bucket))
+        make = S.make_train_step
+        torch = self.torch
+
+        def make_timed(*args, **kw):
+            step = make(*args, **kw)
+
+            def run(*a, **k):
+                self.ms = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(*a, **k)
+                torch.cuda.synchronize()
+                total = (time.perf_counter() - t0) * 1e3
+                split = {b: self.ms.get(b, 0.0)
+                         for b in ("group", "noise", "combine")}
+                split["grads"] = total - sum(split.values())
+                self.steps.append({"ms": total, "split": split,
+                                   "after": None if self.after is None
+                                   else self.after(state)})
+                return state, m
+            return run
+        self.wrap(S, "make_train_step", make_timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+
+
+def tpt_train(torch, variant, mesh, extra, after=None):
+    """``launch.train`` for a variant's run on ``mesh``: (its returned
+    dict, the tap's steps, its log lines)."""
+    import io
+    from repro_torch.launch import train
+    out = io.StringIO()
+    with StepTap(torch, after) as tap, contextlib.redirect_stdout(out):
+        run = train.main(tpt_args(variant, mesh) + extra)
+    return run, tap.steps, out.getvalue().splitlines()
+
+
+def tpt_whole_runs(torch, root) -> dict:
+    """The 2x1 run of one process for each variant: losses, ms a step and
+    its split, and the final state, each server's row saved to
+    ``root/<variant>_<server>.pt`` for the ranks."""
+    out = {}
+    for variant, _ in TPT_RUNS:
+        run, steps, _ = tpt_train(torch, variant, TPT_WHOLE,
+                                  ["--device", "cuda"])
+        for b in range(TPT_P):
+            torch.save({k: v[b].cpu() for k, v in
+                        run["state"].params.items()},
+                       Path(root) / f"{variant}_{b}.pt")
+        out[variant] = {"loss": [h["loss"] for h in run["history"]],
+                        "step_ms": [s["ms"] for s in steps],
+                        "split_ms": [s["split"] for s in steps]}
+        del run
+        torch.cuda.empty_cache()
+    return out
+
+
+def tpt_padding_zero(params, cfg, index) -> bool:
+    """Whether every padding head's rows of the rank's blocks are zero."""
+    from repro_torch.launch import sharding
+    ok = True
+    for k, x in params.items():
+        hs = sharding._head_set(k, cfg, TPT_M)
+        if hs is None:
+            continue
+        mine = hs[0][index]
+        d = 1 + sharding.stack_lead(k) + \
+            sharding.param_spec(k, cfg).index("model")
+        width = x.shape[d] // len(mine)
+        for h, j in enumerate(mine):
+            if j < 0:
+                ok = ok and not bool(x.narrow(d, h * width, width).any())
+    return ok
+
+
+def tpt_k3_check(torch, mesh, cfg, group, params) -> dict:
+    """K3 on the rank's 11 local leaves ([2, D_local], gathered over the
+    server group) against its plain version, with a hybrid noise tree
+    drawn whole and cut as the step cuts it, and without: max abs err a
+    leaf (bitwise: 0)."""
+    from repro_torch.core.privacy.mechanism import (RoundContext,
+                                                    mechanism_for)
+    from repro_torch.draws import DrawKey, Draws
+    from repro_torch.kernels import graph_combine as gc
+    from repro_torch.launch import sharding
+    from repro_torch.launch import steps as S
+    from repro_torch.models.flat import FlatView
+
+    full = {k: mesh.all_gather_servers(v) for k, v in params.items()}
+    whole = FlatView(S.abstract_model(cfg)).tree_shapes()
+    shapes = {k: torch.empty((TPT_P,) + s, dtype=dt, device="meta")
+              for k, (s, dt) in whole.items()}
+    g = mechanism_for(mesh_gfl("dense_k")).combine_noise_tree(
+        DrawKey(Draws(TPT_NOISE_SEED, "cuda"), 0), shapes,
+        RoundContext(step=0))
+    g = {k: sharding.shard_leaf(k, x, cfg, group,
+                                lead=1 + sharding.stack_lead(k))
+         for k, x in g.items()}
+    A = torch.as_tensor(S.make_combination_matrix(mesh, mesh_gfl("dense_k")),
+                        dtype=torch.float32, device="cuda")
+    errs = {}
+    for tag, g_ in (("g", g), ("none", None)):
+        got = S._kernel_dense_combine(A, full, g_)
+        for k, x in full.items():
+            plain = gc.graph_combine_plain(
+                A, x.reshape(TPT_P, -1),
+                None if g_ is None else g_[k].reshape(TPT_P, -1))
+            errs[f"{k}[{tag}]"] = max_err(torch, got[k].reshape(TPT_P, -1),
+                                          plain)
+        del got
+    return errs
+
+
+def tp_train_rank(rank, port, root):
+    """One rank of the tp_train phase (a spawned process) on cuda:0 in a
+    gloo world of TPT_RANKS; writes its record to ``root/rank<r>.json``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=TPT_RANKS,
+                            timeout=timedelta(seconds=TPT_JOIN_S))
+    try:
+        rec = tp_train(torch, rank, root)
+    finally:
+        dist.destroy_process_group()
+    (Path(root) / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def tp_train(torch, rank, root):
+    """The body of :func:`tp_train_rank`: each variant's run through
+    ``launch.train --mesh 2x2 --backend gloo``, its steps timed and split,
+    the padding checked after each; then the replica check, the leaves
+    put back together and held against the 2x1 run's, and (dense) K3
+    against its plain version on the local leaves."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import sharding
+    from repro_torch.launch import steps as S
+    from repro_torch.models.parallel import ModelGroup, gather_blocks
+
+    cfg = get_config(MESH_ARCH)
+    rec = {"rank": rank, "variants": {}}
+    torch.cuda.reset_peak_memory_stats()
+    for variant, n in TPT_RUNS:
+        index = rank % TPT_M
+        K.reset_launches()
+        run, steps, log = tpt_train(
+            torch, variant, TPT_MESH,
+            ["--backend", "gloo", "--device", "cuda:0"],
+            after=lambda state: tpt_padding_zero(state.params, cfg, index))
+        launches = K.LAUNCHES["graph_combine"]
+        K.reset_launches()
+        mesh, state = run["mesh"], run["state"]
+        group = ModelGroup.of(mesh)
+        server = mesh.local_servers.start
+        row = {k: v[0] for k, v in state.params.items()}
+        out = {"loss": [h["loss"] for h in run["history"]],
+               "step_ms": [s["ms"] for s in steps],
+               "split_ms": [s["split"] for s in steps],
+               "padding_zero": [s["after"] for s in steps],
+               "k3_launches": launches, "log": log[:2]}
+        rec.update(group=[group.size, group.index],
+                   servers=list(mesh.local_servers),
+                   p2p=mesh.layout()["p2p"],
+                   weight_bytes=sum(v.numel() * v.element_size()
+                                    for v in row.values()))
+        out["replicas_equal"] = all(
+            all(torch.equal(b, x) for b in gather_blocks(x, group))
+            for k, x in row.items()
+            if not sharding.is_split(k, cfg, TPT_M))
+        whole = S.whole_leaves(row, cfg, group)
+        if group.index == 0:
+            ref = torch.load(Path(root) / f"{variant}_{server}.pt")
+            out["leaves"] = {k: {"shape_ok": list(x.shape)
+                                 == list(ref[k].shape),
+                                 "max_abs_err": max_err(torch, x,
+                                                        ref[k].cuda()),
+                                 "max_abs": float(ref[k].float().abs()
+                                                  .max())}
+                             for k, x in whole.items()}
+            del ref
+        del whole
+        if variant == "dense_k":
+            out["k3_leaf_max_abs_err"] = tpt_k3_check(
+                torch, mesh, cfg, group, state.params)
+            K.reset_launches()
+        rec["variants"][variant] = out
+        del run, state, row
+        torch.cuda.empty_cache()
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return rec
+
+
+def phase_tp_train(torch) -> dict:
+    """Training under tensor parallelism (module docstring, phase 19).
+    Returns K3's launches of the ranks' dense steps, counted from 0 on
+    each rank just before its run."""
+    import multiprocessing as mp
+    import socket
+    import statistics
+    import tempfile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import sharding
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MESH_ARCH)
+    require(cfg.num_layers == 30 and cfg.d_model == 576
+            and (cfg.num_heads, cfg.num_kv_heads) == (9, 3)
+            and cfg.param_dtype == "bfloat16",
+            f"tp_train: {cfg.name} is not at full width in bf16")
+    lay = sharding.heads(cfg, TPT_M)
+    require(lay.kv == ((0, 1), (2, -1)),
+            f"tp_train: {cfg.name}'s K/V heads at M = {TPT_M}: {lay.kv}, "
+            "expected a padding head on the second rank")
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="tp_train_") as root:
+        whole = tpt_whole_runs(torch, root)
+        emit({"phase": "tp_train", "mesh": TPT_WHOLE, "process": "parent",
+              **whole})
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        procs = [ctx.Process(target=tp_train_rank, args=(r, port, root))
+                 for r in range(TPT_RANKS)]
+        t_ranks = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + TPT_JOIN_S
+        try:
+            for p in procs:
+                p.join(max(1.0, deadline - time.perf_counter()))
+        finally:
+            hung = [p.pid for p in procs if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        require(not hung and codes == [0] * TPT_RANKS,
+                f"tp_train: rank exit codes {codes}, still running after "
+                f"{TPT_JOIN_S} s: {hung}")
+        ranks = [json.loads((Path(root) / f"rank{r}.json").read_text())
+                 for r in range(TPT_RANKS)]
+        ranks_s = time.perf_counter() - t_ranks
+    loss_tol = math.sqrt(2 * cfg.num_layers) * TPT_M * 2.0 ** -9
+    launches = 0
+    for rk in ranks:
+        r = rk["rank"]
+        require(rk["group"] == [TPT_M, r % TPT_M]
+                and rk["servers"] == [r // TPT_M] and not rk["p2p"],
+                f"tp_train rank {r}: group {rk['group']}, servers "
+                f"{rk['servers']}, p2p {rk['p2p']}")
+        for variant, n in TPT_RUNS:
+            v = rk["variants"][variant]
+            want = whole[variant]["loss"]
+            require(len(v["loss"]) == len(want) == n
+                    and all(math.isfinite(g) and abs(g - w) <= loss_tol * w
+                            for g, w in zip(v["loss"], want)),
+                    f"tp_train rank {r} {variant}: loss {v['loss']}, the "
+                    f"2x1 run's {want} (limit {loss_tol} of it)")
+            require(v["padding_zero"] == [True] * n,
+                    f"tp_train rank {r} {variant}: a padding head's rows "
+                    f"are not zero after a step: {v['padding_zero']}")
+            require(v["replicas_equal"], f"tp_train rank {r} {variant}: "
+                    "a replicated leaf differs from its model group's")
+            k3 = MESH_LEAVES * n if variant == "dense_k" else 0
+            require(v["k3_launches"] == k3, f"tp_train rank {r} {variant}: "
+                    f"K3 launched {v['k3_launches']} times, expected {k3}")
+            if variant == "dense_k":
+                launches += v["k3_launches"]
+                errs = v["k3_leaf_max_abs_err"]
+                require(len(errs) == 2 * MESH_LEAVES
+                        and all(e == 0.0 for e in errs.values()),
+                        f"tp_train rank {r}: K3 against its plain version "
+                        f"on the local leaves {errs}")
+            require(("leaves" in v) == (r % TPT_M == 0)
+                    and len(v.get("leaves", [None] * MESH_LEAVES))
+                    == MESH_LEAVES, f"tp_train rank {r} {variant}: leaves "
+                    f"compared {sorted(v.get('leaves', {}))}")
+            for k, e in v.get("leaves", {}).items():
+                ulps = MESH_COMBINE_ULPS * 2.0 ** -7 * e["max_abs"]
+                require(e["shape_ok"] and e["max_abs_err"] <= ulps,
+                        f"tp_train rank {r} {variant}: {k} max abs err "
+                        f"{e['max_abs_err']} from the 2x1 run's, over "
+                        f"{MESH_COMBINE_ULPS} bf16 ulps {ulps}")
+    split = {}
+    for variant, _ in TPT_RUNS:
+        per = [s for rk in ranks for s in rk["variants"][variant]["split_ms"]]
+        split[variant] = {
+            "step_ms_median": statistics.median(
+                t for rk in ranks for t in rk["variants"][variant]["step_ms"]),
+            **{f"{b}_ms_median": statistics.median(s[b] for s in per)
+               for b in ("grads", "group", "noise", "combine")},
+            "whole_2x1_step_ms_median": statistics.median(
+                whole[variant]["step_ms"])}
+    emit({"phase": "tp_train", "mesh": TPT_MESH, "backend": "gloo",
+          "main": "python -m repro_torch.launch.train --mesh 2x2 "
+                  "--backend gloo --device cuda:0",
+          "ranks": [{"rank": rk["rank"], "group": rk["group"],
+                     "weight_bytes": rk["weight_bytes"],
+                     "peak_memory_bytes": rk["peak_memory_bytes"],
+                     **{f"{v}_loss": rk["variants"][v]["loss"]
+                        for v, _ in TPT_RUNS},
+                     **{f"{v}_step_ms": rk["variants"][v]["step_ms"]
+                        for v, _ in TPT_RUNS}}
+                    for rk in ranks],
+          "log_rank0": ranks[0]["variants"]["dense_k"]["log"],
+          "loss_tol_rel": loss_tol, "ulps_allowed": MESH_COMBINE_ULPS,
+          "k3_launches": launches})
+    emit({"phase": "tp_train", "split_ms": split})
+    emit({"phase": "tp_train", "leaf_max_abs_err_and_max_abs": {
+        f"rank{rk['rank']}": {v: {k: [e["max_abs_err"], e["max_abs"]]
+                                  for k, e in rk["variants"][v]["leaves"]
+                                  .items()}
+                              for v, _ in TPT_RUNS}
+        for rk in ranks if rk["rank"] % TPT_M == 0}})
+    emit({"phase": "tp_train", "ranks_seconds": ranks_s,
+          "seconds": time.perf_counter() - t_phase})
     return {"launches": launches}
 
 
@@ -5092,6 +5571,7 @@ def main() -> int:
         timed("analysis", phase_analysis, torch)
         tp = timed("tp", phase_tp, torch, tp_refs)
         del tp_refs
+        tpt = timed("tp_train", phase_tp_train, torch)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -5107,6 +5587,7 @@ def main() -> int:
     for name, n in mesh["launches"].items():   # the mesh trainer's K3
         launches[name] += n
     launches["swa_decode"] += tp["launches"]   # the tp ranks' K8
+    launches["graph_combine"] += tpt["launches"]   # the tp_train ranks' K3
     table = []
     main_t = timings[MAIN_SHAPE]
     for name, (source, replaces, key) in KERNELS.items():

@@ -5,8 +5,9 @@ The reference's ``GFLState``, ``LogisticProblem``, model param pytrees
 their index tables hold jax arrays; a caller passes them here as numpy
 arrays (``np.asarray``, ``jax.tree.map(np.asarray, params)``) and gets the
 port's own types on
-``device``, so both packages compute on the same numbers.  No jax is
-imported on this side.
+``device``, so both packages compute on the same numbers; the mesh
+trainer's state goes across as the rank's servers and blocks
+(:func:`train_params_from_numpy`).  No jax is imported on this side.
 """
 from __future__ import annotations
 
@@ -256,6 +257,39 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig,
         layer for name, (n, shapes) in stacks.items()
         for layer in _stack_layers(tree[name], shapes, n, dt, name, dev)]
     return shard_tree(params, cfg, group) if group is not None else params
+
+
+def train_params_from_numpy(tree: dict, cfg: ModelConfig, servers: range,
+                            device=None, group=None) -> dict:
+    """The mesh train state's params (``launch.steps.TrainState``) from
+    the reference's: its param pytree (numpy leaves, nested dicts as the
+    reference's ``TrainState.params``, or keyed by the ``/``-joined path)
+    whose leaves carry the leading server dim [P, ...].  Returns {path:
+    [len(servers), ...]}: the rows of ``servers`` (a rank's
+    ``mesh.local_servers``) and, with a ``group``, the rank's block of
+    each leaf, each stacked leaf cut for all its layers at once
+    (:func:`repro_torch.launch.sharding.shard_leaf`).  Every leaf is
+    checked for its whole shape and dtype."""
+    from repro_torch.launch.sharding import shard_leaf, stack_lead
+    from repro_torch.launch.steps import abstract_model
+    from repro_torch.models.flat import FlatView
+    from repro_torch.models.model import check_supported
+    from repro_torch.models.parallel import group_size
+    check_supported(cfg, group_size(group))
+    dev = resolve_device(device)
+    flat = {"/".join(path): leaf for path, leaf in _leaves(tree)}
+    whole = FlatView(abstract_model(cfg)).tree_shapes()
+    if set(flat) != set(whole):
+        raise ValueError(f"train state leaves {sorted(flat)} do not match "
+                         f"{cfg.name}'s {sorted(whole)}")
+    P = np.shape(next(iter(flat.values())))[0]
+    rows = slice(servers.start, servers.stop)
+    if not 0 <= servers.start < servers.stop <= P:
+        raise ValueError(f"servers {servers} outside the state's {P}")
+    return {k: shard_leaf(k, _model_tensor(flat[k], (P,) + shape, dt, k,
+                                           "cpu")[rows].to(dev),
+                          cfg, group, lead=1 + stack_lead(k))
+            for k, (shape, dt) in whole.items()}
 
 
 def is_state_from_numpy(norm_est, counts, device=None):

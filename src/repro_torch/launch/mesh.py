@@ -23,10 +23,13 @@ environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``):
 NCCL for ``cuda`` tensors, gloo for CPU ones, unless the caller names the
 backend.  Ranks that share one card (NCCL refuses two ranks on one GPU)
 ask for gloo on ``cuda`` tensors and name their card (``cuda:0``); gloo
-takes CUDA tensors in ``all_reduce`` and ``broadcast``, the only
-collectives tensor parallelism runs (:mod:`repro_torch.models.parallel`).
-A group whose backend is not the one asked for, or not the device's
-default when none is, raises; nothing falls back to another backend.
+takes CUDA tensors in ``all_reduce``, ``broadcast`` and ``all_gather``,
+the collectives tensor parallelism (:mod:`repro_torch.models.parallel`)
+and the dense combine run, but none in ``send`` / ``recv``: there
+:meth:`Mesh.ppermute` runs as one sum ``all_reduce``, chosen by the
+backend and the device.  A group whose backend is not the one asked for,
+or not the device's default when none is, raises; nothing falls back to
+another backend.
 """
 from __future__ import annotations
 
@@ -116,7 +119,7 @@ class Mesh:
         lay = {"server_ranks": s_ranks, "model_ranks": m_ranks,
                "per_rank": per, "block": block, "model_index": m_idx,
                "servers": range(block * per, (block + 1) * per),
-               "server_group": None, "model_group": None,
+               "server_group": None, "model_group": None, "p2p": True,
                "server_group_ranks": [b * m_ranks + m_idx
                                       for b in range(s_ranks)],
                "model_group_ranks": [block * m_ranks + m
@@ -130,6 +133,8 @@ class Mesh:
                     f"the process group's backend is {have!r}; tensors on "
                     f"{self.device} were asked to go over {want!r} (no "
                     "other backend is taken in its place)")
+            # gloo sends and receives host tensors only
+            lay["p2p"] = not (want == "gloo" and self.device.type == "cuda")
             # every rank makes every group, in one order
             for m in range(m_ranks):
                 g = dist.new_group([b * m_ranks + m for b in range(s_ranks)])
@@ -160,7 +165,16 @@ class Mesh:
         ``dst`` of the result is row ``src`` of the input, zeros where no
         pair names it.  Rows that stay on the rank are an index copy; the
         rest go by one ``batch_isend_irecv`` (each peer's rows as one
-        message, ordered by destination)."""
+        message, ordered by destination), or, where the backend has no
+        point-to-point op for the device (gloo on cuda), by one sum
+        ``all_reduce`` over the server group (:meth:`_ppermute_reduce`)."""
+        lay = self.layout()
+        if not lay["p2p"] and any(self.owner(s) != self.owner(d)
+                                  for s, d in perm):
+            return self._ppermute_reduce(x, perm)
+        return self._ppermute_p2p(x, perm)
+
+    def _ppermute_p2p(self, x: torch.Tensor, perm) -> torch.Tensor:
         lay = self.layout()
         lo = lay["servers"].start
         me = lay["block"]
@@ -202,6 +216,24 @@ class Mesh:
             req.wait()
         for rows, buf in bufs:
             out[rows] = buf
+        return out
+
+    def _ppermute_reduce(self, x: torch.Tensor, perm) -> torch.Tensor:
+        """:meth:`ppermute` as one sum ``all_reduce`` over the server
+        group: each rank writes its rows into a zeroed [P, ...] buffer
+        (exact: each row has one writer), and reads the rows its
+        destinations name.  Every rank of the group takes part."""
+        lay = self.layout()
+        lo, hi = lay["servers"].start, lay["servers"].stop
+        buf = x.new_zeros((num_servers(self),) + tuple(x.shape[1:]))
+        buf[lo:hi] = x
+        _dist().all_reduce(buf, group=lay["server_group"])
+        pairs = sorted((d - lo, s) for s, d in perm if lo <= d < hi)
+        out = torch.zeros_like(x)
+        if pairs:
+            dst, src = zip(*pairs)
+            out[torch.tensor(dst, device=x.device)] = buf.index_select(
+                0, torch.tensor(src, device=x.device))
         return out
 
     def all_gather_servers(self, x: torch.Tensor) -> torch.Tensor:
@@ -263,10 +295,11 @@ def init_world(device=None, dist_backend: Optional[str] = None
     return dev
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         dist_backend: Optional[str] = None) -> Mesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return Mesh(shape, axes, device=device)
+    return Mesh(shape, axes, device=device, backend=dist_backend)
 
 
 def make_test_mesh(shape=(2, 4), axes=("data", "model"), *,
@@ -284,14 +317,14 @@ def parse_mesh(spec: str, device=None,
                           dist_backend=dist_backend)
 
 
-def mesh_from_arg(spec: str, device=None) -> Mesh:
+def mesh_from_arg(spec: str, device=None,
+                  dist_backend: Optional[str] = None) -> Mesh:
     """A ``--mesh`` argument: ``production``, ``production-multipod`` or
     a :func:`parse_mesh` spec."""
-    if spec == "production":
-        return make_production_mesh(device=device)
-    if spec == "production-multipod":
-        return make_production_mesh(multi_pod=True, device=device)
-    return parse_mesh(spec, device)
+    if spec in ("production", "production-multipod"):
+        return make_production_mesh(multi_pod=spec.endswith("multipod"),
+                                    device=device, dist_backend=dist_backend)
+    return parse_mesh(spec, device, dist_backend)
 
 
 def server_axes(mesh: Mesh) -> tuple:

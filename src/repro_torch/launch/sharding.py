@@ -13,9 +13,10 @@ port places the server dim by these specs (a rank holds a block of
 servers, :mod:`repro_torch.launch.mesh`) and, under ``client_parallel``,
 the client dim.  Serving splits each leaf over ``"model"`` by the same
 specs (:func:`shard_leaf`, the collectives in
-:mod:`repro_torch.models.parallel`) for the dense, vlm and MoE families;
-the ssm, hybrid and audio families under a model axis above 1 are ROADMAP
-item 20d, and training under one (without ``client_parallel``) item 20e.
+:mod:`repro_torch.models.parallel`) for the dense, vlm and MoE families,
+and so does training (the train step runs each rank's blocks under the
+server dim); the ssm, hybrid and audio families under a model axis above
+1 are ROADMAP item 20d.
 
 Run-time layout of a split leaf.  A spec names the dimension; the rank
 takes its block of it, but attention leaves split by whole heads
@@ -26,7 +27,9 @@ pads the dims it cannot split evenly, so a padded head adds exactly 0.
 The reference's ``cache_specs`` split the K/V cache's head_dim over
 ``"model"``; the port's caches hold the rank's whole K/V heads (and MLA's
 latent cache whole on every rank): a run-time layout, the specs stay the
-reference's.
+reference's.  :func:`unshard_leaf` puts the ranks' blocks back together,
+and :func:`multiplicity` says how many ranks hold each block (what a sum
+over the group counts once: the train step's clip and telemetry norms).
 """
 from __future__ import annotations
 
@@ -230,31 +233,83 @@ def local_shape(path: str, shape, cfg: ModelConfig, M: int) -> tuple:
 
 
 def shard_leaf(path: str, full: torch.Tensor, cfg: ModelConfig,
-               group) -> torch.Tensor:
+               group, lead: int = 0) -> torch.Tensor:
     """The rank's block of the whole leaf ``full`` at ``path`` (one
-    layer, no server dim): the block of the dimension ``param_spec``
-    names (the MoE stacks' ff dim where their experts do not split), an
-    attention leaf's whole heads (zeros for a padding head), a copy of its
-    own so ``full`` can be freed; ``full`` itself where the leaf is
-    replicated or ``group`` is None.  A vocab, ff or expert count the
-    group does not divide raises, naming the leaf."""
+    layer, no server dim, behind ``lead`` leading dims that are not split:
+    a layer stack's, a server dim's): the block of the dimension
+    ``param_spec`` names (the MoE stacks' ff dim where their experts do
+    not split), an attention leaf's whole heads (zeros for a padding
+    head), a copy of its own so ``full`` can be freed; ``full`` itself
+    where the leaf is replicated or ``group`` is None.  A vocab, ff or
+    expert count the group does not divide raises, naming the leaf."""
     M = 1 if group is None else group.size
     dim = _model_dim(path, cfg) if M > 1 else None
     if dim is None:
         return full
-    want = local_shape(path, full.shape, cfg, M)
+    want = local_shape(path, full.shape[lead:], cfg, M)
+    d = lead + dim
     hs = _head_set(path, cfg, M)
     if hs is None:
         per = want[dim]
-        return full.narrow(dim, group.index * per, per).clone()
+        return full.narrow(d, group.index * per, per).clone()
     mine, n_heads = hs[0][group.index], hs[1]
-    by_head = full.unflatten(dim, (n_heads, full.shape[dim] // n_heads))
+    by_head = full.unflatten(d, (n_heads, full.shape[d] // n_heads))
     idx = torch.tensor([max(j, 0) for j in mine], device=full.device)
-    out = by_head.index_select(dim, idx)
+    out = by_head.index_select(d, idx)
     pad = [i for i, j in enumerate(mine) if j < 0]
     if pad:
-        out.index_fill_(dim, torch.tensor(pad, device=full.device), 0)
-    return out.flatten(dim, dim + 1)
+        out.index_fill_(d, torch.tensor(pad, device=full.device), 0)
+    return out.flatten(d, d + 1)
+
+
+def unshard_leaf(path: str, blocks, cfg: ModelConfig, M: int,
+                 lead: int = 0) -> torch.Tensor:
+    """The whole leaf at ``path`` from the M ranks' blocks (in the model
+    group's order, each behind ``lead`` leading dims): the inverse of
+    :func:`shard_leaf`.  Split blocks side by side; an attention leaf's
+    real heads in their order, one copy of a shared K/V head, padding
+    heads dropped; a replicated leaf's first block."""
+    if len(blocks) != M:
+        raise ValueError(f"{path}: {len(blocks)} blocks for a model group "
+                         f"of {M}")
+    dim = _model_dim(path, cfg) if M > 1 else None
+    if dim is None:
+        return blocks[0]
+    d = lead + dim
+    hs = _head_set(path, cfg, M)
+    if hs is None:
+        return torch.cat(list(blocks), d)
+    heads, n_heads = hs
+    width = blocks[0].shape[d] // len(heads[0])
+    parts: dict = {}
+    for mine, block in zip(heads, blocks):
+        for i, j in enumerate(mine):
+            if j >= 0 and j not in parts:
+                parts[j] = block.narrow(d, i * width, width)
+    return torch.cat([parts[j] for j in range(n_heads)], d)
+
+
+def is_split(path: str, cfg: ModelConfig, M: int) -> bool:
+    """True where a model group of M splits the leaf at ``path``."""
+    return M > 1 and _model_dim(path, cfg) is not None
+
+
+def multiplicity(path: str, cfg: ModelConfig, M: int) -> int:
+    """How many ranks of a model group of M hold the same block of the
+    leaf at ``path``: M for a replicated leaf, r for a K/V head shared by
+    r ranks (:func:`gqa_heads`), 1 for every other split leaf.  The ranks
+    holding one block are consecutive (indices ``m // r`` alike), so the
+    first of them, ``index % multiplicity == 0``, counts it once."""
+    if not is_split(path, cfg, M):
+        return M
+    hs = _head_set(path, cfg, M)
+    return 1 if hs is None else hs[0].count(hs[0][0])
+
+
+def stack_lead(path: str) -> int:
+    """1 for a block-stack leaf (its layer dim ahead of the layer's
+    shape in the reference's tree), else 0."""
+    return int(_leaf_is_stacked(path))
 
 
 def shard_tree(params: dict, cfg: ModelConfig, group) -> dict:

@@ -26,13 +26,25 @@ SERVING: consensus-model prefill / decode steps.
 Privacy noise comes from the mechanism's tree hooks
 (``client_noise_tree`` / ``combine_noise_tree``) on the state's
 :class:`~repro_torch.draws.DrawKey`.  Each rank draws the noise of all P
-servers and keeps its own rows, so a run's noise is the same whatever the
-rank layout.  A model axis above 1 is tensor parallelism in the reference
-(GSPMD splits each leaf over ``"model"``).  The serving steps run a model
-split over its model group as they run a whole one (``Model(...,
-group=)``, :mod:`repro_torch.models.parallel`); the train step runs a
-model axis above 1 only as the client-parallel mode and otherwise raises
-(training under tensor parallelism is ROADMAP item 20e).
+servers at the whole leaf shapes and keeps its own rows, and of each leaf
+its block (:func:`repro_torch.launch.sharding.shard_leaf`, which zeroes a
+padding head's rows), so a run's noise is the same whatever the rank
+layout.
+
+TENSOR PARALLELISM.  A model axis above 1 splits each leaf over the
+server's model group, as GSPMD splits it in the reference (the megatron
+specs of ``launch.sharding``): the state holds the rank's blocks, and the
+model is built on the same group (``Model.init(cfg, gen,
+group=ModelGroup.of(mesh))``).  A client's gradient is the backward
+through the group's collectives (:mod:`repro_torch.models.parallel`), a
+shared K/V head's summed over the ranks that share it; the clip's global
+norm, and the telemetry's, sum the blocks' squares over the group, each
+block counted once (``sharding.multiplicity``); the combines run on the
+blocks (K3 once a leaf on [P, D_local]).  Under ``client_parallel`` the
+model axis splits the clients instead and every rank holds whole leaves.
+Over gloo with CUDA tensors (ranks sharing one card), whose point-to-point
+ops take no CUDA tensors, :meth:`Mesh.ppermute` runs as one sum
+``all_reduce`` over the server group.
 """
 from __future__ import annotations
 
@@ -49,13 +61,15 @@ from repro_torch.kernels import ops as kops
 from repro_torch.launch import sharding as shd
 from repro_torch.launch.mesh import Mesh, num_servers, server_axes
 from repro_torch.models.flat import FlatView
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, check_supported
+from repro_torch.models.parallel import (ModelGroup, gather_blocks,
+                                         group_size, sum_over_sharers)
 from repro_torch.optim.clip import clip_by_global_norm
 
 
 class TrainState(NamedTuple):
     params: dict        # {path: [n_local, ...]}: this rank's servers
-    step: int
+    step: int           # (and its block of each leaf over a model group)
     key: DrawKey
 
 
@@ -229,6 +243,53 @@ def make_topology_process(mesh: Mesh, gfl: GFLConfig):
 # ---------------------------------------------------------------------------
 
 
+def _shared(model: Model) -> dict:
+    """{key: r} of the leaves whose block r > 1 ranks of the model's group
+    hold (a shared K/V head), each gradient to sum over them."""
+    M = group_size(model.group)
+    return {k: r for k in FlatView(model).tree_shapes()
+            if shd.is_split(k, model.cfg, M)
+            and (r := shd.multiplicity(k, model.cfg, M)) > 1}
+
+
+def client_grads(model: Model, tree: dict, batch: dict,
+                 remat_policy: str | None = None, view=None,
+                 shared=None):
+    """(loss, {key: gradient}) of ``model.loss(**batch)`` at the
+    parameters ``tree`` ({key: tensor} of one server).  On a model split
+    over its group the gradients are the rank's blocks of the whole
+    model's: the backward runs through the group's collectives, and a
+    shared K/V head's gradient is summed over the ranks sharing it."""
+    view = FlatView(model) if view is None else view
+    loss, grads = view.tree_grad(model, tree, lambda: model.loss(
+        **batch, remat_policy=remat_policy)[0])
+    for k, r in (_shared(model) if shared is None else shared).items():
+        grads[k] = sum_over_sharers(grads[k], model.group, r)
+    return loss, grads
+
+
+def _counted(model: Model) -> dict:
+    """{key: bool}: whether this rank counts its block of each leaf in a
+    sum over the model group (the first of the ranks that hold it)."""
+    M = group_size(model.group)
+    index = 0 if model.group is None else model.group.index
+    return {k: index % shd.multiplicity(k, model.cfg, M) == 0
+            for k in FlatView(model).tree_shapes()}
+
+
+def whole_leaves(tree: dict, cfg: ModelConfig, group) -> dict:
+    """One server's whole leaves from the rank's blocks ``tree`` ({key:
+    block}, no server dim) of a model split over ``group``, on every rank
+    of it: each split leaf's blocks gathered (one sum ``all_reduce``) and
+    put together (``sharding.unshard_leaf``).  ``tree`` itself without a
+    group."""
+    M = group_size(group)
+    return {k: shd.unshard_leaf(k, gather_blocks(x, group)
+                                if shd.is_split(k, cfg, M) else [x] * M,
+                                cfg, M, lead=shd.stack_lead(k))
+            for k, x in tree.items()}
+
+
 def make_train_step(model: Model, gfl: GFLConfig, mesh: Mesh,
                     clients: int = 4,
                     remat_policy: str | None = None) -> Callable:
@@ -272,22 +333,51 @@ def make_train_step(model: Model, gfl: GFLConfig, mesh: Mesh,
             "use combine_impl='rotate' (or 'dense') with fault specs")
     if gfl.combine_impl not in ("dense", "rotate", "sparse"):
         raise ValueError(f"unknown combine_impl {gfl.combine_impl!r}")
-    if mesh.shape["model"] > 1 and not gfl.client_parallel:
-        raise NotImplementedError(
-            f"a model axis of {mesh.shape['model']} without client_parallel "
-            "is training under tensor parallelism over 'model' (the "
-            "megatron splits of launch.sharding._RULES), which the port "
-            "does not run yet: ROADMAP item 20e (serving runs it).  Use a "
-            "model axis of 1, or client_parallel")
+    lay = mesh.layout()
+    # the rank's model group: None under client_parallel (whole models)
+    want = None if gfl.client_parallel else ModelGroup.of(mesh)
+    check_supported(model.cfg, group_size(want))
+    group, cfg = model.group, model.cfg
+    if (group_size(group), getattr(group, "index", 0)) != (
+            group_size(want), getattr(want, "index", 0)):
+        raise ValueError(
+            f"the model is split over {group_size(group)} rank(s), this "
+            f"rank's model group on mesh {mesh.shape} over "
+            f"{group_size(want)}: build the model with Model.init(cfg, gen, "
+            "group=ModelGroup.of(mesh)), or whole under client_parallel")
 
     acc_dtype = getattr(torch, gfl.grad_acc_dtype)
     view = FlatView(model)
-    lay = mesh.layout()
     lo, hi = lay["servers"].start, lay["servers"].stop
+    shared = _shared(model)
+    counted = _counted(model)
+    # the whole model's leaf shapes: the noise is drawn whole
+    whole = FlatView(abstract_model(cfg) if group is not None
+                     else model).tree_shapes()
 
     def loss_and_grads(w_p, client_batch):
-        return view.tree_grad(model, w_p, lambda: model.loss(
-            **client_batch, remat_policy=remat_policy)[0])
+        return client_grads(model, w_p, client_batch, remat_policy, view,
+                            shared)
+
+    def group_sq(tree) -> torch.Tensor:
+        """The sum of squares of the whole leaves whose blocks ``tree``
+        holds, f32, on every rank of the group."""
+        sq = torch.zeros((), dtype=torch.float32, device=dev)
+        for k, g in tree.items():
+            if counted[k]:
+                sq = sq + torch.sum(torch.square(g.to(torch.float32)))
+        return group.all_reduce(sq)
+
+    def clip(grads):
+        """The clip to the global norm of the whole model's gradient."""
+        return clip_by_global_norm(grads, gfl.grad_bound, None if group is None
+                                   else torch.sqrt(group_sq(grads)))[0]
+
+    def block(tree, rows) -> dict:
+        """``rows`` of a whole [P, ...] noise tree, each leaf's block."""
+        return {k: shd.shard_leaf(k, x[rows], cfg, group,
+                                  lead=1 + shd.stack_lead(k))
+                for k, x in tree.items()}
 
     def client_mean_grads(w_p, batch_p, alive_p=None, weights_p=None):
         """(6)+(7): L clients; per-client clip to B; mean.  ``alive_p``
@@ -311,7 +401,7 @@ def make_train_step(model: Model, gfl: GFLConfig, mesh: Mesh,
                 w = w_all[l]
                 grads = {k: g * w.to(g.dtype) for k, g in grads.items()}
             if gfl.grad_bound > 0:
-                grads, _ = clip_by_global_norm(grads, gfl.grad_bound)
+                grads = clip(grads)
             if not scaled:
                 for k, g in grads.items():
                     acc[k] += g.to(acc_dtype)
@@ -411,11 +501,11 @@ def make_train_step(model: Model, gfl: GFLConfig, mesh: Mesh,
             del mean_g
         loss = torch.stack(losses)
 
-        # the noise trees are drawn for all P servers (each rank keeps its
-        # rows), so a run's noise does not depend on the rank layout
-        shapes = {k: torch.empty((Pn,) + tuple(v.shape[1:]), dtype=v.dtype,
-                                 device="meta")
-                  for k, v in state.params.items()}
+        # the noise trees are drawn whole for all P servers (each rank
+        # keeps its rows and blocks), so a run's noise does not depend on
+        # the rank layout
+        shapes = {k: torch.empty((Pn,) + s, dtype=dt, device="meta")
+                  for k, (s, dt) in whole.items()}
         # client-level residual noise: None for the cancelling mechanisms;
         # iid's variance-equivalent draw scales with each server's survivor
         # count under dropout
@@ -425,12 +515,17 @@ def make_train_step(model: Model, gfl: GFLConfig, mesh: Mesh,
                      else torch.clamp(alive.sum(dim=1), min=1.0))
             cg = mech.client_noise_tree(key, shapes, L_eff, ctx)
             if cg is not None:
-                psi = {k: x + cg[k][lo:hi] for k, x in psi.items()}
+                cg = block(cg, slice(lo, hi))
+                psi = {k: x + cg[k] for k, x in psi.items()}
                 del cg
 
-        # (8) with the mechanism's server-level noise
+        # (8) with the mechanism's server-level noise (every server's rows
+        # for the dense combine, this rank's for the permutes)
         g = (mech.combine_noise_tree(key, shapes, ctx)
              if profile.server_sigma > 0 else None)
+        if g is not None:
+            g = block(g, slice(None) if gfl.combine_impl == "dense"
+                      else slice(lo, hi))
         cancel = profile.server_cancels_exactly
 
         if gfl.combine_impl == "dense":
@@ -444,7 +539,6 @@ def make_train_step(model: Model, gfl: GFLConfig, mesh: Mesh,
             # the permuted buffer carries (psi_m + g_m), as the wire
             # protocol does; cancelling mechanisms subtract their own g_p
             # after (eq. 24)
-            g = {k: n[lo:hi] for k, n in g.items()}
             mixed = combine(mesh, gfl, {k: x + g[k] for k, x in psi.items()},
                             A_rt)
             new_params = ({k: (m.to(torch.float32)
@@ -460,10 +554,14 @@ def make_train_step(model: Model, gfl: GFLConfig, mesh: Mesh,
         if telemetry_active():
             sq = torch.zeros((2,), dtype=torch.float32, device=dev)
             for k, n in new_params.items():
+                if not counted[k]:
+                    continue
                 o = state.params[k]
                 d = n.to(torch.float32) - o.to(torch.float32)
                 sq[0] += torch.sum(d * d)
                 sq[1] += torch.sum(n.to(torch.float32) * n.to(torch.float32))
+            if group is not None:
+                group.all_reduce(sq)
             sq = mesh.all_gather_servers(sq[None]).sum(dim=0)
             metrics["update_norm"] = torch.sqrt(sq[0])
             metrics["param_norm"] = torch.sqrt(sq[1])
@@ -476,7 +574,10 @@ def make_train_step(model: Model, gfl: GFLConfig, mesh: Mesh,
 def init_train_state(model: Model, gfl: GFLConfig, mesh: Mesh,
                      key=0) -> TrainState:
     """Every server starts from the model's weights (the reference's
-    replicated init); ``key`` is the run's :class:`Draws` or its seed."""
+    replicated init): the rank's blocks of them when the model is split
+    over the mesh's model group (``Model.init(cfg, gen,
+    group=ModelGroup.of(mesh))``, bitwise the blocks of the whole init).
+    ``key`` is the run's :class:`Draws` or its seed."""
     n = len(mesh.local_servers)
     params = {k: v.to(mesh.device).unsqueeze(0).expand((n,) + v.shape)
               .clone() for k, v in FlatView(model).tree(model).items()}

@@ -15,15 +15,21 @@ privacy accounting and the consensus checkpoint.
         --reduced --mesh 2x1 --steps 2 --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --arch smollm-135m --reduced --mesh 4x1 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch smollm-135m --reduced --mesh 2x2 --backend gloo --device cpu
 
 ``--mesh`` takes ``production`` (16 x 16), ``production-multipod`` (2 x
-16 x 16) or ``DxM`` / ``PODxDxM``; a model axis above 1 (without
-``client_parallel``) is training under tensor parallelism, which the port
-does not run yet (ROADMAP item 20e; serving runs it).  The
-weights and the draws are random, from ``REPRO_SEED`` (0 by default); the
-token batches are drawn on the host, so every rank and device trains on
-the same data.  Runs on ``cuda``
-unless ``--device cpu`` is given.
+16 x 16) or ``DxM`` / ``PODxDxM``; a model axis M above 1 is tensor
+parallelism: each rank holds its block of every leaf of its servers, the
+model split over the M ranks of its model group (the dense, vlm and moe
+families; ROADMAP item 20d for the rest).  ``--backend gloo`` puts ranks
+that share one card on gloo (``--device cuda:0``); NCCL, the cuda
+default, is for ranks on distinct cards.  The weights and the draws are
+random, from ``REPRO_SEED`` (0 by default); the token batches are drawn
+on the host, so every rank and device trains on the same data.  The
+consensus checkpoint holds server 0's whole leaves (gathered over its
+model group), the reference's tree.  Runs on ``cuda`` unless ``--device
+cpu`` is given.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from repro_torch.draws import Draws
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import init_world, mesh_from_arg, num_servers
 from repro_torch.models.model import Model
+from repro_torch.models.parallel import ModelGroup
 
 SELECT_SEED = 1234      # the cohort draws, apart from the model's seed
 
@@ -86,14 +93,19 @@ def main(argv=None) -> dict:
                          "'+'-joined jsonl[:path]|csv[:base]|memory|"
                          "console[:every] spec")
     ap.add_argument("--checkpoint", default=None)
-    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="the process group's backend: nccl (default on "
+                         "cuda) for ranks on distinct cards, gloo (default "
+                         "on cpu) for ranks sharing one card")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default), cuda:N or cpu")
     args = ap.parse_args(argv)
 
-    dev = init_world(args.device)
+    dev = init_world(args.device, args.backend)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    mesh = mesh_from_arg(args.mesh, dev)
+    mesh = mesh_from_arg(args.mesh, dev, args.backend)
     Pn = num_servers(mesh)
     log = print if mesh.rank == 0 else (lambda *a, **k: None)
     log(f"mesh {mesh.shape} -> {Pn} GFL servers over {mesh.world} rank(s); "
@@ -156,7 +168,8 @@ def main(argv=None) -> dict:
                                        telemetry_active, trace_span)
     with session_from_config(gfl_cfg):
         with trace_span("train_setup", arch=cfg.name, servers=Pn):
-            model = Model.init(cfg, rng(None, dev))
+            model = Model.init(cfg, rng(None, dev),
+                               group=ModelGroup.of(mesh))
             step = steps_lib.make_train_step(model, gfl_cfg, mesh)
             state = steps_lib.init_train_state(model, gfl_cfg, mesh,
                                                Draws(None, dev))
@@ -221,11 +234,14 @@ def main(argv=None) -> dict:
                 log(f"step {i:4d} loss {loss:.4f} eps {eps:.1f}{amp} "
                     f"({time.time() - t0:.0f}s)")
     if args.checkpoint and 0 in mesh.local_servers:
-        # the "/"-joined keys are the reference tree's checkpoint paths
-        save_checkpoint(args.checkpoint,
-                        {k: v[0] for k, v in state.params.items()},
-                        step=args.steps)
-        log(f"saved consensus checkpoint to {args.checkpoint}")
+        # server 0's whole leaves, by the "/"-joined keys of the
+        # reference tree's checkpoint paths, written by its model group's
+        # first rank
+        tree = steps_lib.whole_leaves(
+            {k: v[0] for k, v in state.params.items()}, cfg, model.group)
+        if model.group is None or model.group.index == 0:
+            save_checkpoint(args.checkpoint, tree, step=args.steps)
+            log(f"saved consensus checkpoint to {args.checkpoint}")
     return {"history": history, "state": state, "mesh": mesh}
 
 

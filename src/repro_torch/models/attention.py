@@ -25,7 +25,9 @@ its query and K/V head counts) and the rank's blocks of the weights,
 gets the rank's partial sum of the ``w_o`` product back, and sums it over
 the model group.  K8 then runs on the rank's heads; MLA's down
 projections and norms are whole on every rank, so each rank computes and
-caches the latents in full.
+caches the latents in full, from the replicated input before the group
+copy, and copies the latents and the roped key instead (``group=``): in
+training those whole leaves get their whole gradient.
 
 Whisper's attention has no rope (``use_rope=False``), its encoder is not
 causal, and its decoder cross-attends to the encoder output through K/V
@@ -41,6 +43,7 @@ import torch
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, he_init, whole
+from repro_torch.models.parallel import copy_to_group
 
 NEG_INF = -1e30
 
@@ -270,24 +273,28 @@ def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
 
 
 def _mla_qkr(params, x: torch.Tensor, positions: torch.Tensor,
-             cfg: ModelConfig):
+             cfg: ModelConfig, group=None):
     """Shared q / compressed-kv / rope-key computation.  x: [B,S,D] ->
-    q_nope [B,S,h,dn], q_rope [B,S,h,dr], c_kv [B,S,R], k_rope [B,S,dr]."""
+    q_nope [B,S,h,dn], q_rope [B,S,h,dr], c_kv [B,S,R], k_rope [B,S,dr].
+    The whole leaves read ``x`` as it is; what the rank's heads read goes
+    through ``group``'s copy."""
     m: MLAConfig = cfg.mla
     h = cfg.num_heads
     dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
     B, S, _ = x.shape
     if m.q_lora_rank:
-        q = _rms(x @ params["w_dq"], params["q_norm"]) @ params["w_uq"]
+        c_q = _rms(x @ params["w_dq"], params["q_norm"])
+        q = copy_to_group(c_q, group) @ params["w_uq"]
     else:
-        q = x @ params["w_q"]
+        q = copy_to_group(x, group) @ params["w_q"]
     q = q.reshape(B, S, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv = _rms(x @ params["w_dkv"], params["kv_norm"])        # [B,S,R]
     k_rope = apply_rope((x @ params["w_kr"])[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0, :]             # [B,S,dr]
-    return q_nope, q_rope, c_kv, k_rope
+    return (q_nope, q_rope, copy_to_group(c_kv, group),
+            copy_to_group(k_rope, group))
 
 
 @functools.lru_cache(maxsize=None)
@@ -300,16 +307,18 @@ def _mla_sqrt(m: MLAConfig) -> torch.Tensor:
 
 def mla_forward(params, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, *, chunk: int = 1024,
-                return_kv: bool = False):
+                return_kv: bool = False, group=None):
     """Training / prefill MLA (unabsorbed), causal, in query chunks.
-    x: [B,S,D] -> [B,S,D].  ``return_kv`` also returns c_kv [B,S,R] and
-    k_rope [B,S,dr], which prefill writes into the cache (the reference
-    projects them a second time)."""
+    x: [B,S,D] -> [B,S,D] (the rank's partial sum over ``group``, x
+    replicated over it and not yet copied).  ``return_kv`` also returns
+    c_kv [B,S,R] and k_rope [B,S,dr], which prefill writes into the cache
+    (the reference projects them a second time)."""
     m: MLAConfig = cfg.mla
     h = cfg.num_heads
     dn, dv = m.qk_nope_head_dim, m.v_head_dim
     B, S, _ = x.shape
-    q_nope, q_rope, c_kv, k_rope = _mla_qkr(params, x, positions, cfg)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(params, x, positions, cfg,
+                                            group)
     k_nope = (c_kv @ params["w_uk"]).reshape(B, S, h, dn)
     v = (c_kv @ params["w_uv"]).reshape(B, S, h, dv)
     scale = float(1.0 / _mla_sqrt(m))

@@ -12,8 +12,10 @@ Under tensor parallelism (a :class:`~repro_torch.models.parallel.ModelGroup`
 ``group``) the embedding table is split by rows and the head by columns
 (vocab-parallel): :func:`embed` looks up the rank's rows alone and sums
 over the group, :func:`unembed` and :func:`lm_head` gather the ranks'
-logits.  An init function's ``keep(name, leaf)`` receives each leaf as
-it is drawn, whole, and returns what the model keeps (the rank's block,
+logits, and :func:`vocab_parallel_cross_entropy` takes the loss from each
+rank's own block of them without the gather.  An init function's
+``keep(name, leaf)`` receives each leaf as it is drawn, whole, and
+returns what the model keeps (the rank's block,
 :func:`repro_torch.launch.sharding.shard_leaf`), so only one whole leaf
 is held at a time.
 """
@@ -192,6 +194,33 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 group, mask: torch.Tensor | None = None
+                                 ) -> torch.Tensor:
+    """:func:`cross_entropy` of logits split by the vocab over ``group``
+    (``logits`` [..., V / M], the rank's block [index * V / M, ...)):
+    each rank's logsumexp of its block, the group's M of them side by
+    side (:func:`gather_from_group`) and their logsumexp; the gold logit
+    summed over the group, each rank giving its own or 0.  The padded
+    columns stay in the logsumexp, as :func:`cross_entropy` keeps them."""
+    logits = logits.to(torch.float32)
+    n = logits.shape[-1]
+    block_lse = torch.logsumexp(logits, dim=-1)
+    logz = torch.logsumexp(gather_from_group(block_lse[..., None], group),
+                           dim=-1)
+    local = labels.to(torch.int64) - group.index * n
+    mine = (local >= 0) & (local < n)
+    picked = torch.gather(logits, -1,
+                          torch.where(mine, local, 0)[..., None])[..., 0]
+    gold = reduce_from_group(torch.where(mine, picked,
+                                         torch.zeros_like(picked)), group)
     nll = logz - gold
     if mask is not None:
         mask = mask.to(torch.float32)

@@ -54,7 +54,14 @@ K/V heads (MLA's latents whole), and each sublayer's partial sum (the
 ``w_o`` product; the MLP's or MoE layer's ``w_down`` products, shared
 experts included) is summed over the group; the embedding and the
 logits are vocab-parallel (:mod:`repro_torch.models.layers`).  The
-logits come out whole on every rank.  The ssm, hybrid and audio families
+logits come out whole on every rank; ``loss`` never gathers them (the
+vocab-parallel cross-entropy on the rank's block).  Whole leaves read the
+replicated activations before the group copy (the router, MLA's down
+projections; :mod:`repro_torch.models.parallel`), so the backward gives
+every rank the whole gradient of each whole leaf and its block of the
+whole gradient of each split one, except a K/V head shared by several
+ranks, whose gradient the train step sums over them
+(``parallel.sum_over_sharers``).  The ssm, hybrid and audio families
 under a group raise (ROADMAP item 20d).
 """
 from __future__ import annotations
@@ -153,13 +160,12 @@ def _attn(bp, h, positions, cfg: ModelConfig, *, return_kv: bool = False,
     the rank's config) and summed over ``group``.  ``return_kv`` also
     returns what the cache keeps (c_kv and k_rope, or the roped K and the
     V)."""
-    h = copy_to_group(h, group)
-    if cfg.attention == "mla":
+    if cfg.attention == "mla":        # copies after its whole leaves
         out = attn.mla_forward(bp["attn"], h, positions, cfg,
-                               return_kv=return_kv)
+                               return_kv=return_kv, group=group)
     else:
-        out = attn.gqa_forward(bp["attn"], h, positions, cfg,
-                               return_kv=return_kv)
+        out = attn.gqa_forward(bp["attn"], copy_to_group(h, group),
+                               positions, cfg, return_kv=return_kv)
     if return_kv:
         return (reduce_from_group(out[0], group),) + out[1:]
     return reduce_from_group(out, group)
@@ -168,11 +174,10 @@ def _attn(bp, h, positions, cfg: ModelConfig, *, return_kv: bool = False,
 def _ffn(bp, h, cfg: ModelConfig, group=None):
     """The block's FFN: (out, router aux), the aux None for SwiGLU; the
     out summed over ``group``."""
-    h = copy_to_group(h, group)
-    if "moe" in bp:
+    if "moe" in bp:                   # copies after its router
         out, aux = moe.moe_forward(bp["moe"], h, cfg, group=group)
     else:
-        out, aux = layers.swiglu(bp["mlp"], h), None
+        out, aux = layers.swiglu(bp["mlp"], copy_to_group(h, group)), None
     return reduce_from_group(out, group), aux
 
 
@@ -463,6 +468,15 @@ class Model(nn.Module):
         ``remat`` checkpoints each decoder block (the Mamba2 blocks of the
         hybrid family, not its shared block; not the whisper encoder), as
         the reference does."""
+        return self._logits(self._hidden(
+            tokens, image_embeds=image_embeds, frames=frames, remat=remat,
+            remat_policy=remat_policy))
+
+    def _hidden(self, tokens: torch.Tensor, *,
+                image_embeds: torch.Tensor | None = None,
+                frames: torch.Tensor | None = None, remat: bool = True,
+                remat_policy: str | None = None) -> torch.Tensor:
+        """:meth:`forward` up to the final norm: [B, S, D]."""
         cfg = self.cfg
         x = self._embed_inputs(tokens, image_embeds)
         B, S, _ = x.shape
@@ -505,8 +519,7 @@ class Model(nn.Module):
                 if a is not None:
                     aux = aux + a
         self.last_aux = aux
-        x = layers.rms_norm(self.final_norm, x, cfg.norm_eps)
-        return self._logits(x)
+        return layers.rms_norm(self.final_norm, x, cfg.norm_eps)
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor, *,
              mask: torch.Tensor | None = None,
@@ -515,13 +528,18 @@ class Model(nn.Module):
              remat_policy: str | None = None):
         """Next-token cross-entropy plus the router aux; returns (loss,
         {"ce", "router_aux"}).  A vlm's logits are taken past its image
-        tokens, as its labels cover the text alone."""
-        logits = self.forward(tokens, image_embeds=image_embeds,
-                              frames=frames, remat=remat,
-                              remat_policy=remat_policy)
+        tokens, as its labels cover the text alone.  Split over a group,
+        the cross-entropy is the vocab-parallel one on the rank's block
+        of the logits (no rank holds them whole)."""
+        x = self._hidden(tokens, image_embeds=image_embeds, frames=frames,
+                         remat=remat, remat_policy=remat_policy)
+        logits = (self._logits(x) if self.group is None
+                  else self._block_logits(x))
         if self.cfg.family == "vlm":
             logits = logits[:, image_embeds.shape[1]:, :]
-        ce = layers.cross_entropy(logits, labels, mask)
+        ce = (layers.cross_entropy(logits, labels, mask) if self.group is None
+              else layers.vocab_parallel_cross_entropy(logits, labels,
+                                                       self.group, mask))
         aux = self.last_aux
         return ce + aux, {"ce": ce, "router_aux": aux}
 
@@ -557,6 +575,13 @@ class Model(nn.Module):
         if self.cfg.tie_embeddings:
             return layers.unembed(self.embed, x, self.group)
         return layers.lm_head(self.lm_head, x, self.group)
+
+    def _block_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's vocab block of the logits, [B, S, V / M]."""
+        x = copy_to_group(x, self.group)
+        if self.cfg.tie_embeddings:
+            return layers.unembed(self.embed, x)
+        return layers.lm_head(self.lm_head, x)
 
     # ------------------------------------------------------------ cache ---
 

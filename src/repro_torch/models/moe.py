@@ -27,7 +27,12 @@ over the model group: with the ff dim of every expert split (mixtral's
 only where 16 divides their count), the rank's block of each expert's
 products; expert-parallel (DeepSeek's 64), the products of the rank's
 block of experts, every other expert's slots contributing zeros.  Shared
-experts are split as the dense MLP is.
+experts are split as the dense MLP is.  The router is whole on every
+rank and reads the replicated tokens before the group copy
+(:func:`~repro_torch.models.parallel.copy_to_group`); the experts read
+the copy, and the gates go through a copy of their own, so in training
+the router gets its whole gradient from every rank's experts and the
+aux loss reaches the tokens once, not once a rank.
 
 Nothing here waits on the host: the capacity reads the shape, so a decode
 step stays capturable in a CUDA graph.
@@ -39,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.layers import he_init, swiglu, swiglu_init, whole
+from repro_torch.models.parallel import copy_to_group
 
 
 def moe_init(gen, cfg: ModelConfig, dtype, keep=whole) -> dict:
@@ -100,7 +106,8 @@ def route(params, xf: torch.Tensor, m: MoEConfig):
 
 def _moe_tokens(params, xf: torch.Tensor, cfg: ModelConfig, stats=None,
                 group=None):
-    """Core dispatch over a flat token pool.  xf: [T,D]."""
+    """Core dispatch over a flat token pool.  xf: [T,D], replicated over
+    ``group`` (not yet copied to it)."""
     m: MoEConfig = cfg.moe
     T, D = xf.shape
     E, k = m.num_experts, m.top_k
@@ -109,6 +116,8 @@ def _moe_tokens(params, xf: torch.Tensor, cfg: ModelConfig, stats=None,
     C = capacity(T, m)
     dev = xf.device
     probs, gate_vals, gate_idx = route(params, xf, m)
+    xf = copy_to_group(xf, group)
+    gate_vals = copy_to_group(gate_vals, group)
 
     # ---- sort-based dispatch --------------------------------------------
     e_s, order = torch.sort(gate_idx.reshape(-1), stable=True)   # [T*k]

@@ -20,7 +20,13 @@ for ``all_reduce`` and ``broadcast`` alone), and on gloo CPU ranks.
 The three are ``torch.autograd.Function``s with Megatron's backward passes
 (copy <-> reduce, gather -> slice), for training under tensor parallelism;
 serving runs their forward passes under ``no_grad``, where the reduce
-works in place on the fresh partial product.
+works in place on the fresh partial product.  A whole leaf read after a
+copy would get only the rank's share of its gradient, so the models read
+their whole leaves (norms, the MoE router, MLA's down projections) before
+the copy and copy what those leaves produce.  Two more sums serve the
+train step: :func:`sum_over_sharers` (a K/V head's gradient over the
+ranks that share it) and :func:`gather_blocks` (every rank's block of a
+leaf, for the consensus checkpoint).
 
 A model whose ``group`` is ``None`` holds every shard: every world of 1,
 at any model axis, runs that way, with whole leaves and no collective.
@@ -133,3 +139,28 @@ def gather_from_group(x: torch.Tensor, group) -> torch.Tensor:
     if _recording(x):
         return _GatherFromGroup.apply(x, group)
     return _all_gather_last(x, group)
+
+
+def sum_over_sharers(x: torch.Tensor, group, mult: int) -> torch.Tensor:
+    """The sum of ``x`` over the ``mult`` ranks of ``group`` that hold the
+    same block (consecutive runs: indices ``m // mult`` alike): each rank
+    writes its run's slot of a zeroed [size / mult, ...] buffer, one sum
+    ``all_reduce`` over the group, each reads its slot back.  ``x`` itself
+    where no rank shares (``mult`` 1, no collective on any rank)."""
+    if group is None or mult == 1:
+        return x
+    slot = group.index // mult
+    buf = x.new_zeros((group.size // mult,) + tuple(x.shape))
+    buf[slot] = x
+    return group.all_reduce(buf)[slot]
+
+
+def gather_blocks(x: torch.Tensor, group) -> list:
+    """Every rank's ``x`` (equal shapes) in the group's order, on every
+    rank: one sum ``all_reduce`` of a zeroed [size, ...] buffer, each rank
+    writing its own slot (exact).  ``[x]`` without a group."""
+    if group is None:
+        return [x]
+    buf = x.new_zeros((group.size,) + tuple(x.shape))
+    buf[group.index] = x
+    return list(group.all_reduce(buf).unbind(0))

@@ -27,9 +27,12 @@ def _coef(nrm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(nrm, min=1e-12), max=1.0)
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    """(the tree scaled onto the ``max_norm`` ball, its norm before)."""
-    nrm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, norm=None):
+    """(the tree scaled onto the ``max_norm`` ball, its norm before).
+    ``norm``: the norm to clip by, where the caller has it (a tree whose
+    leaves are blocks of a model split over ranks); the tree's own
+    otherwise."""
+    nrm = global_norm(tree) if norm is None else norm
     coef = _coef(nrm, max_norm)
     return tree_map(lambda x: (x * coef).to(x.dtype), tree), nrm
 

@@ -34,6 +34,7 @@ from repro_torch.launch.mesh import (Mesh, make_production_mesh,
                                      parse_mesh)
 from repro_torch.models.flat import FlatView
 from repro_torch.models.model import Model
+from repro_torch.models.parallel import ModelGroup
 from repro_torch.telemetry import session
 
 torch.set_num_threads(1)
@@ -82,10 +83,16 @@ def test_train_entry_with_everything(tmp_path):
 
 
 def test_train_entry_refusals():
+    """A model axis above 1 trains (split over ranks: tests/
+    test_torch_tp_train.py; a world of 1 holds the whole model), on the
+    backend the device takes; the entry's own refusals stand."""
     base = ["--arch", "smollm-135m", "--reduced", "--steps", "1",
             "--device", "cpu", "--seq", "16"]
-    with pytest.raises(NotImplementedError, match="20e"):
-        train.main(base + ["--mesh", "2x2"])
+    out = train.main(base + ["--mesh", "2x2", "--backend", "gloo"])
+    assert len(out["history"]) == 1
+    assert np.isfinite(out["history"][0]["loss"])
+    with pytest.raises(ValueError, match="nccl"):
+        train.main(base + ["--mesh", "2x2", "--backend", "nccl"])
     with pytest.raises(SystemExit):
         train.main(base + ["--mesh", "2x1", "--cohort", "uniform+trace:"
                            "diurnal,period=24,min=0.2"])
@@ -166,10 +173,11 @@ def test_remat_gradients_are_bitwise_off(arch):
 # ------------------------------------------------------------- guards
 
 
-def test_train_step_guards():
+def test_train_step_guards(monkeypatch):
     """The reference's refusals (``tests/test_resilience.py:373``) and the
-    port's own: a model axis without client_parallel, a world that does
-    not fit the mesh."""
+    port's own: a model split over another group than the rank's model
+    group of the mesh, the ssm family split over a model axis (ROADMAP
+    item 20d), a world that does not fit the mesh."""
     cfg, model = _smollm()
     mesh = make_test_mesh((1, 1), device="cpu")
     with pytest.raises(ValueError, match="straggler"):
@@ -180,11 +188,25 @@ def test_train_step_guards():
                                                combine_impl="sparse"), pods)
     steps.make_train_step(model, GFLConfig(fault="links:0.1",
                                            combine_impl="rotate"), pods)
-    with pytest.raises(NotImplementedError, match="item 20e"):
-        steps.make_train_step(model, GFLConfig(),
-                              make_test_mesh((2, 2), device="cpu"))
+    # a world of 1 holds the whole model at any model axis
+    steps.make_train_step(model, GFLConfig(),
+                          make_test_mesh((2, 2), device="cpu"))
     steps.make_train_step(model, GFLConfig(client_parallel=True),
                           make_test_mesh((2, 2), device="cpu"))
+    split = Model.init(cfg, rng(0, "cpu"), group=ModelGroup(2, 0))
+    with pytest.raises(ValueError, match="model group"):
+        steps.make_train_step(split, GFLConfig(),
+                              make_test_mesh((2, 2), device="cpu"))
+    # a rank of a model group of 2 (a world of 4 at 2x2)
+    monkeypatch.setattr(steps.ModelGroup, "of",
+                        staticmethod(lambda mesh: ModelGroup(2, 0)))
+    with pytest.raises(ValueError, match="model group"):
+        steps.make_train_step(model, GFLConfig(),
+                              make_test_mesh((2, 2), device="cpu"))
+    rwkv = Model.init(get_config("rwkv6-3b").reduced(), rng(0, "cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 20d"):
+        steps.make_train_step(rwkv, GFLConfig(),
+                              make_test_mesh((2, 2), device="cpu"))
     with pytest.raises(ValueError, match="cannot hold"):
         Mesh((3, 1), ("data", "model"), world=2, rank=0).layout()
     with pytest.raises(ValueError, match="cannot hold"):

@@ -25,7 +25,13 @@ each under none, hybrid, iid_dp, gaussian_dp and scheduled (the hybrid
 schedule at an epsilon target of 3000 over 10 steps: sigma 0.0094, 0.019,
 0.028); then the runtime arguments: cohort weights (all ones, and
 spread), client dropout (``client_alive``) and a per-round A from
-``links:0.2``.
+``links:0.2``; then tensor parallelism: the reference's step on a (2, 2)
+mesh, GSPMD splitting the leaves over its model axis, against the port's
+four gloo ranks at ``2x2`` (spawned once for both cases, each rank
+starting from its blocks of the reference's state through
+``convert.train_params_from_numpy``, its leaves put back together by
+``sharding.unshard_leaf``): dense with kernels under hybrid, rotate under
+iid_dp.
 
 Tolerance, after each step: atol 1e-5 on every parameter and 4e-5 on the
 tied embedding table, the contract ``tests/test_torch_federated_lm.py``
@@ -75,7 +81,9 @@ CASES = ([_case(c, shape, priv, kernels=k) for shape in ((4, 1), (2, 1))
                   fault="dropout:0.3"),
             _case("rotate", (4, 1), "hybrid", run="A", fault="links:0.2"),
             _case("sparse", (4, 1), "gaussian_dp", run="A",
-                  fault="links:0.2")])
+                  fault="links:0.2")]
+         + [_case("dense", (2, 2), "hybrid", kernels=True),
+            _case("rotate", (2, 2), "iid_dp")])
 
 
 def _gfl_kwargs(case):
@@ -216,11 +224,14 @@ import torch  # noqa: E402
 
 from repro_torch.configs.base import GFLConfig  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
-from repro_torch.convert import model_params_from_numpy  # noqa: E402
-from repro_torch.draws import ReplayDraws  # noqa: E402
-from repro_torch.launch import steps  # noqa: E402
+from repro_torch.convert import (model_params_from_numpy,  # noqa: E402
+                                 train_params_from_numpy)
+from repro_torch.draws import DrawKey, ReplayDraws  # noqa: E402
+from repro_torch.launch import sharding, steps  # noqa: E402
 from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.models.parallel import ModelGroup  # noqa: E402
+from test_torch_tp_train import spawn_ranks  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -229,7 +240,7 @@ class Oracle:
     """The two oracle processes and the files they write."""
 
     def __init__(self, out_dir: Path, names: list):
-        self.dir = out_dir
+        self.dir, self.names = out_dir, names
         env = dict(os.environ)
         env.update(XLA_FLAGS=XLA_FLAGS, JAX_PLATFORMS="cpu",
                    REPRO_KERNEL_BACKEND="ref",
@@ -303,9 +314,10 @@ def _nested(flat: dict) -> dict:
     return out
 
 
-def port_model(init: dict) -> Model:
+def port_model(init: dict, group=None) -> Model:
     cfg = get_config("smollm-135m").reduced()
-    return Model(cfg, model_params_from_numpy(_nested(init), cfg, "cpu"))
+    return Model(cfg, model_params_from_numpy(_nested(init), cfg, "cpu",
+                                              group), group)
 
 
 def replay_rounds(data: dict, n_leaves: int) -> list:
@@ -328,16 +340,25 @@ def replay_rounds(data: dict, n_leaves: int) -> list:
 
 def run_port(case: dict, data: dict, init: dict):
     """The port's three steps on the oracle's batches, draws and runtime
-    arguments; yields (step, state, metrics)."""
-    model = port_model(init)
+    arguments on this rank (its servers, and its blocks where the model
+    axis is split); yields (step, state, metrics)."""
     mesh = make_test_mesh(tuple(case["shape"]), tuple(case["axes"]),
                           device="cpu")
+    group = ModelGroup.of(mesh)
+    model = port_model(init, group)
     gfl = GFLConfig(**_gfl_kwargs(case))
     data["dist"] = ("gaussian" if case["privacy"] == "gaussian_dp"
                     else "laplace")
     draws = ReplayDraws(replay_rounds(data, len(init)), device="cpu")
     step = steps.make_train_step(model, gfl, mesh, clients=L)
-    state = steps.init_train_state(model, gfl, mesh, draws)
+    if group is None:
+        state = steps.init_train_state(model, gfl, mesh, draws)
+    else:       # the reference's [P, ...] state, as a resumed run takes it
+        P = int(np.prod(case["shape"][:-1]))
+        state = steps.TrainState(train_params_from_numpy(
+            {k: np.broadcast_to(v[None], (P,) + v.shape)
+             for k, v in init.items()}, model.cfg, mesh.local_servers,
+            "cpu", group), 0, DrawKey(draws, 0))
     proc = (steps.make_topology_process(mesh, gfl)
             if case["fault"] != "none" else None)
     for i in range(STEPS):
@@ -356,18 +377,66 @@ def run_port(case: dict, data: dict, init: dict):
     assert draws.remaining == 0
 
 
+def tp_rank(rank, world, path):
+    """A 2x2 rank's steps of every case saved at ``path``: per case, per
+    step, (params, loss)."""
+    saved = torch.load(path, weights_only=False)
+    return {name: [(state.params, float(m["loss"])) for _, state, m in
+                   run_port(case, data, saved["init"])]
+            for name, (case, data) in saved["cases"].items()}
+
+
+def _split(case) -> bool:
+    return case["shape"][-1] > 1
+
+
+@pytest.fixture(scope="module")
+def tp_port(oracle, tmp_path_factory):
+    """The collected 2x2 cases' data and the port's four ranks' steps on
+    them: {name: (data, [each rank's steps])}, one spawn for all."""
+    cases = {c["name"]: c for c in CASES
+             if _split(c) and c["name"] in oracle.names}
+    datas = {name: oracle.take(name) for name in cases}
+    root = tmp_path_factory.mktemp("mesh_tp")
+    torch.save({"init": oracle.init(),
+                "cases": {n: (cases[n], dict(d)) for n, d in datas.items()}},
+               root / "cases.pt")
+    ranks = spawn_ranks(tp_rank, 4, root, str(root / "cases.pt")).results()
+    return {n: (d, [r[n] for r in ranks]) for n, d in datas.items()}
+
+
+def port_steps(case, oracle, request):
+    """The oracle's data for ``case`` and the port's steps on it: (data,
+    [(params as whole numpy [P, ...] leaves, [each rank's loss])])."""
+    if not _split(case):
+        data = oracle.take(case["name"])
+        return data, [({k: v.numpy() for k, v in state.params.items()},
+                       [float(m["loss"])]) for _, state, m in
+                      run_port(case, data, oracle.init())]
+    data, ranks = request.getfixturevalue("tp_port")[case["name"]]
+    cfg = get_config("smollm-135m").reduced()
+    out = []
+    for i in range(STEPS):
+        whole = {k: np.concatenate([sharding.unshard_leaf(
+            k, [ranks[2 * b + m][i][0][k] for m in range(2)], cfg, 2,
+            lead=1 + sharding.stack_lead(k)).numpy() for b in range(2)])
+                 for k in ranks[0][i][0]}
+        out.append((whole, [r[i][1] for r in ranks]))
+    return data, out
+
+
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c["name"])
-def test_mesh_step_matches_the_reference(case, oracle):
-    data = oracle.take(case["name"])
+def test_mesh_step_matches_the_reference(case, oracle, request):
+    data, port = port_steps(case, oracle, request)
     init = oracle.init()
-    for i, state, m in run_port(case, data, init):
-        worst = {}
-        for k, v in state.params.items():
+    for i, (params, losses) in enumerate(port):
+        assert params.keys() == init.keys()
+        for k, v in params.items():
             tol = ATOL_EMBED if k == "embed/table" else ATOL
-            err = float(np.abs(v.numpy() - data[f"s{i}/{k}"]).max())
-            worst[k] = err / tol
+            err = float(np.abs(v - data[f"s{i}/{k}"]).max())
             assert err <= tol, (i, k, err)
-        assert abs(float(m["loss"]) - float(data[f"loss{i}"])) <= ATOL_LOSS
+        for loss in losses:
+            assert abs(loss - float(data[f"loss{i}"])) <= ATOL_LOSS
     moved = max(float(np.abs(data[f"s{STEPS - 1}/{k}"][0] - v).max())
                 for k, v in init.items())
     assert moved > 1e-3                  # the steps move the params

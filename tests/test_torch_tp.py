@@ -27,8 +27,10 @@ In this process: ``Model.init(group=)`` keeps bitwise the blocks of the
 whole init (each real head and each block where the whole leaf has it,
 padding heads zero); the vocab-parallel embedding and logits are bitwise
 the whole ones; a world of 1 at ``1x4`` is bitwise ``1x1``; the head
-layouts; and the refusals (the ssm, hybrid and audio families split over
-a model group, training under tensor parallelism, an uneven split).
+layouts; one train step at ``2x2`` in a world of 1 (the whole model)
+bitwise the ``2x1`` one; and the refusals (the ssm, hybrid and audio
+families split over a model group, an uneven split).  Training split over
+a model group: ``tests/test_torch_tp_train.py``.
 """
 import dataclasses
 import os
@@ -433,12 +435,26 @@ def test_unsplit_families_refused_over_a_model_group(arch):
     Model.init(cfg, rng(0, "cpu"), group=None)          # whole: it runs
 
 
-def test_train_step_refused_over_a_model_axis():
+def test_train_step_runs_at_2x2_in_a_world_of_1():
+    """A world of 1 holds the whole model at any model axis: one step at
+    2x2 is bitwise the 2x1 step."""
+    from repro_torch.data.synthetic import TokenStream, federated_token_batches
+    from repro_torch.launch.steps import init_train_state
     cfg = get_config("smollm-135m").reduced()
     model = Model.init(cfg, rng(0, "cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20e"):
-        make_train_step(model, GFLConfig(),
-                        make_test_mesh((2, 2), device="cpu"))
+    gfl = GFLConfig(topology="ring", privacy="hybrid", sigma_g=0.01, mu=0.1,
+                    grad_bound=10.0, combine_impl="rotate")
+    batch = federated_token_batches(TokenStream(vocab=cfg.vocab_size,
+                                                seed=0), 0, 0, 2, 2, 2, 16)
+    out = []
+    for shape in ((2, 2), (2, 1)):
+        mesh = make_test_mesh(shape, device="cpu")
+        step = make_train_step(model, gfl, mesh, clients=2)
+        state, m = step(init_train_state(model, gfl, mesh, 0), batch)
+        out.append((state.params, float(m["loss"])))
+    (got, got_loss), (want, want_loss) = out
+    assert got_loss == want_loss and got.keys() == want.keys()
+    assert all(torch.equal(got[k], v) for k, v in want.items())
 
 
 @pytest.mark.parametrize("h,kv", [(4, 4), (4, 2), (4, 1), (9, 3), (32, 8),

@@ -356,18 +356,26 @@ Phases, each printing JSON lines:
              torch.cuda.set_sync_debug_mode("error") and each host stage()
              outside it: none may raise.  A toy body calling .item() on a
              CUDA tensor under the same mode must raise.
-18. tp     — tensor parallelism for serving: four ranks spawned (the
-             fleet phase's spawn context, each joined within TP_JOIN_S)
+18. tp     — tensor parallelism for serving: four ranks spawned once
+             (the fleet phase's spawn context, joined within TP_JOIN_S)
              that share the card over gloo (NCCL takes no two ranks on
              one GPU; gloo takes CUDA tensors in all_reduce, the one
              collective the split forward runs) serve on mesh 1x4 through
-             Model.init(group=) / prefill / decode_step: mixtral-8x7b at
-             8 layers (cut from the serve phase's 16 to keep the whole
-             smoke under 1000 s; its 1 x 1 run made here, in this
-             process, on the same draws) (the ff split, GQA: K8 on each
-             rank's 8 query and 2 K/V heads), request B, and
-             deepseek-v2-lite-16b at full depth (MLA, 64 experts
-             expert-parallel, 16 a rank), request A.  Each rank draws
+             Model.init(group=) / prefill / decode_step, one arch after
+             another (TP_REQUESTS): mixtral-8x7b at 8 layers (cut from
+             the serve phase's 16 to keep the whole smoke under 1000 s;
+             its 1 x 1 run made here, in this process, on the same draws)
+             (the ff split, GQA: K8 on each rank's 8 query and 2 K/V
+             heads), request B; deepseek-v2-lite-16b at full depth (MLA,
+             64 experts expert-parallel, 16 a rank), request A;
+             zamba2-1.2b at 12 layers (TP_DEPTH_CUTS; 16 of the 64 Mamba2
+             heads a rank, B and C gathered, two shared-block
+             applications with K8 on its 8 of 32 heads), request B;
+             rwkv6-3b at 8 layers (10 of the 40 heads a rank), request B;
+             whisper-tiny at full depth (the encoder and the decoder
+             split; 6 heads padded to 8, rank 3's two heads zeros, K8 on
+             2 heads a rank, the cross K/V cached once a prefill on the
+             rank's heads), request B.  Each rank draws
              every leaf whole from seed 0 and keeps its block, draws the
              prompts as the serve phase draws them after its init
              (tp_prompt), and teacher-forces the 32 decode steps
@@ -381,10 +389,11 @@ Phases, each printing JSON lines:
              choice differing only at a near tie (below): the prefill and
              every step's logits within the bound below, every
              sequence's first greedy token equal.  K8
-             counted from 0 on every rank (8 layers x 32 steps each) and
-             held against its plain version on live inputs at the rank's
-             shape; none for MLA.  Prints each rank's prefill ms, decode
-             ms a step, weight bytes and peak bytes.
+             counted from 0 on every rank (one a GQA attention
+             application and step) and held against its plain version on
+             live inputs at the rank's shape; none for MLA and RWKV-6.
+             Prints each rank's prefill ms, decode ms a step, weight
+             bytes and peak bytes.
 19. tp_train — training under tensor parallelism: the mesh phase's GFL
              step (smollm-135m at full width in bf16, L = 2 clients of 2 x
              64 tokens, hybrid sigma 0.01, mu 0.1, B 10) on mesh 2x2: four
@@ -408,7 +417,17 @@ Phases, each printing JSON lines:
              step, counted into the kernel line.  Prints ms a step split
              into the client gradients, the model group's collectives,
              the noise tree and the combine, and each rank's weight and
-             peak bytes.
+             peak bytes.  Then, in the same spawn, 3 dense steps through
+             K3 of each of the ssm, hybrid and audio families at full
+             width (TPT_RUNS: zamba2-1.2b at 6 layers, rwkv6-3b at 2,
+             whisper-tiny whole; TPT_DEPTH_CUTS) through ``launch.train
+             --layers``, with whisper's frames drawn on the host, held by
+             the same gates against their 2x1 runs, rwkv6's
+             teacher-forced (TPT_FORCED): each step starts from the 2x1
+             run's state before it, cut to the rank's blocks, and every
+             step's blocks on every rank are held by the same 4-ulp gate
+             (chained, a 1-ulp difference in its embedding rows grows
+             6-8x a step); K3 launches one a leaf and step.
 
 Tolerances: f32 outputs within atol 1e-5 of the plain version (the
 reference's parity contract, docs/kernels.md); fold_norms' f32 sums within
@@ -430,7 +449,8 @@ its magnitude, which is below L scale); K6 in f32 within atol = rtol =
 1e-5 and K7 within atol 1e-6, the reference's own limits
 (tests/test_kernels.py).
 The tp logits: a rank of M splits each of the 2L sublayer outputs of the
-residual stream into M partial products, each rounded to bf16 before the
+residual stream (L counts a hybrid's shared-block applications and
+whisper's encoder layers too, ``tp_layers``) into M partial products, each rounded to bf16 before the
 sum (bf16_tol's model: half an ulp each), so each all_reduce moves a
 sublayer's output by up to M half ulps, 2^-9 M of its size, where the
 1 x 1 run rounds once.  Carried to the logits with a gain of 1 and added
@@ -442,9 +462,9 @@ their own size.  The router's input moves by the same worst case, so a
 rank may choose other experts than the 1 x 1 run only where the forced
 ones' probability lies within 2L M 2^-9 of its top one below its own
 k-th.
-The tp_train loss: the same stream as the tp logits at M = 2 over L =
-30 layers, in a mean over tokens: within sqrt(2L) M 2^-9 of the loss, the
-random walk's share of the tp logits gate.
+The tp_train loss: the same stream as the tp logits at M = 2 over the
+run's L (30 for smollm), in a mean over tokens: within sqrt(2L) M 2^-9
+of the loss, the random walk's share of the tp logits gate.
 The fig2 gates, both on the reference's problem: the reference's tails
 (FIG2_REF_TAILS) come from benchmarks/fig2_convergence.py at its defaults
 on the CPU, and the spread of its repeats on that problem from
@@ -568,6 +588,8 @@ SWA_SHAPES = [(SWA_SERVE_SHAPE, "bfloat16"), ((4, 32, 32, 1064, 96), "bfloat16")
               ((4, 32, 32, 1064, 64), "bfloat16"),
               (SWA_WHISPER_SHAPE, "bfloat16"),
               ((4, 6, 6, 192, 64), "bfloat16"),
+              ((4, 8, 8, 1064, 64), "bfloat16"),     # zamba2's B at 1x4
+              ((4, 2, 2, 192, 64), "bfloat16"),      # whisper's B at 1x4
               ((4, 9, 3, 1064, 64), "bfloat16"), ((4, 9, 3, 1064, 64), "float32"),
               ((2, 8, 4, 1000, 64), "float32"),
               ((32, 32, 32, 2047, 96), "bfloat16")]
@@ -4700,15 +4722,27 @@ class ForcedRoutes:
 TP_MESH = "1x4"
 TP_RANKS = 4
 # arch: the request served split, as the serve phase serves it whole
-TP_REQUESTS = {"mixtral-8x7b": "B", "deepseek-v2-lite-16b": "A"}
-TP_JOIN_S = 400             # a rank's join limit, seconds
+TP_REQUESTS = {"mixtral-8x7b": "B", "deepseek-v2-lite-16b": "A",
+               "zamba2-1.2b": "B", "rwkv6-3b": "B", "whisper-tiny": "B"}
+TP_JOIN_S = 700             # the ranks' join limit (every arch), seconds
 TP_LIVE_STEPS = (0, SERVE_NEW_TOKENS - 1)   # K8 held live at these steps
 # archs served split at fewer layers than the serve phase's, and why;
 # their 1 x 1 reference is made in the tp phase, at that depth
 TP_DEPTH_CUTS = {
     "mixtral-8x7b": (8, "the whole smoke ran 1003.8 s with the tp phase's "
                         "mixtral at 16 layers, past the 1000 s it keeps "
-                        "under its 1200 s limit")}
+                        "under its 1200 s limit"),
+    "zamba2-1.2b": (12, "the whole smoke ran 959.9 s with zamba2 at 12 "
+                        "layers here (8.5 s a rank, decode 229 ms a step: "
+                        "3 gloo all_reduces a Mamba2 layer); 38 would add "
+                        "about 19 s by the layer count, and with rwkv6's "
+                        "and tp_train's cuts undone pass 1000 s; 12 keep "
+                        "2 shared-block applications"),
+    "rwkv6-3b": (8, "the whole smoke ran 959.9 s with rwkv6 at 8 layers "
+                    "here (5.5 s a rank, decode 115 ms a step, prefill "
+                    "1.7 s); 32 would add about 17 s by the layer count, "
+                    "and with zamba2's and tp_train's cuts undone pass "
+                    "1000 s")}
 
 
 def tp_config(arch):
@@ -4762,11 +4796,12 @@ def tp_reference(torch, arch, request) -> dict:
     return ref
 
 
-def tp_rank(rank, port, arch, ref_path, out_dir):
-    """One rank of the tp phase (a spawned process): the split model of
-    ``arch`` on ``cuda:0`` in a gloo world of TP_RANKS, its request
-    teacher-forced on the 1 x 1 tokens at ``ref_path``; writes its record
-    to ``out_dir/rank<r>.json``."""
+def tp_rank(rank, port, archs, root):
+    """One rank of the tp phase (a spawned process) on ``cuda:0`` in a
+    gloo world of TP_RANKS: for each of ``archs`` in turn, the split
+    model, its request teacher-forced on the 1 x 1 tokens at
+    ``root/ref_<arch>.pt``, freed before the next; writes its records,
+    by arch, to ``root/rank<r>.json``."""
     from datetime import timedelta
 
     import torch
@@ -4775,11 +4810,15 @@ def tp_rank(rank, port, arch, ref_path, out_dir):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=TP_RANKS,
                             timeout=timedelta(seconds=TP_JOIN_S))
+    recs = {}
     try:
-        rec = tp_serve(torch, rank, arch, torch.load(ref_path))
+        for arch in archs:
+            recs[arch] = tp_serve(torch, rank, arch, torch.load(
+                Path(root) / f"ref_{arch}.pt"))
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
-    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
+    (Path(root) / f"rank{rank}.json").write_text(json.dumps(recs))
 
 
 def tp_serve(torch, rank, arch, ref):
@@ -4794,6 +4833,7 @@ def tp_serve(torch, rank, arch, ref):
     from repro_torch.models.model import Model
     from repro_torch.models.parallel import ModelGroup
 
+    t_arch = time.perf_counter()
     mesh = parse_mesh(TP_MESH, "cuda:0", "gloo")
     group = ModelGroup.of(mesh)
     cfg, _ = tp_config(arch)
@@ -4851,6 +4891,7 @@ def tp_serve(torch, rank, arch, ref):
     return {"rank": rank, "group": [group.size, group.index],
             "heads": [model.attn_cfg.num_heads, model.attn_cfg.num_kv_heads],
             "layers": cfg.num_layers, "init_s": init_s,
+            "seconds": time.perf_counter() - t_arch,
             "weight_bytes": weight_bytes, "peak_memory_bytes": peak,
             "prefill_ms": (t1 - t0) * 1e3,
             "decode_ms_per_step": (t2 - t1) * 1e3 / SERVE_NEW_TOKENS,
@@ -4867,6 +4908,17 @@ def tp_serve(torch, rank, arch, ref):
                 bool(torch.equal(g.argmax(-1).cpu(), w.argmax(-1)))
                 for g, w in zip(steps, ref["steps"])),
             "live_k8": live}
+
+
+def tp_layers(cfg) -> int:
+    """The sublayer pairs a token's residual stream passes through, the
+    L of the tp gates: the decoder layers, a hybrid's shared-block
+    applications and whisper's encoder layers too (its cross K/V carry
+    their sums)."""
+    n = cfg.num_layers + cfg.encoder_layers
+    if cfg.family == "hybrid":
+        n += cfg.num_layers // cfg.hybrid_attn_every
+    return n
 
 
 def tp_within(e, L, M) -> dict:
@@ -4893,47 +4945,58 @@ def phase_tp(torch, refs) -> dict:
             f"tp: references for {sorted(refs)}, expected {from_serve}")
     ctx = mp.get_context("spawn")
     launches = 0
-    for arch, request in TP_REQUESTS.items():
-        t_arch = time.perf_counter()
-        cfg, cut = tp_config(arch)
-        L = cfg.num_layers
-        ref = refs[arch] if arch in refs else tp_reference(torch, arch,
-                                                             request)
-        with tempfile.TemporaryDirectory(prefix="tp_smoke_") as root:
-            ref_path = Path(root) / "ref.pt"
-            torch.save(ref, ref_path)
-            with socket.socket() as sock:
-                sock.bind(("localhost", 0))
-                port = sock.getsockname()[1]
-            procs = [ctx.Process(target=tp_rank,
-                                 args=(r, port, arch, str(ref_path), root))
-                     for r in range(TP_RANKS)]
+    archs = list(TP_REQUESTS)
+    with tempfile.TemporaryDirectory(prefix="tp_smoke_") as root:
+        t0 = time.perf_counter()
+        for arch, request in TP_REQUESTS.items():
+            ref = refs.pop(arch) if arch in refs else tp_reference(
+                torch, arch, request)
+            torch.save(ref, Path(root) / f"ref_{arch}.pt")
+            del ref
+        refs_s = time.perf_counter() - t0
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        # one spawn serves every arch in turn: each spawn of four ranks
+        # costs about 10 s before the first collective
+        procs = [ctx.Process(target=tp_rank, args=(r, port, archs, root))
+                 for r in range(TP_RANKS)]
+        t_ranks = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + TP_JOIN_S
+        try:
             for p in procs:
-                p.start()
-            deadline = time.perf_counter() + TP_JOIN_S
-            try:
-                for p in procs:
-                    p.join(max(1.0, deadline - time.perf_counter()))
-            finally:
-                hung = [p.pid for p in procs if p.is_alive()]
-                for p in procs:
-                    if p.is_alive():
-                        p.kill()
-                        p.join()
-            codes = [p.exitcode for p in procs]
-            require(not hung and codes == [0] * TP_RANKS,
-                    f"tp {arch}: rank exit codes {codes}, still running "
-                    f"after {TP_JOIN_S} s: {hung}")
-            ranks = [json.loads((Path(root) / f"rank{r}.json").read_text())
-                     for r in range(TP_RANKS)]
+                p.join(max(1.0, deadline - time.perf_counter()))
+        finally:
+            hung = [p.pid for p in procs if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        require(not hung and codes == [0] * TP_RANKS,
+                f"tp: rank exit codes {codes}, still running after "
+                f"{TP_JOIN_S} s: {hung}")
+        recs = [json.loads((Path(root) / f"rank{r}.json").read_text())
+                for r in range(TP_RANKS)]
+        refs_by_arch = {arch: torch.load(Path(root) / f"ref_{arch}.pt")
+                        for arch in archs}
+    emit({"phase": "tp", "references_s": refs_s,
+          "ranks_s": time.perf_counter() - t_ranks})
+    for arch, request in TP_REQUESTS.items():
+        cfg, cut = tp_config(arch)
+        L = tp_layers(cfg)
+        ref = refs_by_arch[arch]
+        ranks = [rk[arch] for rk in recs]
         want_first = ref["tokens"][:, 0].tolist()
         want_k8 = attn_per_step(cfg) * SERVE_NEW_TOKENS
         route_tol = 2 * L * M * 2.0 ** -9
         steps = [e for rk in ranks for e in rk["steps"]]
         worst_step = max(steps, key=lambda e: e["max_abs_err"] / e["max_abs"])
         emit({"phase": "tp", "arch": arch, "request": request,
-              "mesh": TP_MESH, "backend": "gloo", "layers": L,
-              "reduced": cut,
+              "mesh": TP_MESH, "backend": "gloo", "layers": cfg.num_layers,
+              "gate_layers": L, "reduced": cut,
               "ranks": [dict({k: v for k, v in rk.items() if k != "steps"},
                              steps_max_abs_err=max(
                                  e["max_abs_err"] for e in rk["steps"]),
@@ -4949,7 +5012,7 @@ def phase_tp(torch, refs) -> dict:
               "worst_step": worst_step,
               "worst_step_gate": tp_within(worst_step, L, M),
               "route_tie_tol": route_tol,
-              "seconds": time.perf_counter() - t_arch})
+              "seconds_max": max(rk["seconds"] for rk in ranks)})
         for rk in ranks:
             r = rk["rank"]
             require(rk["group"] == [M, r],
@@ -4987,20 +5050,61 @@ def phase_tp(torch, refs) -> dict:
 
 TPT_MESH, TPT_WHOLE = "2x2", "2x1"
 TPT_RANKS, TPT_P, TPT_M = 4, 2, 2
-TPT_RUNS = (("dense_k", 3), ("rotate", 2), ("sparse", 2))   # variant, steps
-TPT_JOIN_S = 500            # the ranks' join limit, seconds
+# the runs, in order: key -> (arch, layers (0: the config's), variant,
+# steps); smollm's three combines, then the ssm, hybrid and audio
+# families' dense steps through K3 (rwkv6's teacher-forced, TPT_FORCED)
+TPT_RUNS = {"dense_k": (MESH_ARCH, 0, "dense_k", 3),
+            "rotate": (MESH_ARCH, 0, "rotate", 2),
+            "sparse": (MESH_ARCH, 0, "sparse", 2),
+            "zamba2-1.2b": ("zamba2-1.2b", 6, "dense_k", 3),
+            "rwkv6-3b": ("rwkv6-3b", 2, "dense_k", 3),
+            "whisper-tiny": ("whisper-tiny", 0, "dense_k", 3)}
+# why a run's arch is cut in depth (its width is whole)
+TPT_DEPTH_CUTS = {
+    "zamba2-1.2b": "38 -> 6 layers (one shared-block application): the "
+                   "whole smoke ran 959.9 s with a 2x2 step of 1.7 s at 6 "
+                   "layers; 38 would add about 25 s by the layer count "
+                   "(about 3 gloo all_reduces a Mamba2 layer in each of "
+                   "the forward, the remat recompute and the backward)",
+    "rwkv6-3b": "32 -> 2 layers: the whole smoke ran 959.9 s with a 2x2 "
+                "step of 2.2 s at 2 layers, 0.5 GB of weights a rank and "
+                "its teacher-forced steps' 6 GB of state files; 32 layers "
+                "would hold 3.0e9 parameters, 6 GB a state, and add about "
+                "30 s"}
+# the runs whose every step starts from the 2x1 run's state before it
+# (cut to the rank's blocks), each step's leaves gated: chained, a 1-ulp
+# difference in rwkv6's embedding rows grows 6-8x a step (0.96, 7.96 and
+# 46 ulps after steps 1-3 on the CPU at its reduced size, where the 2x1
+# run itself lands 48 ulps from an f32 one; at full width on the card
+# 4.94 ulps after 3 steps, over the gate, and 2.51 at most a step
+# forced), which measures the model's dynamics and not the split, as
+# greedy decoding would measure near-ties
+TPT_FORCED = ("rwkv6-3b",)
+TPT_JOIN_S = 800            # the ranks' join limit (every run), seconds
 TPT_NOISE_SEED = MESH_SEED + 1      # the K3 check's noise tree
 
 
-def tpt_args(variant, mesh) -> list:
-    """``launch.train``'s arguments for a variant's run: the mesh phase's
-    settings at P = 2."""
+def tpt_config(key):
+    """A tp_train run's config: the registry's at full width, its depth
+    cut as TPT_RUNS says."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    arch, layers, _, _ = TPT_RUNS[key]
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def tpt_args(key, mesh) -> list:
+    """``launch.train``'s arguments for a run: the mesh phase's settings
+    at P = 2."""
+    arch, layers, variant, steps = TPT_RUNS[key]
     combine, kernels = MESH_VARIANTS[variant]
-    return (["--arch", MESH_ARCH, "--mesh", mesh, "--steps",
-             str(dict(TPT_RUNS)[variant]), "--seq", str(MESH_SEQ),
-             "--clients", str(MESH_L), "--per-client", str(MESH_PER_CLIENT),
-             "--privacy", MESH_PRIVACY, "--sigma", str(MESH_SIGMA), "--mu",
-             str(MESH_MU), "--combine", combine]
+    return (["--arch", arch, "--mesh", mesh, "--steps", str(steps),
+             "--seq", str(MESH_SEQ), "--clients", str(MESH_L),
+             "--per-client", str(MESH_PER_CLIENT), "--privacy",
+             MESH_PRIVACY, "--sigma", str(MESH_SIGMA), "--mu", str(MESH_MU),
+             "--combine", combine]
+            + (["--layers", str(layers)] if layers else [])
             + (["--use-kernels"] if kernels else []))
 
 
@@ -5011,11 +5115,13 @@ class StepTap:
     synchronizes): the model group's all_reduces ("group"), the noise
     draws and their cut to blocks ("noise"), the server group's gathers or
     permutes with the mix ("combine"), the rest the clients' gradients
-    ("grads"); ``after(state)`` runs after each step and its value is
-    kept.  Everything is restored on exit."""
+    ("grads"); ``before(i, state)``, where given, returns the state step i
+    starts from (a teacher-forced run's), and ``after(state)`` runs after
+    each step, its value kept, both outside the timing.  Everything is
+    restored on exit."""
 
-    def __init__(self, torch, after=None):
-        self.torch, self.after = torch, after
+    def __init__(self, torch, after=None, before=None):
+        self.torch, self.after, self.before = torch, after, before
         self.steps, self.ms, self.saved = [], {}, []
 
     def wrap(self, owner, name, fn):
@@ -5057,6 +5163,8 @@ class StepTap:
             step = make(*args, **kw)
 
             def run(*a, **k):
+                if self.before is not None:     # the state a step starts from
+                    a = (self.before(len(self.steps), a[0]),) + a[1:]
                 self.ms = {}
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -5079,32 +5187,56 @@ class StepTap:
             setattr(owner, name, fn)
 
 
-def tpt_train(torch, variant, mesh, extra, after=None):
-    """``launch.train`` for a variant's run on ``mesh``: (its returned
-    dict, the tap's steps, its log lines)."""
+def tpt_train(torch, key, mesh, extra, after=None, before=None):
+    """``launch.train`` for a run on ``mesh``: (its returned dict, the
+    tap's steps, its log lines)."""
     import io
     from repro_torch.launch import train
     out = io.StringIO()
-    with StepTap(torch, after) as tap, contextlib.redirect_stdout(out):
-        run = train.main(tpt_args(variant, mesh) + extra)
+    with StepTap(torch, after, before) as tap, \
+            contextlib.redirect_stdout(out):
+        run = train.main(tpt_args(key, mesh) + extra)
     return run, tap.steps, out.getvalue().splitlines()
 
 
+def tpt_save_blocks(torch, key, cfg, state, step, root):
+    """A teacher-forced run's 2x1 state after ``step``: each server's
+    blocks for each model index of the 2x2 mesh, with each leaf's largest
+    |value|, to ``root/<key>_<server>_<index>_s<step>.pt``."""
+    from repro_torch.launch import sharding
+    from repro_torch.models.parallel import ModelGroup
+    for b in range(TPT_P):
+        row = {k: v[b] for k, v in state.params.items()}
+        top = {k: float(v.float().abs().max()) for k, v in row.items()}
+        for m in range(TPT_M):
+            torch.save(({k: sharding.shard_leaf(
+                k, v, cfg, ModelGroup(TPT_M, m),
+                lead=sharding.stack_lead(k)).cpu() for k, v in row.items()},
+                top), Path(root) / f"{key}_{b}_{m}_s{step}.pt")
+
+
 def tpt_whole_runs(torch, root) -> dict:
-    """The 2x1 run of one process for each variant: losses, ms a step and
-    its split, and the final state, each server's row saved to
-    ``root/<variant>_<server>.pt`` for the ranks."""
+    """The 2x1 run of one process for each run: losses, ms a step and its
+    split; the final state, each server's row saved to
+    ``root/<key>_<server>.pt`` for the ranks, and for a teacher-forced
+    run every step's blocks (:func:`tpt_save_blocks`)."""
+    import itertools
     out = {}
-    for variant, _ in TPT_RUNS:
-        run, steps, _ = tpt_train(torch, variant, TPT_WHOLE,
-                                  ["--device", "cuda"])
-        for b in range(TPT_P):
+    for key in TPT_RUNS:
+        cfg, step = tpt_config(key), itertools.count()
+        after = None
+        if key in TPT_FORCED:
+            def after(state, key=key, cfg=cfg, step=step):
+                tpt_save_blocks(torch, key, cfg, state, next(step), root)
+        run, steps, _ = tpt_train(torch, key, TPT_WHOLE,
+                                  ["--device", "cuda"], after=after)
+        for b in range(TPT_P if key not in TPT_FORCED else 0):
             torch.save({k: v[b].cpu() for k, v in
                         run["state"].params.items()},
-                       Path(root) / f"{variant}_{b}.pt")
-        out[variant] = {"loss": [h["loss"] for h in run["history"]],
-                        "step_ms": [s["ms"] for s in steps],
-                        "split_ms": [s["split"] for s in steps]}
+                       Path(root) / f"{key}_{b}.pt")
+        out[key] = {"loss": [h["loss"] for h in run["history"]],
+                    "step_ms": [s["ms"] for s in steps],
+                    "split_ms": [s["split"] for s in steps]}
         del run
         torch.cuda.empty_cache()
     return out
@@ -5129,7 +5261,7 @@ def tpt_padding_zero(params, cfg, index) -> bool:
 
 
 def tpt_k3_check(torch, mesh, cfg, group, params) -> dict:
-    """K3 on the rank's 11 local leaves ([2, D_local], gathered over the
+    """K3 on the rank's local leaves ([2, D_local], gathered over the
     server group) against its plain version, with a hybrid noise tree
     drawn whole and cut as the step cuts it, and without: max abs err a
     leaf (bitwise: 0)."""
@@ -5185,27 +5317,49 @@ def tp_train_rank(rank, port, root):
 
 
 def tp_train(torch, rank, root):
-    """The body of :func:`tp_train_rank`: each variant's run through
-    ``launch.train --mesh 2x2 --backend gloo``, its steps timed and split,
-    the padding checked after each; then the replica check, the leaves
-    put back together and held against the 2x1 run's, and (dense) K3
-    against its plain version on the local leaves."""
+    """The body of :func:`tp_train_rank`: each run through ``launch.train
+    --mesh 2x2 --backend gloo``, its steps timed and split, the padding
+    checked after each; then the replica check, the leaves put back
+    together and held against the 2x1 run's, and (dense) K3 against its
+    plain version on the local leaves."""
     from repro_torch import kernels as K
-    from repro_torch.configs.registry import get_config
     from repro_torch.launch import sharding
     from repro_torch.launch import steps as S
     from repro_torch.models.parallel import ModelGroup, gather_blocks
 
-    cfg = get_config(MESH_ARCH)
-    rec = {"rank": rank, "variants": {}}
-    torch.cuda.reset_peak_memory_stats()
-    for variant, n in TPT_RUNS:
-        index = rank % TPT_M
+    rec = {"rank": rank, "variants": {}, "weight_bytes": {},
+           "peak_memory_bytes": {}}
+    for key in TPT_RUNS:
+        cfg, variant = tpt_config(key), TPT_RUNS[key][2]
+        index, server = rank % TPT_M, rank // TPT_M
+        forced = {}
+
+        def after(state):
+            """The padding check and, teacher-forced, the step's blocks
+            against the 2x1 run's (kept as the next step's start)."""
+            out = {"padding_zero": tpt_padding_zero(state.params, cfg,
+                                                    index)}
+            if key in TPT_FORCED:
+                blocks, top = torch.load(
+                    Path(root) / f"{key}_{server}_{index}_s{len(forced)}.pt")
+                out["leaves"] = {
+                    k: [max_err(torch, v[0], blocks[k].cuda())
+                        if v[0].shape == blocks[k].shape else math.inf,
+                        top[k]] for k, v in state.params.items()}
+                forced[len(forced)] = {k: b.cuda()[None]
+                                       for k, b in blocks.items()}
+            return out
+
+        def before(i, state):
+            return state if i == 0 else state._replace(params=forced[i - 1])
+
+        torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
         run, steps, log = tpt_train(
-            torch, variant, TPT_MESH,
-            ["--backend", "gloo", "--device", "cuda:0"],
-            after=lambda state: tpt_padding_zero(state.params, cfg, index))
+            torch, key, TPT_MESH,
+            ["--backend", "gloo", "--device", "cuda:0"], after=after,
+            before=before if key in TPT_FORCED else None)
+        forced.clear()
         launches = K.LAUNCHES["graph_combine"]
         K.reset_launches()
         mesh, state = run["mesh"], run["state"]
@@ -5215,20 +5369,24 @@ def tp_train(torch, rank, root):
         out = {"loss": [h["loss"] for h in run["history"]],
                "step_ms": [s["ms"] for s in steps],
                "split_ms": [s["split"] for s in steps],
-               "padding_zero": [s["after"] for s in steps],
+               "padding_zero": [s["after"]["padding_zero"] for s in steps],
+               "forced": key in TPT_FORCED,
                "k3_launches": launches, "log": log[:2]}
         rec.update(group=[group.size, group.index],
                    servers=list(mesh.local_servers),
-                   p2p=mesh.layout()["p2p"],
-                   weight_bytes=sum(v.numel() * v.element_size()
-                                    for v in row.values()))
+                   p2p=mesh.layout()["p2p"])
+        rec["weight_bytes"][key] = sum(v.numel() * v.element_size()
+                                       for v in row.values())
         out["replicas_equal"] = all(
             all(torch.equal(b, x) for b in gather_blocks(x, group))
             for k, x in row.items()
             if not sharding.is_split(k, cfg, TPT_M))
-        whole = S.whole_leaves(row, cfg, group)
-        if group.index == 0:
-            ref = torch.load(Path(root) / f"{variant}_{server}.pt")
+        if key in TPT_FORCED:
+            out["step_leaves"] = [s["after"]["leaves"] for s in steps]
+        whole = ({} if key in TPT_FORCED
+                 else S.whole_leaves(row, cfg, group))
+        if whole and group.index == 0:
+            ref = torch.load(Path(root) / f"{key}_{server}.pt")
             out["leaves"] = {k: {"shape_ok": list(x.shape)
                                  == list(ref[k].shape),
                                  "max_abs_err": max_err(torch, x,
@@ -5242,10 +5400,10 @@ def tp_train(torch, rank, root):
             out["k3_leaf_max_abs_err"] = tpt_k3_check(
                 torch, mesh, cfg, group, state.params)
             K.reset_launches()
-        rec["variants"][variant] = out
+        rec["variants"][key] = out
+        rec["peak_memory_bytes"][key] = torch.cuda.max_memory_allocated()
         del run, state, row
         torch.cuda.empty_cache()
-    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     return rec
 
 
@@ -5259,6 +5417,8 @@ def phase_tp_train(torch) -> dict:
     import tempfile
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import sharding
+    from repro_torch.launch import steps as S
+    from repro_torch.models.flat import FlatView
 
     t_phase = time.perf_counter()
     cfg = get_config(MESH_ARCH)
@@ -5270,6 +5430,13 @@ def phase_tp_train(torch) -> dict:
     require(lay.kv == ((0, 1), (2, -1)),
             f"tp_train: {cfg.name}'s K/V heads at M = {TPT_M}: {lay.kv}, "
             "expected a padding head on the second rank")
+    leaves = {}
+    for key, (arch, layers, _, _) in TPT_RUNS.items():
+        c, full = tpt_config(key), get_config(arch)
+        require(c.d_model == full.d_model and c.param_dtype == "bfloat16"
+                and c.num_layers == (layers or full.num_layers),
+                f"tp_train {key}: {c.name} is not at full width in bf16")
+        leaves[key] = len(FlatView(S.abstract_model(c)).tree_shapes())
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="tp_train_") as root:
         whole = tpt_whole_runs(torch, root)
@@ -5300,7 +5467,8 @@ def phase_tp_train(torch) -> dict:
         ranks = [json.loads((Path(root) / f"rank{r}.json").read_text())
                  for r in range(TPT_RANKS)]
         ranks_s = time.perf_counter() - t_ranks
-    loss_tol = math.sqrt(2 * cfg.num_layers) * TPT_M * 2.0 ** -9
+    loss_tol = {key: math.sqrt(2 * tp_layers(tpt_config(key))) * TPT_M
+                * 2.0 ** -9 for key in TPT_RUNS}
     launches = 0
     for rk in ranks:
         r = rk["rank"]
@@ -5308,70 +5476,96 @@ def phase_tp_train(torch) -> dict:
                 and rk["servers"] == [r // TPT_M] and not rk["p2p"],
                 f"tp_train rank {r}: group {rk['group']}, servers "
                 f"{rk['servers']}, p2p {rk['p2p']}")
-        for variant, n in TPT_RUNS:
-            v = rk["variants"][variant]
-            want = whole[variant]["loss"]
+        for key, (_, _, variant, n) in TPT_RUNS.items():
+            v = rk["variants"][key]
+            want, tol, nl = whole[key]["loss"], loss_tol[key], leaves[key]
             require(len(v["loss"]) == len(want) == n
-                    and all(math.isfinite(g) and abs(g - w) <= loss_tol * w
+                    and all(math.isfinite(g) and abs(g - w) <= tol * w
                             for g, w in zip(v["loss"], want)),
-                    f"tp_train rank {r} {variant}: loss {v['loss']}, the "
-                    f"2x1 run's {want} (limit {loss_tol} of it)")
+                    f"tp_train rank {r} {key}: loss {v['loss']}, the "
+                    f"2x1 run's {want} (limit {tol} of it)")
             require(v["padding_zero"] == [True] * n,
-                    f"tp_train rank {r} {variant}: a padding head's rows "
+                    f"tp_train rank {r} {key}: a padding head's rows "
                     f"are not zero after a step: {v['padding_zero']}")
-            require(v["replicas_equal"], f"tp_train rank {r} {variant}: "
+            require(v["replicas_equal"], f"tp_train rank {r} {key}: "
                     "a replicated leaf differs from its model group's")
-            k3 = MESH_LEAVES * n if variant == "dense_k" else 0
-            require(v["k3_launches"] == k3, f"tp_train rank {r} {variant}: "
+            k3 = nl * n if variant == "dense_k" else 0
+            require(v["k3_launches"] == k3, f"tp_train rank {r} {key}: "
                     f"K3 launched {v['k3_launches']} times, expected {k3}")
             if variant == "dense_k":
                 launches += v["k3_launches"]
                 errs = v["k3_leaf_max_abs_err"]
-                require(len(errs) == 2 * MESH_LEAVES
+                require(len(errs) == 2 * nl
                         and all(e == 0.0 for e in errs.values()),
-                        f"tp_train rank {r}: K3 against its plain version "
-                        f"on the local leaves {errs}")
+                        f"tp_train rank {r} {key}: K3 against its plain "
+                        f"version on the local leaves {errs}")
+            if key in TPT_FORCED:       # every step, every rank's blocks
+                per = v["step_leaves"]
+                require(len(per) == n and all(len(p) == nl for p in per),
+                        f"tp_train rank {r} {key}: {len(per)} steps "
+                        f"compared, of {[len(p) for p in per]} leaves")
+                for i, leaves_i in enumerate(per):
+                    for k, (err, top) in leaves_i.items():
+                        ulps = MESH_COMBINE_ULPS * 2.0 ** -7 * top
+                        require(err <= ulps, f"tp_train rank {r} {key} step "
+                                f"{i}: {k} max abs err {err} from the 2x1 "
+                                f"run's, over {MESH_COMBINE_ULPS} bf16 ulps "
+                                f"{ulps}")
+                continue
             require(("leaves" in v) == (r % TPT_M == 0)
-                    and len(v.get("leaves", [None] * MESH_LEAVES))
-                    == MESH_LEAVES, f"tp_train rank {r} {variant}: leaves "
-                    f"compared {sorted(v.get('leaves', {}))}")
+                    and len(v.get("leaves", [None] * nl)) == nl,
+                    f"tp_train rank {r} {key}: leaves compared "
+                    f"{sorted(v.get('leaves', {}))}")
             for k, e in v.get("leaves", {}).items():
                 ulps = MESH_COMBINE_ULPS * 2.0 ** -7 * e["max_abs"]
                 require(e["shape_ok"] and e["max_abs_err"] <= ulps,
-                        f"tp_train rank {r} {variant}: {k} max abs err "
+                        f"tp_train rank {r} {key}: {k} max abs err "
                         f"{e['max_abs_err']} from the 2x1 run's, over "
                         f"{MESH_COMBINE_ULPS} bf16 ulps {ulps}")
     split = {}
-    for variant, _ in TPT_RUNS:
-        per = [s for rk in ranks for s in rk["variants"][variant]["split_ms"]]
-        split[variant] = {
+    for key in TPT_RUNS:
+        per = [s for rk in ranks for s in rk["variants"][key]["split_ms"]]
+        split[key] = {
             "step_ms_median": statistics.median(
-                t for rk in ranks for t in rk["variants"][variant]["step_ms"]),
+                t for rk in ranks for t in rk["variants"][key]["step_ms"]),
             **{f"{b}_ms_median": statistics.median(s[b] for s in per)
                for b in ("grads", "group", "noise", "combine")},
             "whole_2x1_step_ms_median": statistics.median(
-                whole[variant]["step_ms"])}
+                whole[key]["step_ms"])}
     emit({"phase": "tp_train", "mesh": TPT_MESH, "backend": "gloo",
           "main": "python -m repro_torch.launch.train --mesh 2x2 "
                   "--backend gloo --device cuda:0",
+          "runs": {key: {"arch": a, "layers": tpt_config(key).num_layers,
+                         "variant": v, "steps": n, "leaves": leaves[key],
+                         "depth_cut": TPT_DEPTH_CUTS.get(key)}
+                   for key, (a, _, v, n) in TPT_RUNS.items()},
           "ranks": [{"rank": rk["rank"], "group": rk["group"],
                      "weight_bytes": rk["weight_bytes"],
                      "peak_memory_bytes": rk["peak_memory_bytes"],
-                     **{f"{v}_loss": rk["variants"][v]["loss"]
-                        for v, _ in TPT_RUNS},
-                     **{f"{v}_step_ms": rk["variants"][v]["step_ms"]
-                        for v, _ in TPT_RUNS}}
+                     **{f"{k}_loss": rk["variants"][k]["loss"]
+                        for k in TPT_RUNS},
+                     **{f"{k}_step_ms": rk["variants"][k]["step_ms"]
+                        for k in TPT_RUNS}}
                     for rk in ranks],
           "log_rank0": ranks[0]["variants"]["dense_k"]["log"],
           "loss_tol_rel": loss_tol, "ulps_allowed": MESH_COMBINE_ULPS,
           "k3_launches": launches})
     emit({"phase": "tp_train", "split_ms": split})
     emit({"phase": "tp_train", "leaf_max_abs_err_and_max_abs": {
-        f"rank{rk['rank']}": {v: {k: [e["max_abs_err"], e["max_abs"]]
-                                  for k, e in rk["variants"][v]["leaves"]
+        f"rank{rk['rank']}": {k: {leaf: [e["max_abs_err"], e["max_abs"]]
+                                  for leaf, e in rk["variants"][k]["leaves"]
                                   .items()}
-                              for v, _ in TPT_RUNS}
+                              for k in TPT_RUNS if k not in TPT_FORCED}
         for rk in ranks if rk["rank"] % TPT_M == 0}})
+    # teacher-forced runs: each step's worst leaf in bf16 ulps of its
+    # largest |value|, over the ranks
+    emit({"phase": "tp_train", "forced_worst_ulps_by_step": {
+        k: [max((err / (2.0 ** -7 * top) if top else 0.0, leaf)
+                for rk in ranks
+                for leaf, (err, top) in rk["variants"][k]["step_leaves"][i]
+                .items())
+            for i in range(TPT_RUNS[k][3])]
+        for k in TPT_FORCED}})
     emit({"phase": "tp_train", "ranks_seconds": ranks_s,
           "seconds": time.perf_counter() - t_phase})
     return {"launches": launches}

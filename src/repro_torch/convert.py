@@ -191,6 +191,35 @@ def _stack_layers(stack, shapes: dict, n: int, dt, where: str, dev) -> list:
             for i in range(n)]
 
 
+def tree_shapes(cfg: ModelConfig):
+    """The reference's param tree of ``cfg`` as shapes, from the config
+    alone: ({path: shape} of the leaves outside the block stacks, {stack:
+    (layers, {path: one layer's shape})})."""
+    from repro_torch.models.model import dec_pos_rows, padded_vocab
+    d, vocab = cfg.d_model, padded_vocab(cfg)
+    expect = {("embed", "table"): (vocab, d), ("final_norm", "scale"): (d,)}
+    if not cfg.tie_embeddings:
+        expect[("lm_head", "w")] = (d, vocab)
+    if cfg.family == "hybrid":
+        expect.update({("shared_attn",) + path: shape for path, shape
+                       in _leaves(_shared_attn_shapes(cfg))})
+    if cfg.family == "audio":
+        expect[("enc_norm", "scale")] = (d,)
+        expect[("enc_norm", "bias")] = (d,)
+        expect[("dec_pos",)] = (dec_pos_rows(cfg), d)
+    stacks = {"blocks": (cfg.num_layers, _block_shapes(
+        cfg, moe=cfg.moe is not None, d_ff=cfg.d_ff))}
+    if cfg.moe is not None and cfg.moe.first_dense_layers:
+        nd = cfg.moe.first_dense_layers
+        stacks = {"dense_blocks": (nd, _block_shapes(
+            cfg, moe=False, d_ff=cfg.moe.first_dense_d_ff or cfg.d_ff)),
+                  "blocks": (cfg.num_layers - nd, stacks["blocks"][1])}
+    if cfg.family == "audio":
+        stacks["enc_blocks"] = (cfg.encoder_layers,
+                                _whisper_shapes(cfg, cross=False))
+    return expect, stacks
+
+
 def model_params_from_numpy(tree: dict, cfg: ModelConfig,
                             device=None, group=None) -> dict:
     """The params of ``repro_torch.models.model.Model(cfg, params)`` from
@@ -207,33 +236,12 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig,
     of each leaf (:func:`repro_torch.launch.sharding.shard_tree`), for
     ``Model(cfg, params, group=group)``."""
     from repro_torch.launch.sharding import shard_tree
-    from repro_torch.models.model import check_supported, padded_vocab
+    from repro_torch.models.model import check_supported
     from repro_torch.models.parallel import group_size
     check_supported(cfg, group_size(group))
     dev = resolve_device(device)
     dt = getattr(torch, cfg.param_dtype)
-    d, vocab = cfg.d_model, padded_vocab(cfg)
-    expect = {("embed", "table"): (vocab, d), ("final_norm", "scale"): (d,)}
-    if not cfg.tie_embeddings:
-        expect[("lm_head", "w")] = (d, vocab)
-    if cfg.family == "hybrid":
-        expect.update({("shared_attn",) + path: shape for path, shape
-                       in _leaves(_shared_attn_shapes(cfg))})
-    if cfg.family == "audio":
-        from repro_torch.models.model import dec_pos_rows
-        expect[("enc_norm", "scale")] = (d,)
-        expect[("enc_norm", "bias")] = (d,)
-        expect[("dec_pos",)] = (dec_pos_rows(cfg), d)
-    stacks = {"blocks": (cfg.num_layers, _block_shapes(
-        cfg, moe=cfg.moe is not None, d_ff=cfg.d_ff))}
-    if cfg.moe is not None and cfg.moe.first_dense_layers:
-        nd = cfg.moe.first_dense_layers
-        stacks = {"dense_blocks": (nd, _block_shapes(
-            cfg, moe=False, d_ff=cfg.moe.first_dense_d_ff or cfg.d_ff)),
-                  "blocks": (cfg.num_layers - nd, stacks["blocks"][1])}
-    if cfg.family == "audio":
-        stacks["enc_blocks"] = (cfg.encoder_layers,
-                                _whisper_shapes(cfg, cross=False))
+    expect, stacks = tree_shapes(cfg)
     parts = {path[0] for path in expect}
     if set(tree) != parts | set(stacks):
         raise ValueError(f"param tree keys {sorted(tree)} do not match "

@@ -22,12 +22,12 @@ has no kernel for them).  Prints the prefill time and the decode rate.
 
 ``--mesh DxM`` (the reference's flag) splits the requests over the D
 data ranks of a ``torch.distributed`` world (``torchrun``) and the model
-over the M ranks of each data block (tensor parallelism: the dense, vlm
-and moe families, GQA or MLA; :mod:`repro_torch.models.parallel`), and
+over the M ranks of each data block (tensor parallelism, every family:
+GQA or MLA heads, experts or their ff dim, Mamba2's and RWKV-6's heads,
+whisper's encoder and decoder; :mod:`repro_torch.models.parallel`), and
 gathers the tokens at the end; rank 0 prints.  ``1x1``, the default, is
 the one-process path, and a world of 1 holds every data position and the
-whole model at any mesh.  The ssm, hybrid and audio families split over a
-model axis above 1 raise (ROADMAP item 20d).  ``--backend`` names the
+whole model at any mesh.  ``--backend`` names the
 process group's backend: NCCL (the default on ``cuda``) for ranks on
 distinct cards, gloo (the default on ``cpu``) for ranks that share one
 card, each then given it by ``--device cuda:0``.
@@ -38,6 +38,8 @@ card, each then given it by ``--device cuda:0``.
         --reduced --mesh 1x4 --backend gloo --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch phi3-mini-3.8b --mesh 1x4 --backend gloo --device cuda:0
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch zamba2-1.2b --mesh 1x4 --backend gloo --device cuda:0
 """
 from __future__ import annotations
 

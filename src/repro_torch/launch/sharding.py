@@ -13,10 +13,8 @@ port places the server dim by these specs (a rank holds a block of
 servers, :mod:`repro_torch.launch.mesh`) and, under ``client_parallel``,
 the client dim.  Serving splits each leaf over ``"model"`` by the same
 specs (:func:`shard_leaf`, the collectives in
-:mod:`repro_torch.models.parallel`) for the dense, vlm and MoE families,
-and so does training (the train step runs each rank's blocks under the
-server dim); the ssm, hybrid and audio families under a model axis above
-1 are ROADMAP item 20d.
+:mod:`repro_torch.models.parallel`) for every family, and so does
+training (the train step runs each rank's blocks under the server dim).
 
 Run-time layout of a split leaf.  A spec names the dimension; the rank
 takes its block of it, but attention leaves split by whole heads
@@ -24,12 +22,21 @@ takes its block of it, but attention leaves split by whole heads
 the ranks that share them when the model axis is a multiple of their
 count, and otherwise padded with zero heads (zero ``w_o`` rows), as GSPMD
 pads the dims it cannot split evenly, so a padded head adds exactly 0.
-The reference's ``cache_specs`` split the K/V cache's head_dim over
-``"model"``; the port's caches hold the rank's whole K/V heads (and MLA's
-latent cache whole on every rank): a run-time layout, the specs stay the
-reference's.  :func:`unshard_leaf` puts the ranks' blocks back together,
-and :func:`multiplicity` says how many ranks hold each block (what a sum
-over the group counts once: the train step's clip and telemetry norms).
+Mamba2's packed in-projection ``ssm/w_in`` (z, x, B, C and dt side by
+side) is held a segment at a time (:func:`mamba_ranges`): z and x by
+whole heads, B and C by N / M state columns of each group, dt by heads;
+its ``ssm/w_out`` and RWKV-6's time-mixing products split by whole heads,
+and a head count (or a state width) the group does not divide raises,
+naming the leaf.  The reference's ``cache_specs`` split the K/V cache's
+head_dim over ``"model"``; the port's caches hold the rank's whole K/V
+heads (and MLA's latent cache whole on every rank), and the Mamba2 and
+RWKV-6 states the rank's heads (the token-shift carries whole): a
+run-time layout, the specs stay the reference's.  :func:`unshard_leaf`
+puts the ranks' blocks back together, and :func:`multiplicity` says how
+many ranks hold each block (what a sum over the group counts once: the
+train step's clip and telemetry norms).  :data:`READ_IN_PART` lists the
+whole leaves a rank reads only in part (its heads' or channels'
+entries), whose gradients the train step sums over the group.
 """
 from __future__ import annotations
 
@@ -196,6 +203,66 @@ _HEAD_LEAVES = ((r"attn/w_(k|v)$", "kv"),
                 (r"attn/w_(q|o|uq|uk|uv)$", "q"))
 
 
+# the split leaves whose split dim is a run of heads of a fixed width
+# (not padded): (regex, the width from the config)
+_UNIT_LEAVES = ((r"ssm/w_out$", lambda cfg: cfg.ssm.headdim),
+                (r"att/w_(r|k|v|g|o)$", lambda cfg: cfg.rwkv.head_size))
+
+# whole leaves a split model reads in part (its heads' or channels'
+# entries of a per-channel leaf), so that a rank's gradient of each is
+# its part's: the train step sums them over the model group
+READ_IN_PART = (r"ssm/(conv_w|conv_b|dt_bias|A_log|D|norm_scale)$",
+                r"att/(u|ln_scale)$")
+
+
+def read_in_part(path: str, M: int) -> bool:
+    """True for a whole leaf a split model (M > 1) reads in part."""
+    return M > 1 and any(re.search(p, path) for p in READ_IN_PART)
+
+
+def mamba_ranges(cfg: ModelConfig, M: int, m: int,
+                 path: str = "ssm/w_in") -> dict:
+    """Rank m's (start, stop) ranges, in order, of a Mamba2 layer's packed
+    dims at a model group of M: ``"w_in"``'s columns (z and x by whole
+    heads, B and C by N / M state columns of each of the G groups, dt by
+    heads) and ``"conv"``'s channels (its x, B and C, the rank's conv
+    input in that order).  Raises, naming ``path``, where M divides the
+    heads or the state width not."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    H, N, G = d_inner // s.headdim, s.state_dim, s.ngroups
+    if H % M or N % M:
+        raise ValueError(f"{path}: {H} heads and a state of {N} do not "
+                         f"split over a model group of {M}")
+    dl, nl, hl = d_inner // M, N // M, H // M
+
+    def at(off, ranges):
+        return [(off + a, off + b) for a, b in ranges]
+
+    heads = [(m * dl, (m + 1) * dl)]
+    states = [(g * N + m * nl, g * N + (m + 1) * nl) for g in range(G)]
+    conv = heads + at(d_inner, states) + at(d_inner + G * N, states)
+    dt = [(2 * d_inner + 2 * G * N + m * hl, 2 * d_inner + 2 * G * N
+           + (m + 1) * hl)]
+    return {"w_in": heads + at(d_inner, conv) + dt, "conv": conv}
+
+
+def take(x: torch.Tensor, ranges, dim: int = -1) -> torch.Tensor:
+    """``x``'s entries in ``ranges`` ((start, stop) pairs) of ``dim``,
+    side by side: a view for one range, else a new tensor."""
+    if len(ranges) == 1:
+        a, b = ranges[0]
+        return x.narrow(dim, a, b - a)
+    return torch.cat([x.narrow(dim, a, b - a) for a, b in ranges], dim)
+
+
+def _packed(path: str, cfg: ModelConfig, M: int, m: int):
+    """Rank m's ranges of a leaf held a segment at a time, or None."""
+    if re.search(r"ssm/w_in$", path) and cfg.ssm is not None:
+        return mamba_ranges(cfg, M, m, path)["w_in"]
+    return None
+
+
 def _model_dim(path: str, cfg: ModelConfig) -> Optional[int]:
     spec = param_spec(path, cfg)
     return spec.index("model") if "model" in spec else None
@@ -226,6 +293,14 @@ def local_shape(path: str, shape, cfg: ModelConfig, M: int) -> tuple:
     if hs is not None:
         width = n // hs[1]
         return shape[:dim] + (len(hs[0][0]) * width,) + shape[dim + 1:]
+    packed = _packed(path, cfg, M, 0)
+    if packed is not None:
+        return shape[:dim] + (sum(b - a for a, b in packed),) \
+            + shape[dim + 1:]
+    for pat, unit in _UNIT_LEAVES:
+        if re.search(pat, path) and (n // unit(cfg)) % M:
+            raise ValueError(f"{path}: {n // unit(cfg)} heads do not split "
+                             f"over a model group of {M}")
     if n % M:
         raise ValueError(f"{path}: dim {dim} of {n} does not split over a "
                          f"model group of {M}")
@@ -239,15 +314,19 @@ def shard_leaf(path: str, full: torch.Tensor, cfg: ModelConfig,
     a layer stack's, a server dim's): the block of the dimension
     ``param_spec`` names (the MoE stacks' ff dim where their experts do
     not split), an attention leaf's whole heads (zeros for a padding
-    head), a copy of its own so ``full`` can be freed; ``full`` itself
-    where the leaf is replicated or ``group`` is None.  A vocab, ff or
-    expert count the group does not divide raises, naming the leaf."""
+    head), ``ssm/w_in``'s segments (:func:`mamba_ranges`), a copy of its
+    own so ``full`` can be freed; ``full`` itself where the leaf is
+    replicated or ``group`` is None.  A vocab, ff, expert, head or state
+    count the group does not divide raises, naming the leaf."""
     M = 1 if group is None else group.size
     dim = _model_dim(path, cfg) if M > 1 else None
     if dim is None:
         return full
     want = local_shape(path, full.shape[lead:], cfg, M)
     d = lead + dim
+    packed = _packed(path, cfg, M, group.index)
+    if packed is not None:
+        return take(full, packed, d)
     hs = _head_set(path, cfg, M)
     if hs is None:
         per = want[dim]
@@ -266,7 +345,8 @@ def unshard_leaf(path: str, blocks, cfg: ModelConfig, M: int,
                  lead: int = 0) -> torch.Tensor:
     """The whole leaf at ``path`` from the M ranks' blocks (in the model
     group's order, each behind ``lead`` leading dims): the inverse of
-    :func:`shard_leaf`.  Split blocks side by side; an attention leaf's
+    :func:`shard_leaf`.  Split blocks side by side (``ssm/w_in``'s
+    segments each back in its place); an attention leaf's
     real heads in their order, one copy of a shared K/V head, padding
     heads dropped; a replicated leaf's first block."""
     if len(blocks) != M:
@@ -276,6 +356,17 @@ def unshard_leaf(path: str, blocks, cfg: ModelConfig, M: int,
     if dim is None:
         return blocks[0]
     d = lead + dim
+    if _packed(path, cfg, M, 0) is not None:
+        ranges = [_packed(path, cfg, M, m) for m in range(M)]
+        shape = list(blocks[0].shape)
+        shape[d] = sum(b - a for r in ranges for a, b in r)
+        full = blocks[0].new_empty(shape)
+        for r, block in zip(ranges, blocks):
+            at = 0
+            for a, b in r:
+                full.narrow(d, a, b - a).copy_(block.narrow(d, at, b - a))
+                at += b - a
+        return full
     hs = _head_set(path, cfg, M)
     if hs is None:
         return torch.cat(list(blocks), d)

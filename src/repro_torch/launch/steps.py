@@ -37,7 +37,10 @@ specs of ``launch.sharding``): the state holds the rank's blocks, and the
 model is built on the same group (``Model.init(cfg, gen,
 group=ModelGroup.of(mesh))``).  A client's gradient is the backward
 through the group's collectives (:mod:`repro_torch.models.parallel`), a
-shared K/V head's summed over the ranks that share it; the clip's global
+shared K/V head's summed over the ranks that share it, and the whole
+leaves a rank reads only in part (``sharding.READ_IN_PART``: Mamba2's
+per-channel leaves, RWKV-6's ``u`` and ``ln_scale``) summed over the
+group in one packed ``all_reduce`` a client pass; the clip's global
 norm, and the telemetry's, sum the blocks' squares over the group, each
 block counted once (``sharding.multiplicity``); the combines run on the
 blocks (K3 once a leaf on [P, D_local]).  Under ``client_parallel`` the
@@ -63,7 +66,8 @@ from repro_torch.launch.mesh import Mesh, num_servers, server_axes
 from repro_torch.models.flat import FlatView
 from repro_torch.models.model import Model, check_supported
 from repro_torch.models.parallel import (ModelGroup, gather_blocks,
-                                         group_size, sum_over_sharers)
+                                         group_size, sum_over_sharers,
+                                         sum_packed)
 from repro_torch.optim.clip import clip_by_global_norm
 
 
@@ -252,19 +256,32 @@ def _shared(model: Model) -> dict:
             and (r := shd.multiplicity(k, model.cfg, M)) > 1}
 
 
+def _read_in_part(model: Model) -> list:
+    """The keys of the whole leaves the model's rank reads only in part,
+    each gradient to sum over its group."""
+    M = group_size(model.group)
+    return [k for k in FlatView(model).tree_shapes()
+            if shd.read_in_part(k, M)]
+
+
 def client_grads(model: Model, tree: dict, batch: dict,
                  remat_policy: str | None = None, view=None,
-                 shared=None):
+                 shared=None, partial=None):
     """(loss, {key: gradient}) of ``model.loss(**batch)`` at the
     parameters ``tree`` ({key: tensor} of one server).  On a model split
     over its group the gradients are the rank's blocks of the whole
-    model's: the backward runs through the group's collectives, and a
-    shared K/V head's gradient is summed over the ranks sharing it."""
+    model's: the backward runs through the group's collectives, a shared
+    K/V head's gradient is summed over the ranks sharing it, and the
+    gradients of the whole leaves read in part (``partial``, by default
+    :func:`_read_in_part`'s) over the group, in one ``all_reduce``."""
     view = FlatView(model) if view is None else view
     loss, grads = view.tree_grad(model, tree, lambda: model.loss(
         **batch, remat_policy=remat_policy)[0])
     for k, r in (_shared(model) if shared is None else shared).items():
         grads[k] = sum_over_sharers(grads[k], model.group, r)
+    partial = _read_in_part(model) if partial is None else partial
+    grads.update(zip(partial, sum_packed([grads[k] for k in partial],
+                                         model.group)))
     return loss, grads
 
 
@@ -350,6 +367,7 @@ def make_train_step(model: Model, gfl: GFLConfig, mesh: Mesh,
     view = FlatView(model)
     lo, hi = lay["servers"].start, lay["servers"].stop
     shared = _shared(model)
+    partial = _read_in_part(model)
     counted = _counted(model)
     # the whole model's leaf shapes: the noise is drawn whole
     whole = FlatView(abstract_model(cfg) if group is not None
@@ -357,7 +375,7 @@ def make_train_step(model: Model, gfl: GFLConfig, mesh: Mesh,
 
     def loss_and_grads(w_p, client_batch):
         return client_grads(model, w_p, client_batch, remat_policy, view,
-                            shared)
+                            shared, partial)
 
     def group_sq(tree) -> torch.Tensor:
         """The sum of squares of the whole leaves whose blocks ``tree``

@@ -21,12 +21,16 @@ privacy accounting and the consensus checkpoint.
 ``--mesh`` takes ``production`` (16 x 16), ``production-multipod`` (2 x
 16 x 16) or ``DxM`` / ``PODxDxM``; a model axis M above 1 is tensor
 parallelism: each rank holds its block of every leaf of its servers, the
-model split over the M ranks of its model group (the dense, vlm and moe
-families; ROADMAP item 20d for the rest).  ``--backend gloo`` puts ranks
-that share one card on gloo (``--device cuda:0``); NCCL, the cuda
-default, is for ranks on distinct cards.  The weights and the draws are
-random, from ``REPRO_SEED`` (0 by default); the token batches are drawn
-on the host, so every rank and device trains on the same data.  The
+model split over the M ranks of its model group (every family).
+``--backend gloo`` puts ranks that share one card on gloo (``--device
+cuda:0``); NCCL, the cuda default, is for ranks on distinct cards.
+``--layers N`` cuts the arch to N layers at its full width (whisper's
+decoder layers; a hybrid's shared block still fires every
+``hybrid_attn_every``).  The weights and the draws are random, from
+``REPRO_SEED`` (0 by default); the token batches, and a vlm's image
+embeddings or whisper's frames (the stubbed encoders' outputs, 0.1 N(0,
+1) f32 as ``launch.serve`` draws them), are drawn on the host, so every
+rank and device trains on the same data.  The
 consensus checkpoint holds server 0's whole leaves (gathered over its
 model group), the reference's tree.  Runs on ``cuda`` unless ``--device
 cpu`` is given.
@@ -34,14 +38,18 @@ cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
+
+import torch
 
 from repro_torch import rng
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs.base import GFLConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.core.privacy.mechanism import mechanism_for
-from repro_torch.data.synthetic import TokenStream, federated_token_batches
+from repro_torch.data.synthetic import (TokenStream, client_seed,
+                                        federated_token_batches)
 from repro_torch.draws import Draws
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import init_world, mesh_from_arg, num_servers
@@ -49,12 +57,39 @@ from repro_torch.models.model import Model
 from repro_torch.models.parallel import ModelGroup
 
 SELECT_SEED = 1234      # the cohort draws, apart from the model's seed
+STUB_SEED = 1           # the stub encoders' outputs, apart from the tokens'
+
+
+def stub_batch(cfg, step: int, P: int, L: int, per_client: int,
+               client_ids=None) -> dict:
+    """A vlm's ``image_embeds`` or whisper's ``frames`` for a step's batch,
+    [P, L, per_client, N, D] f32, 0.1 N(0, 1): each (server, client id)
+    from a host generator of its own (``client_seed`` of STUB_SEED), as
+    the tokens are drawn; {} for the other families."""
+    n = {"vlm": cfg.num_image_tokens,
+         "audio": cfg.encoder_seq_len}.get(cfg.family)
+    if not n:
+        return {}
+    gen = torch.Generator()
+    rows = []
+    for p in range(P):
+        for l in range(L):
+            cid = l if client_ids is None else int(client_ids[p, l])
+            gen.manual_seed(client_seed(STUB_SEED, step, p, cid))
+            rows.append(0.1 * torch.randn((per_client, n, cfg.d_model),
+                                          generator=gen))
+    key = "image_embeds" if cfg.family == "vlm" else "frames"
+    return {key: torch.stack(rows).reshape(P, L, per_client, n,
+                                           cfg.d_model)}
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the arch to this many layers at its width "
+                         "(0 keeps its depth)")
     ap.add_argument("--mesh", default="production",
                     help="'production', 'production-multipod' or e.g. '4x1'")
     ap.add_argument("--steps", type=int, default=20)
@@ -105,6 +140,8 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     mesh = mesh_from_arg(args.mesh, dev, args.backend)
     Pn = num_servers(mesh)
     log = print if mesh.rank == 0 else (lambda *a, **k: None)
@@ -191,6 +228,8 @@ def main(argv=None) -> dict:
             batch = federated_token_batches(
                 stream, 0, i, Pn, args.clients, args.per_client, args.seq,
                 client_ids=ids)
+            batch.update(stub_batch(cfg, i, Pn, args.clients,
+                                    args.per_client, client_ids=ids))
             if process is not None:
                 real = process.realize(i)
                 alive = (process.client_alive(i, args.clients)

@@ -27,7 +27,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.parallel import gather_from_group, reduce_from_group
+from repro_torch.models.parallel import (copy_to_group, gather_from_group,
+                                         reduce_from_group)
 
 
 def whole(name: str, leaf: torch.Tensor) -> torch.Tensor:
@@ -131,18 +132,24 @@ def swiglu(params, x: torch.Tensor) -> torch.Tensor:
     return h @ params["w_down"]
 
 
-def gelu_mlp_init(gen, d_model, d_ff, dtype) -> dict:
+def gelu_mlp_init(gen, d_model, d_ff, dtype, keep=whole) -> dict:
     return {
-        "w_in": he_init(gen, (d_model, d_ff), dtype),
-        "b_in": torch.zeros((d_ff,), dtype=dtype, device=gen.device),
-        "w_out": he_init(gen, (d_ff, d_model), dtype, fan_in=d_ff),
+        "w_in": keep("w_in", he_init(gen, (d_model, d_ff), dtype)),
+        "b_in": keep("b_in", torch.zeros((d_ff,), dtype=dtype,
+                                         device=gen.device)),
+        "w_out": keep("w_out", he_init(gen, (d_ff, d_model), dtype,
+                                       fan_in=d_ff)),
         "b_out": torch.zeros((d_model,), dtype=dtype, device=gen.device),
     }
 
 
-def gelu_mlp(params, x: torch.Tensor) -> torch.Tensor:
-    h = F.gelu(x @ params["w_in"] + params["b_in"], approximate="tanh")
-    return h @ params["w_out"] + params["b_out"]
+def gelu_mlp(params, x: torch.Tensor, group=None) -> torch.Tensor:
+    """Whisper's GELU MLP; over a model ``group`` (x replicated) the
+    rank's ff block (``w_in``, ``b_in`` and ``w_out`` split), summed over
+    it before the whole ``b_out`` is added once."""
+    h = F.gelu(copy_to_group(x, group) @ params["w_in"] + params["b_in"],
+               approximate="tanh")
+    return reduce_from_group(h @ params["w_out"], group) + params["b_out"]
 
 
 # ---------------------------------------------------------------------------

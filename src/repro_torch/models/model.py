@@ -48,21 +48,27 @@ Tensor parallelism: ``Model.init(cfg, gen, group=)`` and ``Model(cfg,
 params, group=)`` with a :class:`~repro_torch.models.parallel.ModelGroup`
 of M ranks hold the rank's block of every leaf
 (:func:`repro_torch.launch.sharding.shard_leaf`; norms, routers and MLA's
-down projections whole) for the dense, vlm and MoE families.  Attention
-runs on the rank's heads (``self.attn_cfg``), its cache holds the rank's
+down projections whole) for every family.  Attention runs on the rank's
+heads (``self.attn_cfg``: the dense, vlm and MoE blocks, zamba2's shared
+block, whisper's self- and cross-attention), its cache holds the rank's
 K/V heads (MLA's latents whole), and each sublayer's partial sum (the
 ``w_o`` product; the MLP's or MoE layer's ``w_down`` products, shared
-experts included) is summed over the group; the embedding and the
-logits are vocab-parallel (:mod:`repro_torch.models.layers`).  The
-logits come out whole on every rank; ``loss`` never gathers them (the
-vocab-parallel cross-entropy on the rank's block).  Whole leaves read the
-replicated activations before the group copy (the router, MLA's down
-projections; :mod:`repro_torch.models.parallel`), so the backward gives
-every rank the whole gradient of each whole leaf and its block of the
-whole gradient of each split one, except a K/V head shared by several
-ranks, whose gradient the train step sums over them
-(``parallel.sum_over_sharers``).  The ssm, hybrid and audio families
-under a group raise (ROADMAP item 20d).
+experts included; whisper's GELU MLP, its ``b_out`` added once after the
+sum; Mamba2's ``w_out`` and RWKV-6's two out products,
+:mod:`repro_torch.models.ssm`, :mod:`repro_torch.models.rwkv`) is summed
+over the group; the embedding and the logits are vocab-parallel
+(:mod:`repro_torch.models.layers`).  The logits come out whole on every
+rank; ``loss`` never gathers them (the vocab-parallel cross-entropy on
+the rank's block).  Whole leaves read the replicated activations before
+the group copy (norms, the router, MLA's down projections, RWKV-6's
+token-shift mixes and decay LoRA; :mod:`repro_torch.models.parallel`),
+so the backward gives every rank the whole gradient of each whole leaf
+and its block of the whole gradient of each split one, except a K/V head
+shared by several ranks, whose gradient the train step sums over them
+(``parallel.sum_over_sharers``), and the whole leaves a rank reads only
+in part (``sharding.READ_IN_PART``: Mamba2's per-channel leaves, RWKV-6's
+``u`` and ``ln_scale``), whose gradients it sums over the group.  The
+whisper encoder's output is copied once for the decoder's cross K/V.
 """
 from __future__ import annotations
 
@@ -104,18 +110,11 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return -(-cfg.vocab_size // 128) * 128
 
 
-TP_FAMILIES = ("dense", "vlm", "moe")
-
-
 def check_supported(cfg: ModelConfig, model_ranks: int = 1) -> None:
-    """Raises NotImplementedError for a config the port does not run, or
-    does not run split over ``model_ranks`` > 1 ranks."""
-    if model_ranks > 1 and cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family split over a model group "
-            f"of {model_ranks} is tensor parallelism the port does not run "
-            "yet (ROADMAP item 20d); it runs the dense, vlm and moe "
-            "families split, or any family on one rank of the model axis")
+    """Raises NotImplementedError for a config the port does not run, and
+    ValueError, naming the leaf, for one whose heads, state width, ff or
+    vocab a model group of ``model_ranks`` > 1 does not split in a layout
+    the port has (:func:`repro_torch.launch.sharding.local_shape`)."""
     plain = cfg.moe is None and cfg.mla is None
     if cfg.family == "ssm":
         ok = plain and cfg.attention == "none" and cfg.rwkv is not None
@@ -143,6 +142,23 @@ def check_supported(cfg: ModelConfig, model_ranks: int = 1) -> None:
             "attention none, hybrid with ssm, gqa attention and "
             "hybrid_attn_every > 0, vlm with gqa attention, and audio with "
             "gqa attention and an encoder")
+    if model_ranks > 1:
+        _check_split(cfg, model_ranks)
+
+
+@functools.lru_cache(maxsize=None)
+def _check_split(cfg: ModelConfig, M: int) -> None:
+    """Every leaf's block at a model group of M, from the whole model's
+    shapes (``convert.tree_shapes``, the config alone); raises naming the
+    first leaf that does not split, the block stacks' first."""
+    from repro_torch.convert import tree_shapes
+    top, stacks = tree_shapes(cfg)
+    leaves = [("/".join((stack,) + path), shape)
+              for stack, (_, shapes) in stacks.items()
+              for path, shape in shapes.items()]
+    leaves += [("/".join(path), shape) for path, shape in top.items()]
+    for path, shape in leaves:
+        sharding.local_shape(path, shape, cfg, M)
 
 
 def _params(tree: dict) -> nn.ParameterDict:
@@ -155,17 +171,18 @@ def _params(tree: dict) -> nn.ParameterDict:
 
 
 def _attn(bp, h, positions, cfg: ModelConfig, *, return_kv: bool = False,
-          group=None):
+          group=None, **kw):
     """The block's attention: MLA or GQA, on the rank's heads (``cfg``
     the rank's config) and summed over ``group``.  ``return_kv`` also
     returns what the cache keeps (c_kv and k_rope, or the roped K and the
-    V)."""
+    V); ``kw`` goes to ``gqa_forward`` (whisper's ``use_rope``,
+    ``causal``)."""
     if cfg.attention == "mla":        # copies after its whole leaves
         out = attn.mla_forward(bp["attn"], h, positions, cfg,
                                return_kv=return_kv, group=group)
     else:
         out = attn.gqa_forward(bp["attn"], copy_to_group(h, group),
-                               positions, cfg, return_kv=return_kv)
+                               positions, cfg, return_kv=return_kv, **kw)
     if return_kv:
         return (reduce_from_group(out[0], group),) + out[1:]
     return reduce_from_group(out, group)
@@ -187,20 +204,21 @@ def _whole_parts(part: str):
     return layers.whole
 
 
-def _mamba_block(bp, x, cfg: ModelConfig):
+def _mamba_block(bp, x, cfg: ModelConfig, group=None):
     h = layers.rms_norm(bp["ln"], x, cfg.norm_eps)
-    out, state = ssm.mamba2_forward(bp["ssm"], h, cfg)
+    out, state = ssm.mamba2_forward(bp["ssm"], h, cfg, group=group)
     return x + out, state
 
 
 def _rwkv_block(bp, x, cfg: ModelConfig, state=None, att_x=None,
-                ffn_x=None):
+                ffn_x=None, group=None):
     h = layers.rms_norm(bp["ln1"], x, cfg.norm_eps)
     out, (new_state, new_att_x) = rwkv.rwkv6_att_forward(
-        bp["att"], h, cfg, state=state, prev_x=att_x)
+        bp["att"], h, cfg, state=state, prev_x=att_x, group=group)
     x = x + out
     h = layers.rms_norm(bp["ln2"], x, cfg.norm_eps)
-    out, new_ffn_x = rwkv.rwkv6_ffn_forward(bp["ffn"], h, prev_x=ffn_x)
+    out, new_ffn_x = rwkv.rwkv6_ffn_forward(bp["ffn"], h, prev_x=ffn_x,
+                                            group=group)
     return x + out, (new_state, new_att_x, new_ffn_x)
 
 
@@ -320,24 +338,28 @@ class Model(nn.Module):
             params["lm_head"] = layers.lm_head_init(
                 generator, cfg.d_model, vocab, dt, keep("lm_head"))
         if cfg.family == "ssm":
-            params["blocks"] = [cls._rwkv_block_init(cfg, generator)
+            params["blocks"] = [cls._rwkv_block_init(cfg, generator, keep)
                                 for _ in range(cfg.num_layers)]
         elif cfg.family == "hybrid":
-            params["blocks"] = [cls._mamba_block_init(cfg, generator)
+            params["blocks"] = [cls._mamba_block_init(cfg, generator, keep)
                                 for _ in range(cfg.num_layers)]
             params["shared_attn"] = {
                 "ln": layers.rms_norm_init(cfg.d_model, dt, dev),
-                "attn": attn.gqa_init(generator, cfg, dt),
+                "attn": attn.gqa_init(generator, cfg, dt,
+                                      keep("shared_attn/attn")),
                 "ln2": layers.rms_norm_init(cfg.d_model, dt, dev),
                 "mlp": layers.swiglu_init(generator, cfg.d_model, cfg.d_ff,
-                                          dt),
+                                          dt, keep("shared_attn/mlp")),
             }
         elif cfg.family == "audio":
-            params["enc_blocks"] = [cls._whisper_block_init(cfg, generator)
-                                    for _ in range(cfg.encoder_layers)]
+            params["enc_blocks"] = [
+                cls._whisper_block_init(cfg, generator, keep=keep,
+                                        stack="enc_blocks")
+                for _ in range(cfg.encoder_layers)]
             params["enc_norm"] = layers.layer_norm_init(cfg.d_model, dt, dev)
             params["blocks"] = [
-                cls._whisper_block_init(cfg, generator, cross=True)
+                cls._whisper_block_init(cfg, generator, cross=True,
+                                        keep=keep)
                 for _ in range(cfg.num_layers)]
             params["dec_pos"] = (0.02 * layers._normal(
                 generator, (dec_pos_rows(cfg), cfg.d_model))).to(dt)
@@ -386,36 +408,41 @@ class Model(nn.Module):
         }
 
     @staticmethod
-    def _mamba_block_init(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    def _mamba_block_init(cfg: ModelConfig, gen: torch.Generator,
+                          keep=_whole_parts) -> dict:
         dt = _dtype(cfg)
         return {
             "ln": layers.rms_norm_init(cfg.d_model, dt, gen.device),
-            "ssm": ssm.mamba2_init(gen, cfg, dt),
+            "ssm": ssm.mamba2_init(gen, cfg, dt, keep("blocks/ssm")),
         }
 
     @staticmethod
-    def _rwkv_block_init(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    def _rwkv_block_init(cfg: ModelConfig, gen: torch.Generator,
+                         keep=_whole_parts) -> dict:
         dt = _dtype(cfg)
         return {
             "ln1": layers.rms_norm_init(cfg.d_model, dt, gen.device),
-            "att": rwkv.rwkv6_att_init(gen, cfg, dt),
+            "att": rwkv.rwkv6_att_init(gen, cfg, dt, keep("blocks/att")),
             "ln2": layers.rms_norm_init(cfg.d_model, dt, gen.device),
-            "ffn": rwkv.rwkv6_ffn_init(gen, cfg, dt),
+            "ffn": rwkv.rwkv6_ffn_init(gen, cfg, dt, keep("blocks/ffn")),
         }
 
     @staticmethod
     def _whisper_block_init(cfg: ModelConfig, gen: torch.Generator,
-                            cross: bool = False) -> dict:
+                            cross: bool = False, keep=_whole_parts,
+                            stack: str = "blocks") -> dict:
         """An encoder block, or with ``cross`` a decoder block (its
-        cross-attention ``xattn`` and the norm before it)."""
+        cross-attention ``xattn`` and the norm before it); ``keep(part)``
+        gives the leaf keeper of ``stack``'s part."""
         dt, dev = _dtype(cfg), gen.device
         bp = {"ln1": layers.layer_norm_init(cfg.d_model, dt, dev),
-              "attn": attn.gqa_init(gen, cfg, dt)}
+              "attn": attn.gqa_init(gen, cfg, dt, keep(f"{stack}/attn"))}
         if cross:
             bp["ln_x"] = layers.layer_norm_init(cfg.d_model, dt, dev)
-            bp["xattn"] = attn.gqa_init(gen, cfg, dt)
+            bp["xattn"] = attn.gqa_init(gen, cfg, dt, keep(f"{stack}/xattn"))
         bp["ln2"] = layers.layer_norm_init(cfg.d_model, dt, dev)
-        bp["mlp"] = layers.gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, dt)
+        bp["mlp"] = layers.gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, dt,
+                                         keep(f"{stack}/mlp"))
         return bp
 
     @property
@@ -443,7 +470,7 @@ class Model(nn.Module):
         """The whisper encoder over the stub frame embeddings [B, Se, D]:
         the sinusoidal table, then non-causal self-attention without
         rope."""
-        cfg = self.cfg
+        cfg, group = self.cfg, self.group
         x = frames + sinusoidal(frames.shape[1], cfg.d_model,
                                 frames.device).to(frames.dtype)
         # each weight meets x in the wider dtype, as jnp promotes them
@@ -452,10 +479,10 @@ class Model(nn.Module):
         for bp in self.enc_blocks:
             bp = _promoted(bp, dt)
             h = layers.layer_norm(bp["ln1"], x, cfg.norm_eps)
-            x = x + attn.gqa_forward(bp["attn"], h, None, cfg,
-                                     use_rope=False, causal=False)
+            x = x + _attn(bp, h, None, self.attn_cfg, group=group,
+                          use_rope=False, causal=False)
             h = layers.layer_norm(bp["ln2"], x, cfg.norm_eps)
-            x = x + layers.gelu_mlp(bp["mlp"], h)
+            x = x + layers.gelu_mlp(bp["mlp"], h, group)
         return layers.layer_norm(self.enc_norm, x, cfg.norm_eps)
 
     def forward(self, tokens: torch.Tensor, *,
@@ -486,25 +513,27 @@ class Model(nn.Module):
         def block(fn):
             return _remat(fn, remat, remat_policy)
 
+        group = self.group
         if cfg.family == "audio":
-            enc_out = self._encode(frames)
+            enc_out = copy_to_group(self._encode(frames), group)
             body = block(lambda x, bp: self._whisper_block(
                 bp, x, positions, enc_out)[0])
             for bp in self.blocks:
                 x = body(x, bp)
         elif cfg.family == "ssm":
-            body = block(lambda x, bp: _rwkv_block(bp, x, cfg)[0])
+            body = block(lambda x, bp: _rwkv_block(bp, x, cfg,
+                                                   group=group)[0])
             for bp in self.blocks:
                 x = body(x, bp)
         elif cfg.family == "hybrid":
-            body = block(lambda x, bp: _mamba_block(bp, x, cfg)[0])
+            body = block(lambda x, bp: _mamba_block(bp, x, cfg, group)[0])
             for g0, g1, has_attn in _hybrid_groups(cfg):
                 for bp in self.blocks[g0:g1]:
                     x = body(x, bp)
                 if has_attn:
                     x = self._shared_block(x, positions)[0]
         else:
-            acfg, group = self.attn_cfg, self.group
+            acfg = self.attn_cfg
 
             def dense(x, bp):
                 h = layers.rms_norm(bp["ln1"], x, cfg.norm_eps)
@@ -544,31 +573,33 @@ class Model(nn.Module):
         return ce + aux, {"ce": ce, "router_aux": aux}
 
     def _whisper_block(self, bp, x, positions, enc_out):
-        """A whisper decoder block over a whole sequence; also returns its
+        """A whisper decoder block over a whole sequence (``enc_out`` the
+        encoder's output, copied to the group); also returns its
         self-attention's K and V and its cross K and V, [B,S,KV,Dh] and
-        [B,Se,KV,Dh]."""
-        cfg = self.cfg
+        [B,Se,KV,Dh] (the rank's K/V heads)."""
+        cfg, acfg, group = self.cfg, self.attn_cfg, self.group
         h = layers.layer_norm(bp["ln1"], x, cfg.norm_eps)
-        out, k, v = attn.gqa_forward(bp["attn"], h, positions, cfg,
-                                     use_rope=False, causal=True,
-                                     return_kv=True)
+        out, k, v = _attn(bp, h, positions, acfg, return_kv=True,
+                          group=group, use_rope=False, causal=True)
         x = x + out
         h = layers.layer_norm(bp["ln_x"], x, cfg.norm_eps)
-        xk, xv = attn.cross_kv(bp["xattn"], enc_out, cfg)
-        x = x + attn.cross_attend(bp["xattn"], h, xk, xv, cfg)
+        xk, xv = attn.cross_kv(bp["xattn"], enc_out, acfg)
+        x = x + reduce_from_group(attn.cross_attend(
+            bp["xattn"], copy_to_group(h, group), xk, xv, acfg), group)
         h = layers.layer_norm(bp["ln2"], x, cfg.norm_eps)
-        return x + layers.gelu_mlp(bp["mlp"], h), (k, v, xk, xv)
+        return x + layers.gelu_mlp(bp["mlp"], h, group), (k, v, xk, xv)
 
     def _shared_block(self, x, positions):
         """The hybrid family's shared attention + SwiGLU block; also returns
-        the roped K and the V its attention made, [B,S,KV,Dh] each."""
-        cfg, sh = self.cfg, self.shared_attn
+        the roped K and the V its attention made, [B,S,KV,Dh] each (the
+        rank's K/V heads)."""
+        cfg, sh, group = self.cfg, self.shared_attn, self.group
         h = layers.rms_norm(sh["ln"], x, cfg.norm_eps)
-        out, k, v = attn.gqa_forward(sh["attn"], h, positions, cfg,
-                                     return_kv=True)
+        out, k, v = _attn(sh, h, positions, self.attn_cfg, return_kv=True,
+                          group=group)
         x = x + out
         h = layers.rms_norm(sh["ln2"], x, cfg.norm_eps)
-        return x + layers.swiglu(sh["mlp"], h), k, v
+        return x + _ffn(sh, h, cfg, group)[0], k, v
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = copy_to_group(x, self.group)
@@ -587,20 +618,22 @@ class Model(nn.Module):
 
     def init_cache(self, batch_size: int, cache_len: int) -> dict:
         cfg, dt, dev = self.cfg, _dtype(self.cfg), self.device
-        L = cfg.num_layers
+        L, acfg = cfg.num_layers, self.attn_cfg
         if cfg.family == "ssm":
-            return rwkv.rwkv6_init_cache(cfg, batch_size, L, dt, dev)
+            return rwkv.rwkv6_init_cache(cfg, batch_size, L, dt, dev,
+                                         self.group)
         if cfg.family == "hybrid":
-            c = ssm.mamba2_init_cache(cfg, batch_size, L, dt, dev)
-            kvc = attn.gqa_init_cache(cfg, batch_size, cache_len,
+            c = ssm.mamba2_init_cache(cfg, batch_size, L, dt, dev,
+                                      self.group)
+            kvc = attn.gqa_init_cache(acfg, batch_size, cache_len,
                                       L // cfg.hybrid_attn_every, dt, dev)
             c["attn_k"], c["attn_v"], c["pos"] = kvc["k"], kvc["v"], kvc["pos"]
             return c
         init = (attn.mla_init_cache if cfg.attention == "mla"
                 else attn.gqa_init_cache)
-        c = init(self.attn_cfg, batch_size, cache_len, L, dt, dev)
+        c = init(acfg, batch_size, cache_len, L, dt, dev)
         if cfg.family == "audio":
-            shape = (L, batch_size, cfg.encoder_seq_len, cfg.num_kv_heads,
+            shape = (L, batch_size, cfg.encoder_seq_len, acfg.num_kv_heads,
                      cfg.resolved_head_dim)
             # f32: the promoted encoder's K/V, as the reference's prefill
             # stores them
@@ -648,20 +681,21 @@ class Model(nn.Module):
 
     def _decode_whisper(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
         """Decoder steps: self-attention (no rope) through K8 over the
-        ring, cross-attention against the prefill's K/V."""
-        cfg = self.cfg
+        ring, cross-attention against the prefill's K/V (the rank's heads,
+        each summed over the group)."""
+        cfg, acfg, group = self.cfg, self.attn_cfg, self.group
         pos = cache["pos"]
         slot, nvalid = attn.gqa_decode_slots(pos, cache["k"].shape[2])
         for i, bp in enumerate(self.blocks):
             h = layers.layer_norm(bp["ln1"], x, cfg.norm_eps)
-            x = x + attn.gqa_decode(bp["attn"], h, cache["k"][i],
-                                    cache["v"][i], pos, slot, nvalid, cfg,
-                                    use_rope=False)
+            x = x + reduce_from_group(attn.gqa_decode(
+                bp["attn"], h, cache["k"][i], cache["v"][i], pos, slot,
+                nvalid, acfg, use_rope=False), group)
             h = layers.layer_norm(bp["ln_x"], x, cfg.norm_eps)
-            x = x + attn.cross_attend(bp["xattn"], h, cache["xk"][i],
-                                      cache["xv"][i], cfg)
+            x = x + reduce_from_group(attn.cross_attend(
+                bp["xattn"], h, cache["xk"][i], cache["xv"][i], acfg), group)
             h = layers.layer_norm(bp["ln2"], x, cfg.norm_eps)
-            x = x + layers.gelu_mlp(bp["mlp"], h)
+            x = x + layers.gelu_mlp(bp["mlp"], h, group)
         return x
 
     def _decode_rwkv(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
@@ -669,7 +703,7 @@ class Model(nn.Module):
         for i, bp in enumerate(self.blocks):
             x, state = _rwkv_block(
                 bp, x, cfg, state=cache["wkv"][i], att_x=cache["att_x"][i],
-                ffn_x=cache["ffn_x"][i])
+                ffn_x=cache["ffn_x"][i], group=self.group)
             _store_rwkv(cache, i, state)
         return x
 
@@ -677,7 +711,7 @@ class Model(nn.Module):
         """Mamba2 steps with their h and conv window advanced in place; the
         shared block's a-th application writes KV slot a at the step's ring
         slot, its attention through K8."""
-        cfg, sh = self.cfg, self.shared_attn
+        cfg, sh, group = self.cfg, self.shared_attn, self.group
         pos = cache["pos"]
         slot, nvalid = attn.gqa_decode_slots(pos, cache["attn_k"].shape[2])
         a = 0
@@ -686,14 +720,14 @@ class Model(nn.Module):
                 bp = self.blocks[i]
                 h = layers.rms_norm(bp["ln"], x, cfg.norm_eps)
                 x = x + ssm.mamba2_decode(bp["ssm"], h, cache["h"][i],
-                                          cache["conv"][i], cfg)
+                                          cache["conv"][i], cfg, group)
             if has_attn:
                 h = layers.rms_norm(sh["ln"], x, cfg.norm_eps)
-                x = x + attn.gqa_decode(sh["attn"], h, cache["attn_k"][a],
-                                        cache["attn_v"][a], pos, slot,
-                                        nvalid, cfg)
+                x = x + reduce_from_group(attn.gqa_decode(
+                    sh["attn"], h, cache["attn_k"][a], cache["attn_v"][a],
+                    pos, slot, nvalid, self.attn_cfg), group)
                 h = layers.rms_norm(sh["ln2"], x, cfg.norm_eps)
-                x = x + layers.swiglu(sh["mlp"], h)
+                x = x + _ffn(sh, h, cfg, group)[0]
                 a += 1
         return x
 
@@ -775,7 +809,7 @@ class Model(nn.Module):
         return x, cache
 
     def _prefill_whisper(self, x, positions, cache, frames):
-        enc_out = self._encode(frames)
+        enc_out = copy_to_group(self._encode(frames), self.group)
         for i, bp in enumerate(self.blocks):
             x, (k, v, xk, xv) = self._whisper_block(bp, x, positions,
                                                     enc_out)
@@ -787,7 +821,7 @@ class Model(nn.Module):
 
     def _prefill_rwkv(self, x, cache):
         for i, bp in enumerate(self.blocks):
-            x, state = _rwkv_block(bp, x, self.cfg)
+            x, state = _rwkv_block(bp, x, self.cfg, group=self.group)
             _store_rwkv(cache, i, state)
         return x
 
@@ -795,7 +829,8 @@ class Model(nn.Module):
         a = 0
         for g0, g1, has_attn in _hybrid_groups(self.cfg):
             for i in range(g0, g1):
-                x, st = _mamba_block(self.blocks[i], x, self.cfg)
+                x, st = _mamba_block(self.blocks[i], x, self.cfg,
+                                     self.group)
                 cache["h"][i].copy_(st["h"])
                 cache["conv"][i].copy_(st["conv"])
             if has_attn:

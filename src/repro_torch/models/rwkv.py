@@ -10,6 +10,18 @@ a decode step is one turn of it (O(1) state).  The reference has no
 kernel for it, so the port has none either.  ``w0`` and ``u`` are f32
 whatever the param dtype is, as there; the reference's ``gate_lora`` is
 never used there (``w_g`` is [d, d]), nor here.
+
+Under tensor parallelism (a model ``group`` of M ranks) a rank runs its
+H / M heads: its columns of ``w_r``, ``w_k``, ``w_v``, ``w_g`` and of the
+channel mix's ``w_k``, its rows of both ``w_o`` and ``w_v``, and its
+channels of ``u`` and ``ln_scale``.  The token-shift mixes, the decay's
+LoRA and the channel mix's ``w_r`` gate read the replicated input whole,
+before the group copy; the decay is copied whole and the rank takes its
+channels.  The two out products sum their partials in f32
+(``parallel.row_parallel``): the recurrence carries each rounding of the
+residual stream into its state at every token, and bf16 partials put a
+split rwkv6-3b's logits past the bound the other families meet.  The state holds the rank's heads; the token-shift carries
+stay whole.
 """
 from __future__ import annotations
 
@@ -17,15 +29,25 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RWKVConfig
-from repro_torch.models.layers import _normal, he_init
+from repro_torch.models.layers import _normal, he_init, whole
+from repro_torch.models.parallel import (copy_all_to_group, copy_to_group,
+                                         group_size, row_parallel)
 
 
-def rwkv_dims(cfg: ModelConfig):
+def rwkv_dims(cfg: ModelConfig, group=None):
+    """(heads, head size) of the layer, or of the rank over ``group``."""
     r: RWKVConfig = cfg.rwkv
-    return cfg.d_model // r.head_size, r.head_size
+    return cfg.d_model // r.head_size // group_size(group), r.head_size
 
 
-def rwkv6_att_init(gen, cfg: ModelConfig, dtype) -> dict:
+def _channels(cfg: ModelConfig, group) -> slice:
+    """The rank's channels of the layer's d_model (its heads')."""
+    H, hs = rwkv_dims(cfg, group)
+    m = 0 if group is None else group.index
+    return slice(m * H * hs, (m + 1) * H * hs)
+
+
+def rwkv6_att_init(gen, cfg: ModelConfig, dtype, keep=whole) -> dict:
     r: RWKVConfig = cfg.rwkv
     d = cfg.d_model
     dev = gen.device
@@ -40,23 +62,20 @@ def rwkv6_att_init(gen, cfg: ModelConfig, dtype) -> dict:
         "decay_w1": he_init(gen, (d, r.decay_lora), dtype),
         "decay_w2": (_normal(gen, (r.decay_lora, d)) * 0.01).to(dtype),
         "u": (_normal(gen, (d,)) * 0.1).to(torch.float32),
-        "w_r": he_init(gen, (d, d), dtype),
-        "w_k": he_init(gen, (d, d), dtype),
-        "w_v": he_init(gen, (d, d), dtype),
-        "w_g": he_init(gen, (d, d), dtype),
-        "w_o": he_init(gen, (d, d), dtype),
+        **{w: keep(w, he_init(gen, (d, d), dtype))
+           for w in ("w_r", "w_k", "w_v", "w_g", "w_o")},
         "ln_scale": torch.ones((d,), dtype=dtype, device=dev),  # per-head norm
     }
 
 
-def rwkv6_ffn_init(gen, cfg: ModelConfig, dtype) -> dict:
+def rwkv6_ffn_init(gen, cfg: ModelConfig, dtype, keep=whole) -> dict:
     d, dff = cfg.d_model, cfg.d_ff
     dev = gen.device
     return {
         "mu_k": torch.full((d,), 0.5, dtype=dtype, device=dev),
         "mu_r": torch.full((d,), 0.5, dtype=dtype, device=dev),
-        "w_k": he_init(gen, (d, dff), dtype),
-        "w_v": he_init(gen, (dff, d), dtype, fan_in=dff),
+        "w_k": keep("w_k", he_init(gen, (d, dff), dtype)),
+        "w_v": keep("w_v", he_init(gen, (dff, d), dtype, fan_in=dff)),
         "w_r": he_init(gen, (d, d), dtype),
     }
 
@@ -78,10 +97,15 @@ def _mix_inputs(params, x: torch.Tensor, sx: torch.Tensor) -> list:
     return [x + dx * (params["mu"][f] + deltas[f]) for f in range(5)]
 
 
-def _decay(params, xw: torch.Tensor) -> torch.Tensor:
+def _decay_exponent(params, xw: torch.Tensor) -> torch.Tensor:
+    """w0 + the decay LoRA of ``xw``, f32 (w0 is f32, the LoRA cast)."""
     lo = torch.tanh(xw @ params["decay_w1"]) @ params["decay_w2"]
-    # f32 from here: w0 is f32, lo is cast
-    return torch.exp(-torch.exp(params["w0"] + lo.to(torch.float32)))
+    return params["w0"] + lo.to(torch.float32)
+
+
+def _decay(params, xw: torch.Tensor) -> torch.Tensor:
+    """The data-dependent decay w = exp(-exp(w0 + LoRA(xw))), f32."""
+    return torch.exp(-torch.exp(_decay_exponent(params, xw)))
 
 
 def _group_norm(y: torch.Tensor, scale: torch.Tensor, H: int,
@@ -98,16 +122,21 @@ def _group_norm(y: torch.Tensor, scale: torch.Tensor, H: int,
 
 def rwkv6_att_forward(params, x: torch.Tensor, cfg: ModelConfig,
                       state: torch.Tensor | None = None,
-                      prev_x: torch.Tensor | None = None):
+                      prev_x: torch.Tensor | None = None, group=None):
     """Time mixing.  x: [B,S,D].  Returns (out, (state, last_x)); ``state``
-    [B,H,hs,hs] f32 is a new tensor, the one passed in is not written."""
-    H, hs = rwkv_dims(cfg)
+    [B,H,hs,hs] f32 is a new tensor, the one passed in is not written.
+    Over a model ``group`` (x replicated) the rank's heads, their out
+    summed over it."""
+    H, hs = rwkv_dims(cfg, group)
+    ch = _channels(cfg, group)
     B_, S, d = x.shape
     f32 = torch.float32
     if prev_x is None:
         prev_x = torch.zeros((B_, d), dtype=x.dtype, device=x.device)
     sx = _token_shift(x, prev_x)
     xw, xk, xv, xr, xg = _mix_inputs(params, x, sx)
+    decay = copy_to_group(_decay_exponent(params, xw), group)[..., ch]
+    xk, xv, xr, xg = copy_all_to_group([xk, xv, xr, xg], group)
 
     # time-major [S,B,H,hs] so a step reads one contiguous slice
     def heads(t):
@@ -117,8 +146,8 @@ def rwkv6_att_forward(params, x: torch.Tensor, cfg: ModelConfig,
     k = heads(xk @ params["w_k"])
     v = heads(xv @ params["w_v"])
     g = F.silu(xg @ params["w_g"])
-    w = heads(_decay(params, xw))
-    u = params["u"].reshape(H, hs)[None, :, :, None]               # [1,H,hs,1]
+    w = heads(torch.exp(-torch.exp(decay)))
+    u = params["u"][ch].reshape(H, hs)[None, :, :, None]           # [1,H,hs,1]
 
     if state is None:
         state = torch.zeros((B_, H, hs, hs), dtype=f32, device=x.device)
@@ -132,14 +161,16 @@ def rwkv6_att_forward(params, x: torch.Tensor, cfg: ModelConfig,
         ys.append(torch.matmul(r[t], torch.addcmul(state, u, kv)))  # [B,H,1,hs]
         state = torch.addcmul(kv, w[t], state)
     y = torch.stack(ys, dim=1).reshape(B_, S, H, hs)
-    y = _group_norm(y, params["ln_scale"], H).to(x.dtype)
-    out = (y * g) @ params["w_o"]
+    y = _group_norm(y, params["ln_scale"][ch], H).to(x.dtype)
+    out = row_parallel(y * g, params["w_o"], group)
     return out, (state, x[:, -1, :])
 
 
 def rwkv6_ffn_forward(params, x: torch.Tensor,
-                      prev_x: torch.Tensor | None = None):
-    """Channel mixing.  x: [B,S,D].  Returns (out, last_x)."""
+                      prev_x: torch.Tensor | None = None, group=None):
+    """Channel mixing.  x: [B,S,D].  Returns (out, last_x); over a model
+    ``group`` (x replicated) the rank's ff block, summed before the
+    gate."""
     B_, S, d = x.shape
     if prev_x is None:
         prev_x = torch.zeros((B_, d), dtype=x.dtype, device=x.device)
@@ -147,14 +178,16 @@ def rwkv6_ffn_forward(params, x: torch.Tensor,
     dx = sx - x
     xk = x + dx * params["mu_k"]
     xr = x + dx * params["mu_r"]
-    k = torch.square(F.relu(xk @ params["w_k"]))
-    return (torch.sigmoid(xr @ params["w_r"]) * (k @ params["w_v"]),
-            x[:, -1, :])
+    k = torch.square(F.relu(copy_to_group(xk, group) @ params["w_k"]))
+    return (torch.sigmoid(xr @ params["w_r"])
+            * row_parallel(k, params["w_v"], group), x[:, -1, :])
 
 
 def rwkv6_init_cache(cfg: ModelConfig, batch: int, n_layers: int, dtype,
-                     device=None) -> dict:
-    H, hs = rwkv_dims(cfg)
+                     device=None, group=None) -> dict:
+    """The decode state: the rank's heads of ``wkv`` over a model
+    ``group``, the token-shift carries whole."""
+    H, hs = rwkv_dims(cfg, group)
     d = cfg.d_model
     return {
         "wkv": torch.zeros((n_layers, batch, H, hs, hs), dtype=torch.float32,

@@ -21,14 +21,32 @@ would turn inf into NaN).  Without grad (prefill) that [Q, Q] block is
 transformed in place; with grad enabled each step makes a new tensor, as
 ``exp`` keeps its output for the backward.  The decode step updates its
 ``h`` and conv window in place and reads nothing back to the host.
+
+Under tensor parallelism (a model ``group`` of M ranks) a rank runs its
+H / M heads: its blocks of ``w_in`` (z and x of its heads, N / M state
+columns of each group's B and C, its heads' dt;
+:func:`repro_torch.launch.sharding.mamba_ranges`) and of ``w_out``, and
+its channels of the whole per-channel leaves (``conv_w``, ``conv_b``,
+``dt_bias``, ``A_log``, ``D``, ``norm_scale``).  B and C serve every
+head, so each rank convolves its state columns and the group gathers
+them (``parallel.gather_shared``); the gated norm's mean over the whole
+inner width sums the ranks' squares (``parallel.sum_shared``); the
+``w_out`` product's partials are summed over the group.  The cache holds
+the rank's heads of ``h`` and its conv channels.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from typing import NamedTuple
+
 from repro_torch.configs.base import ModelConfig, SSMConfig
-from repro_torch.models.layers import _normal, he_init
+from repro_torch.launch.sharding import mamba_ranges, take
+from repro_torch.models.layers import _normal, he_init, whole
+from repro_torch.models.parallel import (copy_to_group, gather_shared,
+                                         group_size, reduce_from_group,
+                                         sum_shared)
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -38,29 +56,77 @@ def ssm_dims(cfg: ModelConfig):
     return d_inner, nheads, s.state_dim, s.ngroups
 
 
-def mamba2_init(gen, cfg: ModelConfig, dtype) -> dict:
+class RankDims(NamedTuple):
+    """What one rank of a model group runs of a Mamba2 layer."""
+    d_inner: int        # its inner channels (its heads' x and z)
+    H: int              # its heads
+    n: int              # its state columns of each group's B and C
+    G: int              # the groups its heads read
+    g0: int             # the first of them
+    heads: slice        # its heads of the layer's
+    inner: slice        # its channels of the layer's d_inner
+    conv: list          # its conv channels, (start, stop) ranges
+
+
+def rank_dims(cfg: ModelConfig, group=None) -> RankDims:
+    """The rank's dims at ``group`` (the whole layer's without one).
+    A rank's heads read G / M groups where M divides G, else the one
+    group they lie in."""
+    d_inner, H, N, G = ssm_dims(cfg)
+    M = group_size(group)
+    if M == 1:
+        return RankDims(d_inner, H, N, G, 0, slice(0, H),
+                        slice(0, d_inner), [(0, d_inner + 2 * G * N)])
+    m = group.index
+    conv = mamba_ranges(cfg, M, m)["conv"]
+    hl, rep = H // M, H // G
+    if hl % rep and rep % hl:
+        raise ValueError(f"ssm: {hl} heads a rank straddle groups of {rep}")
+    gl = max(hl // rep, 1)
+    dl = d_inner // M
+    return RankDims(dl, hl, N // M, gl, m * hl // rep,
+                    slice(m * hl, (m + 1) * hl),
+                    slice(m * dl, (m + 1) * dl), conv)
+
+
+def mamba2_init(gen, cfg: ModelConfig, dtype, keep=whole) -> dict:
     """The reference's shapes and distributions; ``A_log`` is f32 whatever
-    ``dtype`` is, as there."""
+    ``dtype`` is, as there.  ``keep`` receives the split leaves (``w_in``,
+    ``w_out``) as they are drawn."""
     s: SSMConfig = cfg.ssm
     d = cfg.d_model
     d_inner, H, N, G = ssm_dims(cfg)
     conv_ch = d_inner + 2 * G * N
     dev = gen.device
     return {
-        "w_in": he_init(gen, (d, 2 * d_inner + 2 * G * N + H), dtype),
+        "w_in": keep("w_in", he_init(gen, (d, 2 * d_inner + 2 * G * N + H),
+                                     dtype)),
         "conv_w": (_normal(gen, (s.conv_dim, conv_ch)) * 0.1).to(dtype),
         "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=dev),
         "dt_bias": torch.zeros((H,), dtype=dtype, device=dev),
         "A_log": torch.zeros((H,), dtype=torch.float32, device=dev),
         "D": torch.ones((H,), dtype=dtype, device=dev),
         "norm_scale": torch.ones((d_inner,), dtype=dtype, device=dev),
-        "w_out": he_init(gen, (d_inner, d), dtype, fan_in=d_inner),
+        "w_out": keep("w_out", he_init(gen, (d_inner, d), dtype,
+                                       fan_in=d_inner)),
     }
 
 
-def _split_proj(proj: torch.Tensor, cfg: ModelConfig):
-    d_inner, H, N, G = ssm_dims(cfg)
-    return torch.split(proj, [d_inner, d_inner, G * N, G * N, H], dim=-1)
+def _in_proj(params, x: torch.Tensor, rk: RankDims, G: int, group):
+    """The rank's z, x, B, C and dt of the replicated ``x`` (B and C its
+    state columns of all G groups)."""
+    proj = copy_to_group(x, group) @ params["w_in"]
+    return torch.split(proj, [rk.d_inner, rk.d_inner, G * rk.n, G * rk.n,
+                              rk.H], dim=-1)
+
+
+def _gather_bc(conv_out: torch.Tensor, rk: RankDims, G: int, group):
+    """B and C of the rank's groups, [..., G_rank, N] each, from its conv
+    output's state columns (gathered over the group)."""
+    bc = conv_out[..., rk.d_inner:]
+    bc = gather_shared(bc.reshape(*bc.shape[:-1], 2, G, rk.n), group)
+    bc = bc[..., rk.g0:rk.g0 + rk.G, :]
+    return bc[..., 0, :, :], bc[..., 1, :, :]
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -76,10 +142,17 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                eps: float = 1e-5) -> torch.Tensor:
+                eps: float = 1e-5, group=None) -> torch.Tensor:
+    """The gated RMS norm over the whole inner width: over ``group``, the
+    ranks' sums of squares summed before the mean."""
     y = y * F.silu(z)
     yf = y.to(torch.float32)
-    yf = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + eps)
+    if group is None:
+        ms = torch.mean(yf * yf, dim=-1, keepdim=True)
+    else:
+        ms = sum_shared(torch.sum(yf * yf, dim=-1, keepdim=True),
+                        group) / (yf.shape[-1] * group.size)
+    yf = yf * torch.rsqrt(ms + eps)
     return (yf * scale.to(torch.float32)).to(y.dtype)
 
 
@@ -97,13 +170,17 @@ def _chunk_len(S: int, chunk: int) -> int:
 
 
 def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig,
-                   h_init: torch.Tensor | None = None):
-    """Chunked SSD.  x: [B,S,D] -> ([B,S,D], state {h, conv}).
+                   h_init: torch.Tensor | None = None, group=None):
+    """Chunked SSD.  x: [B,S,D] -> ([B,S,D], state {h, conv}); over a
+    model ``group``, the rank's heads summed over it (x replicated).
 
     The returned state seeds :func:`mamba2_decode` after a prefill: ``h``
-    [B,H,P,N] f32 and ``conv`` [B,K-1,C], the last K-1 conv inputs."""
+    [B,H,P,N] f32 and ``conv`` [B,K-1,C], the last K-1 conv inputs (the
+    rank's heads and channels)."""
     s: SSMConfig = cfg.ssm
-    d_inner, H, N, G = ssm_dims(cfg)
+    N, Gw = s.state_dim, s.ngroups
+    rk = rank_dims(cfg, group)
+    d_inner, H, G = rk.d_inner, rk.H, rk.G
     P = s.headdim
     rep = H // G
     B_, S, _ = x.shape
@@ -111,21 +188,20 @@ def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig,
     nc = S // Q
     f32 = torch.float32
 
-    z, xc, Bm, Cm, dt = _split_proj(x @ params["w_in"], cfg)
+    z, xc, Bm, Cm, dt = _in_proj(params, x, rk, Gw, group)
     conv_in = torch.cat([xc, Bm, Cm], dim=-1)
     K = s.conv_dim
     if S < K - 1:
         conv_tail = F.pad(conv_in, (0, 0, K - 1, 0))[:, S:, :]
     else:
         conv_tail = conv_in[:, S - (K - 1):, :]
-    conv_out = F.silu(_causal_conv(conv_in, params["conv_w"],
-                                   params["conv_b"]))
+    conv_out = F.silu(_causal_conv(conv_in, take(params["conv_w"], rk.conv),
+                                   take(params["conv_b"], rk.conv)))
     xc = conv_out[..., :d_inner].reshape(B_, S, H, P)
-    Bm = conv_out[..., d_inner:d_inner + G * N].reshape(B_, S, G, N)
-    Cm = conv_out[..., d_inner + G * N:].reshape(B_, S, G, N)
+    Bm, Cm = _gather_bc(conv_out, rk, Gw, group)                   # [B,S,G,N]
 
-    dt = _softplus(dt.to(f32) + params["dt_bias"].to(f32))        # [B,S,H]
-    A = -torch.exp(params["A_log"])                                # [H]
+    dt = _softplus(dt.to(f32) + params["dt_bias"][rk.heads].to(f32))
+    A = -torch.exp(params["A_log"][rk.heads])                      # [H]
     loga = dt * A                                                  # log decay
 
     # into chunks; heads as [G, rep] so a group's B and C serve its heads
@@ -180,19 +256,22 @@ def mamba2_forward(params, x: torch.Tensor, cfg: ModelConfig,
     Y_inter = Y_inter.reshape(B_, nc, Q, H, P) * torch.exp(L)[..., None]
 
     Y = (Y_intra + Y_inter).reshape(B_, S, H, P)
-    Y = Y + params["D"].to(f32)[None, None, :, None] * xc.to(f32)
+    Y = Y + params["D"][rk.heads].to(f32)[None, None, :, None] * xc.to(f32)
     Y = Y.to(x.dtype).reshape(B_, S, d_inner)
-    out = _gated_norm(Y, z, params["norm_scale"])
-    return out @ params["w_out"], {"h": h, "conv": conv_tail}
+    out = _gated_norm(Y, z, params["norm_scale"][rk.inner], group=group)
+    return (reduce_from_group(out @ params["w_out"], group),
+            {"h": h, "conv": conv_tail})
 
 
 def mamba2_init_cache(cfg: ModelConfig, batch: int, n_layers: int, dtype,
-                      device=None) -> dict:
+                      device=None, group=None) -> dict:
+    """The decode state of ``n_layers`` layers: ``h`` and the conv window
+    of the rank's heads and channels over a model ``group``."""
     s: SSMConfig = cfg.ssm
-    d_inner, H, N, G = ssm_dims(cfg)
-    conv_ch = d_inner + 2 * G * N
+    rk = rank_dims(cfg, group)
+    conv_ch = rk.d_inner + 2 * s.ngroups * rk.n
     return {
-        "h": torch.zeros((n_layers, batch, H, s.headdim, N),
+        "h": torch.zeros((n_layers, batch, rk.H, s.headdim, s.state_dim),
                          dtype=torch.float32, device=device),
         "conv": torch.zeros((n_layers, batch, s.conv_dim - 1, conv_ch),
                             dtype=dtype, device=device),
@@ -200,37 +279,43 @@ def mamba2_init_cache(cfg: ModelConfig, batch: int, n_layers: int, dtype,
 
 
 def mamba2_decode(params, x: torch.Tensor, h_state: torch.Tensor,
-                  conv_state: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+                  conv_state: torch.Tensor, cfg: ModelConfig,
+                  group=None) -> torch.Tensor:
     """Single-token step.  x: [B,1,D]; h_state [B,H,P,N] f32 and
     conv_state [B,K-1,C] are advanced in place (the reference returns new
-    ones).  Returns out [B,1,D]."""
+    ones).  Returns out [B,1,D] (over a model ``group``, the rank's heads
+    summed over it)."""
     s: SSMConfig = cfg.ssm
-    d_inner, H, N, G = ssm_dims(cfg)
+    N, Gw = s.state_dim, s.ngroups
+    rk = rank_dims(cfg, group)
+    d_inner, H, G = rk.d_inner, rk.H, rk.G
     P = s.headdim
     rep = H // G
     B_ = x.shape[0]
     f32 = torch.float32
 
-    z, xc, Bm, Cm, dt = _split_proj(x @ params["w_in"], cfg)
+    z, xc, Bm, Cm, dt = _in_proj(params, x, rk, Gw, group)
     conv_in = torch.cat([xc, Bm, Cm], dim=-1)                      # [B,1,C]
     window = torch.cat([conv_state, conv_in], dim=1)               # [B,K,C]
-    conv_out = F.silu(torch.sum(window * params["conv_w"][None], dim=1)
-                      + params["conv_b"])
+    conv_out = F.silu(torch.sum(window * take(params["conv_w"],
+                                              rk.conv)[None], dim=1)
+                      + take(params["conv_b"], rk.conv))
     conv_state.copy_(window[:, 1:, :])
 
     xc = conv_out[..., :d_inner].reshape(B_, G, rep, P)
-    Bm = conv_out[..., d_inner:d_inner + G * N].reshape(B_, G, 1, 1, N)
-    Cm = conv_out[..., d_inner + G * N:].reshape(B_, G, N)
+    Bm, Cm = _gather_bc(conv_out, rk, Gw, group)                   # [B,G,N]
+    Bm = Bm.reshape(B_, G, 1, 1, N)
 
-    dtv = _softplus(dt[:, 0].to(f32) + params["dt_bias"].to(f32))  # [B,H]
-    decay = torch.exp(dtv * -torch.exp(params["A_log"]))           # [B,H]
+    dtv = _softplus(dt[:, 0].to(f32) + params["dt_bias"][rk.heads].to(f32))
+    decay = torch.exp(dtv * -torch.exp(params["A_log"][rk.heads]))  # [B,H]
 
     upd = (dtv.reshape(B_, G, rep, 1, 1) * xc.to(f32)[..., None]
            * Bm.to(f32))                                           # [B,G,rep,P,N]
     h_state.mul_(decay[:, :, None, None]).add_(upd.reshape(B_, H, P, N))
     y = torch.einsum("bgn,bgrpn->bgrp", Cm.to(f32),
                      h_state.reshape(B_, G, rep, P, N)).reshape(B_, H, P)
-    y = y + params["D"].to(f32)[None, :, None] * xc.reshape(B_, H, P).to(f32)
+    y = y + params["D"][rk.heads].to(f32)[None, :, None] \
+        * xc.reshape(B_, H, P).to(f32)
     y = y.to(x.dtype).reshape(B_, 1, d_inner)
-    out = _gated_norm(y, z, params["norm_scale"])
-    return out @ params["w_out"]
+    out = _gated_norm(y, z, params["norm_scale"][rk.inner], group=group)
+    return reduce_from_group(out @ params["w_out"], group)

@@ -108,17 +108,6 @@ def test_private_serving_runs(arch, capsys):
     assert "OK" in capsys.readouterr().out
 
 
-def test_serve_mesh_refuses_a_model_axis(monkeypatch):
-    """Serving splits the dense, vlm and moe families over a model group;
-    the ssm family split over one (a rank of a model group of 2 here)
-    raises, naming its ROADMAP item."""
-    monkeypatch.setattr(serve.ModelGroup, "of",
-                        staticmethod(lambda mesh: serve.ModelGroup(2, 0)))
-    with pytest.raises(NotImplementedError, match="20d"):
-        serve.main(["--arch", "rwkv6-3b", "--reduced", "--device", "cpu",
-                    "--mesh", "1x2"])
-
-
 def test_serve_steps_read_a_param_tree():
     """``make_prefill_step`` / ``make_decode_step`` run a model on the
     tree they are given (another model's weights here), as the
@@ -176,8 +165,7 @@ def test_remat_gradients_are_bitwise_off(arch):
 def test_train_step_guards(monkeypatch):
     """The reference's refusals (``tests/test_resilience.py:373``) and the
     port's own: a model split over another group than the rank's model
-    group of the mesh, the ssm family split over a model axis (ROADMAP
-    item 20d), a world that does not fit the mesh."""
+    group of the mesh, a world that does not fit the mesh."""
     cfg, model = _smollm()
     mesh = make_test_mesh((1, 1), device="cpu")
     with pytest.raises(ValueError, match="straggler"):
@@ -202,10 +190,6 @@ def test_train_step_guards(monkeypatch):
                         staticmethod(lambda mesh: ModelGroup(2, 0)))
     with pytest.raises(ValueError, match="model group"):
         steps.make_train_step(model, GFLConfig(),
-                              make_test_mesh((2, 2), device="cpu"))
-    rwkv = Model.init(get_config("rwkv6-3b").reduced(), rng(0, "cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20d"):
-        steps.make_train_step(rwkv, GFLConfig(),
                               make_test_mesh((2, 2), device="cpu"))
     with pytest.raises(ValueError, match="cannot hold"):
         Mesh((3, 1), ("data", "model"), world=2, rank=0).layout()

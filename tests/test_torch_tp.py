@@ -9,7 +9,11 @@ ranks at M = 4), smollm with 3 heads (K/V heads padded with zero heads),
 llava (vlm), mixtral (4 experts: the ff split), deepseek-v2-lite (MLA, a
 dense first layer, 4 experts: the ff split; and with 16 experts:
 expert-parallel), minicpm3 (MLA with query compression; and with 3
-heads: padded).  What they hold:
+heads: padded), zamba2 (Mamba2 and its shared block), rwkv6 (RWKV-6)
+and whisper (the encoder-decoder; and with 3 heads: padded, all of rank
+3's heads zero at M = 4).  Every bias and norm scale is drawn nonzero
+(:func:`nonzero_biases`, numpy, the same values on both sides), so a
+bias added once a rank, or a norm read in part, shows.  What they hold:
 
 - a rank's prefill and teacher-forced decode logits equal the world of
   1's (the same seed's whole model) within atol = rtol = 1e-5: only the
@@ -19,18 +23,22 @@ heads: padded).  What they hold:
   reference's ``Model.prefill`` / ``decode_step`` within atol = rtol =
   1e-4 (as tests/test_torch_models.py holds the whole models);
 - ``serve --mesh 1x4`` / ``2x2`` / ``1x2 --backend gloo`` gives the greedy
-  tokens of ``1x1``;
+  tokens of ``1x1``, for a dense, an MoE, the hybrid, the ssm and the
+  audio family;
 - Megatron's group functions' backward passes (world 2) against the
   whole product's gradients within 1e-5 of their largest.
 
 In this process: ``Model.init(group=)`` keeps bitwise the blocks of the
 whole init (each real head and each block where the whole leaf has it,
-padding heads zero); the vocab-parallel embedding and logits are bitwise
+padding heads zero, Mamba2's packed ``w_in`` a segment at a time); the
+packed ``w_in`` round-trips through ``shard_leaf`` / ``unshard_leaf``;
+the ssm, hybrid and audio families init over a group and take a rank's
+blocks as params; the vocab-parallel embedding and logits are bitwise
 the whole ones; a world of 1 at ``1x4`` is bitwise ``1x1``; the head
 layouts; one train step at ``2x2`` in a world of 1 (the whole model)
-bitwise the ``2x1`` one; and the refusals (the ssm, hybrid and audio
-families split over a model group, an uneven split).  Training split over
-a model group: ``tests/test_torch_tp_train.py``.
+bitwise the ``2x1`` one; and the refusals (a split the vocab, heads,
+state or ff do not allow).  Training split over a model group:
+``tests/test_torch_tp_train.py``.
 """
 import dataclasses
 import os
@@ -51,8 +59,9 @@ from repro_torch.configs.registry import get_config
 from repro_torch.convert import model_params_from_numpy
 from repro_torch.launch import serve, sharding
 from repro_torch.launch.mesh import Mesh, init_world, make_test_mesh
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import abstract_model, make_train_step
 from repro_torch.models import layers
+from repro_torch.models.flat import FlatView
 from repro_torch.models.model import Model
 from repro_torch.models.parallel import (ModelGroup, copy_to_group,
                                          gather_from_group,
@@ -77,9 +86,18 @@ CASES = {
     "minicpm3": ("minicpm3-4b", {}, {}, 24),
     "minicpm3-3heads": ("minicpm3-4b", {"num_heads": 3, "num_kv_heads": 3},
                         {}, 24),
+    "zamba2": ("zamba2-1.2b", {}, {}, 24),
+    "rwkv6": ("rwkv6-3b", {}, {}, 24),
+    "whisper": ("whisper-tiny", {}, {}, 24),
+    "whisper-3heads": ("whisper-tiny", {"num_heads": 3, "num_kv_heads": 3,
+                                        "head_dim": 64}, {}, 24),
 }
 SPAWNS = {"1x2": 2, "1x4": 4, "2x2": 4}
-SERVE_ARCHS = ("phi3-mini-3.8b", "deepseek-v2-lite-16b")
+SERVE_ARCHS = ("phi3-mini-3.8b", "deepseek-v2-lite-16b", "zamba2-1.2b",
+               "rwkv6-3b", "whisper-tiny")
+# the biases and norm scales every case draws nonzero (a scale about 1)
+BIASES = ("bias", "b_in", "b_out", "conv_b", "dt_bias", "A_log")
+SCALES = ("scale", "D", "ln_scale", "norm_scale", "q_norm", "kv_norm")
 
 
 def _replace(cfg, name):
@@ -95,15 +113,88 @@ def port_config(name):
 
 def case_inputs(name, cfg):
     """Tokens [B, S + N_DEC] (the last N_DEC fed to the decode steps) and
-    a vlm's image embeddings, numpy, from the prompt length's seed."""
+    a vlm's image embeddings or whisper's frames, numpy, from the prompt
+    length's seed."""
     S = CASES[name][3]
     r = np.random.default_rng(S)
     toks = r.integers(0, cfg.vocab_size, (B, S + N_DEC)).astype(np.int32)
-    extra = {}
+    return toks, stub_inputs(cfg, r, (B,))
+
+
+def stub_inputs(cfg, r, lead) -> dict:
+    """A vlm's image embeddings or whisper's frames behind the ``lead``
+    dims, 0.1 N(0, 1) f32 from numpy's generator ``r``."""
     if cfg.family == "vlm":
-        extra["image_embeds"] = (0.1 * r.standard_normal(
-            (B, cfg.num_image_tokens, cfg.d_model))).astype(np.float32)
-    return toks, extra
+        return {"image_embeds": (0.1 * r.standard_normal(
+            lead + (cfg.num_image_tokens, cfg.d_model))).astype(np.float32)}
+    if cfg.family == "audio":
+        return {"frames": (0.1 * r.standard_normal(
+            lead + (cfg.encoder_seq_len, cfg.d_model))).astype(np.float32)}
+    return {}
+
+
+def nonzero_biases(cfg) -> dict:
+    """{reference path: whole value} of every bias and norm scale of
+    ``cfg``'s model (a stack's for all its layers), numpy draws from
+    SEED: 1 + 0.1 N(0, 1) for a scale (and Mamba2's D), 0.1 N(0, 1) for
+    the rest."""
+    r = np.random.default_rng(SEED)
+    out = {}
+    for k, (shape, _) in FlatView(abstract_model(cfg)).tree_shapes().items():
+        name = k.rsplit("/", 1)[-1]
+        if name in BIASES + SCALES:
+            out[k] = (float(name in SCALES) + 0.1 * r.standard_normal(
+                shape)).astype(np.float32)
+    return out
+
+
+def with_biases(model):
+    """``model`` with :func:`nonzero_biases` in place of its biases and
+    norm scales (the rank's blocks of them over its group)."""
+    cfg = model.cfg
+    vals = nonzero_biases(cfg)
+    view = FlatView(model)
+    with torch.no_grad():
+        for lf in view.leaves:
+            k = view.key(lf)
+            if k not in vals:
+                continue
+            for i, pname in enumerate(lf.names):
+                full = torch.from_numpy(vals[k][i] if view.stacked(lf)
+                                        else vals[k])
+                model.get_parameter(pname).copy_(sharding.shard_leaf(
+                    k, full, cfg, model.group))
+    return model
+
+
+def tree_with_biases(tree: dict, cfg) -> dict:
+    """The reference's param tree (numpy leaves, nested dicts) with
+    :func:`nonzero_biases` in place of its biases and norm scales."""
+    for k, v in nonzero_biases(cfg).items():
+        *parts, leaf = k.split("/")
+        node = tree
+        for part in parts:
+            node = node[part]
+        assert node[leaf].shape == v.shape, k
+        node[leaf] = v.astype(node[leaf].dtype)
+    return tree
+
+
+def nested_params(model) -> dict:
+    """A model's parameters as the params tree ``Model(cfg, params)``
+    takes (``blocks`` and ``enc_blocks`` a list of layers)."""
+    out: dict = {}
+    for name, p in model.named_parameters():
+        keys, node = name.split("."), out
+        if keys[0] in ("blocks", "enc_blocks"):
+            stack = out.setdefault(keys[0], [])
+            while len(stack) <= int(keys[1]):
+                stack.append({})
+            node, keys = stack[int(keys[1])], keys[2:]
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = p.data
+    return out
 
 
 def run_model(model, name) -> torch.Tensor:
@@ -158,7 +249,8 @@ def _worker(rank, world, port, out_dir, spec, tree_path):
         out = {"group": (group.size, group.index)}
         for name in CASES:
             cfg = port_config(name)
-            model = Model.init(cfg, rng(SEED, "cpu"), group=group)
+            model = with_biases(Model.init(cfg, rng(SEED, "cpu"),
+                                           group=group))
             out[("init", name)] = run_model(model, name)
             params = model_params_from_numpy(trees[name], cfg, "cpu", group)
             out[("ref", name)] = run_model(Model(cfg, params, group), name)
@@ -238,8 +330,9 @@ def reference(tmp_path_factory):
                            name)
             assert _to_port_config(cfg) == port_config(name), name
             ref = RefModel(cfg)
-            params = ref.init(jax.random.PRNGKey(1))
-            trees[name] = jax.tree.map(np.asarray, params)
+            trees[name] = tree_with_biases(jax.tree.map(
+                np.array, ref.init(jax.random.PRNGKey(1))), port_config(name))
+            params = jax.tree.map(jnp.asarray, trees[name])
             S = CASES[name][3]
             toks, extra = case_inputs(name, cfg)
             batch = {"tokens": jnp.asarray(toks[:, :S]),
@@ -261,8 +354,9 @@ def reference(tmp_path_factory):
 def world1():
     """Per case: the whole model's logits (a world of 1), and the 1x1
     serve tokens."""
-    out = {name: run_model(Model.init(port_config(name), rng(SEED, "cpu")),
-                           name) for name in CASES}
+    out = {name: run_model(with_biases(Model.init(port_config(name),
+                                                  rng(SEED, "cpu"))), name)
+           for name in CASES}
     out.update({("serve", arch): serve.main(serve_args(arch))["tokens"]
                 for arch in SERVE_ARCHS})
     return out
@@ -347,7 +441,8 @@ def _assembled(path, full, cfg, M, blocks):
     dim = sharding.param_spec(path, cfg).index("model")
     hs = sharding._head_set(path, cfg, M)
     if hs is None:
-        assert torch.equal(torch.cat(blocks, dim), full), path
+        assert torch.equal(sharding.unshard_leaf(path, blocks, cfg, M),
+                           full), path
         return
     mine, n = hs
     width = full.shape[dim] // n
@@ -389,9 +484,42 @@ def sharding_path(key: str) -> str:
     """A ``named_parameters`` key (``blocks.3.attn.w_q``) as the
     reference's path (``blocks/attn/w_q``)."""
     parts = key.split(".")
-    if parts[0] == "blocks":
-        parts = ["blocks"] + parts[2:]
+    if parts[0] in ("blocks", "enc_blocks"):
+        parts = parts[:1] + parts[2:]
     return "/".join(parts)
+
+
+@pytest.mark.parametrize("M", [2, 4])
+@pytest.mark.parametrize("groups", [1, 2])
+def test_packed_w_in_round_trips(groups, M):
+    """Mamba2's packed ``w_in`` [d, 2 d_inner + 2 G N + H]: each rank's
+    block holds its heads' z and x, N / M state columns of each group's B
+    and C and its heads' dt, and ``unshard_leaf`` puts the blocks back
+    bitwise, behind a server and a layer dim too."""
+    cfg = port_config("zamba2")
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, ngroups=groups))
+    s = cfg.ssm
+    di, N = s.expand * cfg.d_model, s.state_dim
+    H = di // s.headdim
+    n = 2 * di + 2 * groups * N + H
+    full = torch.randn((3, 2, cfg.d_model, n),
+                       generator=torch.Generator().manual_seed(M))
+    blocks = [sharding.shard_leaf("blocks/ssm/w_in", full, cfg,
+                                  ModelGroup(M, m), lead=2)
+              for m in range(M)]
+    assert all(b.shape[-1] == n // M for b in blocks)
+    assert torch.equal(sharding.unshard_leaf("blocks/ssm/w_in", blocks, cfg,
+                                             M, lead=2), full)
+    cols = torch.arange(n, dtype=torch.float32)[None]
+    m, dl, nl = 1, di // M, N // M
+    got = sharding.shard_leaf("blocks/ssm/w_in", cols, cfg, ModelGroup(M, m))
+    want = (list(range(m * dl, (m + 1) * dl))
+            + list(range(di + m * dl, di + (m + 1) * dl))
+            + [2 * di + c * groups * N + g * N + j for c in range(2)
+               for g in range(groups) for j in range(m * nl, (m + 1) * nl)]
+            + list(range(n - H + m * H // M, n - H + (m + 1) * H // M)))
+    assert got[0].tolist() == want
 
 
 @pytest.mark.parametrize("name", ["smollm", "phi3"])   # tied, untied head
@@ -424,15 +552,24 @@ def test_world1_at_1x4_is_1x1_bitwise():
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-1.2b", "whisper-tiny"])
-def test_unsplit_families_refused_over_a_model_group(arch):
+def test_split_families_init_over_a_model_group(arch):
+    """The ssm, hybrid and audio families init over a model group and
+    take a rank's blocks as params; a group their heads do not split
+    raises, naming the leaf."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20d"):
-        Model.init(cfg, rng(0, "cpu"), group=ModelGroup(2, 0))
-    params = {n: p.data for n, p in Model.init(cfg, rng(0, "cpu"))
-              .named_parameters()}
-    with pytest.raises(NotImplementedError, match="ROADMAP item 20d"):
-        Model(cfg, params, group=ModelGroup(4, 1))
-    Model.init(cfg, rng(0, "cpu"), group=None)          # whole: it runs
+    whole = dict(Model.init(cfg, rng(0, "cpu")).named_parameters())
+    half = Model.init(cfg, rng(0, "cpu"), group=ModelGroup(2, 0))
+    quarter = Model(cfg, nested_params(Model.init(
+        cfg, rng(0, "cpu"), group=ModelGroup(4, 1))), group=ModelGroup(4, 1))
+    for model, M in ((half, 2), (quarter, 4)):
+        assert dict(model.named_parameters()).keys() == whole.keys()
+        for name, p in model.named_parameters():
+            assert p.shape == sharding.local_shape(
+                sharding_path(name), whole[name].shape, cfg, M), name
+        assert sum(p.numel() for p in model.parameters()) < sum(
+            p.numel() for p in whole.values())
+    with pytest.raises(ValueError, match=r"^blocks/\S+: .* 3$"):
+        Model.init(cfg, rng(0, "cpu"), group=ModelGroup(3, 0))
 
 
 def test_train_step_runs_at_2x2_in_a_world_of_1():

@@ -10,7 +10,15 @@ intra-op thread a rank, each spawn joined within its own timeout; one
   the world-1 gradient within 1e-5 of the leaf's largest, the
   vocab-parallel loss within 1e-6 of the world-1 loss.  That covers the
   router and MLA's whole leaves, shared K/V heads (smollm at M = 4),
-  padding heads (the 3-head cases) and the norms.
+  padding heads (the 3-head cases), the norms, Mamba2's gathered B and C
+  and its gated norm's sum, RWKV-6's decay and whisper's cross K/V, with
+  every bias and norm scale nonzero (``test_torch_tp.with_biases``).
+  RWKV-6's case runs with f64 params: its recurrence runs in f32 whatever
+  they are, and with f32 params the whole model's ``u`` gradient is
+  itself about 4e-5 of its largest value from an f64 run's.
+- **Leaves read in part.**  Before the train step's sum, a rank's
+  gradient differs from its block of the whole exactly on the leaves of
+  ``sharding.READ_IN_PART`` (zamba2, rwkv6, whisper at M = 2 and 4).
 - **Train steps.**  ``2x2`` (world 4) against the port's own ``2x1``
   world-1 step, the same seed and draws, three chained steps, every leaf
   unsharded (``sharding.unshard_leaf``) within 1e-5 after each step, the
@@ -22,9 +30,10 @@ intra-op thread a rank, each spawn joined within its own timeout; one
   ranks (1 K/V head), and rotate through the all_reduce form of
   ``Mesh.ppermute`` (bitwise the point-to-point run); then dense through
   K3 under hybrid for each other split family: llava (vlm), mixtral (MoE,
-  the ff split), deepseek-v2-lite (MLA, MoE) and minicpm3 (MLA with a
-  compressed query).  Padding heads stay exactly zero, and leaves the
-  ranks of a server replicate stay bitwise equal.
+  the ff split), deepseek-v2-lite (MLA, MoE), minicpm3 (MLA with a
+  compressed query) and zamba2 (Mamba2 and the shared block).  Padding
+  heads stay exactly zero, and leaves the ranks of a server replicate
+  stay bitwise equal.
 - **ppermute.**  The all_reduce form bitwise the point-to-point form for
   the rotate and sparse permutations of P = 2 and P = 4 (meshes 2x1, 4x1
   and the pod mesh 2x2x1 in world 2, 2x2 in world 4).
@@ -59,7 +68,7 @@ from repro_torch.models.flat import FlatView
 from repro_torch.models.model import Model
 from repro_torch.models.parallel import ModelGroup
 from repro_torch.telemetry import session
-from test_torch_tp import CASES, port_config
+from test_torch_tp import CASES, port_config, stub_inputs, with_biases
 
 pytestmark = pytest.mark.xdist_group("tp_train")
 
@@ -71,6 +80,15 @@ SIGMA, MU = 0.01, 0.1
 BOUND = 1.0          # under the clients' gradient norms: every step clips
 ATOL_GRAD, ATOL_LOSS, ATOL_STEP = 1e-5, 1e-6, 1e-5
 WEIGHTS = [[2.0, 0.5], [1.5, 1.0]]
+# the gradient cases run with f64 params (the module note)
+GRAD_F64 = ("rwkv6",)
+# the cases whose leaves read in part are checked, and those leaves
+PART_LEAVES = {"zamba2": {f"blocks/ssm/{k}" for k in (
+                   "conv_w", "conv_b", "dt_bias", "A_log", "D",
+                   "norm_scale")},
+               "rwkv6": {"blocks/att/u", "blocks/att/ln_scale"},
+               "whisper": set()}
+PART_CASES = tuple(PART_LEAVES)
 # smollm with 3 heads (padded at M = 2), and with one K/V head (shared)
 TRAIN_ARCHS = {"3heads": {"num_heads": 3, "num_kv_heads": 3,
                           "head_dim": 64},
@@ -98,7 +116,8 @@ RUNS = ([_run(f"{c}{'_k' if k else ''}-{p}", c, p, kernels=k)
            _run("rotate-hybrid-reduce", "rotate", "hybrid", run="reduce")]
         + [_run(f"{name}-dense_k-hybrid", "dense", "hybrid", arch=name,
                 kernels=True)
-           for name in ("llava", "mixtral", "deepseek", "minicpm3")])
+           for name in ("llava", "mixtral", "deepseek", "minicpm3",
+                        "zamba2")])
 PERM_MESHES = {2: [((2, 1), ("data", "model")), ((4, 1), ("data", "model")),
                    ((2, 2, 1), ("pod", "data", "model"))],
                4: [((2, 2), ("data", "model"))]}
@@ -177,20 +196,35 @@ def grad_batch(cfg) -> dict:
     toks = r.integers(0, cfg.vocab_size, (B, S + 1))
     batch = {"tokens": torch.tensor(toks[:, :-1]),
              "labels": torch.tensor(toks[:, 1:])}
-    if cfg.family == "vlm":
-        batch["image_embeds"] = torch.tensor((0.1 * r.standard_normal(
-            (B, cfg.num_image_tokens, cfg.d_model))).astype(np.float32))
+    batch.update({k: torch.tensor(v)
+                  for k, v in stub_inputs(cfg, r, (B,)).items()})
     return batch
+
+
+def grad_model(name, group):
+    """A gradient case's model (its biases nonzero), whole or split."""
+    cfg = port_config(name)
+    if name in GRAD_F64:
+        cfg = dataclasses.replace(cfg, param_dtype="float64")
+    return with_biases(Model.init(cfg, rng(SEED, "cpu"), group=group))
 
 
 def grads_of(name, group):
     """(loss, {key: gradient}) of the case's whole model (group None) or
     of the rank's split one, the train step's gradient function."""
-    cfg = port_config(name)
-    model = Model.init(cfg, rng(SEED, "cpu"), group=group)
+    model = grad_model(name, group)
     loss, grads = steps.client_grads(model, FlatView(model).tree(model),
-                                     grad_batch(cfg))
+                                     grad_batch(model.cfg))
     return float(loss), grads
+
+
+def raw_grads_of(name, group) -> dict:
+    """The rank's gradients of the case before the train step's sums
+    over its group."""
+    model = grad_model(name, group)
+    view = FlatView(model)
+    return view.tree_grad(model, view.tree(model), lambda: model.loss(
+        **grad_batch(model.cfg))[0])[1]
 
 
 def train_config(arch):
@@ -205,7 +239,8 @@ def run_train(run, mesh) -> list:
     """Three chained steps of ``run`` on this rank's servers (and blocks):
     after each, (params, loss, the telemetry norms or None)."""
     cfg = train_config(run["arch"])
-    model = Model.init(cfg, rng(0, "cpu"), group=ModelGroup.of(mesh))
+    model = with_biases(Model.init(cfg, rng(0, "cpu"),
+                                   group=ModelGroup.of(mesh)))
     gfl = GFLConfig(topology="ring", privacy=run["privacy"], sigma_g=SIGMA,
                     mu=MU, grad_bound=BOUND, combine_impl=run["combine"],
                     use_kernels=run["kernels"], fault=run["fault"])
@@ -218,10 +253,8 @@ def run_train(run, mesh) -> list:
     out = []
     for i in range(STEPS):
         batch = federated_token_batches(stream, 0, i, P, L, PER_CLIENT, SEQ)
-        if cfg.family == "vlm":
-            batch["image_embeds"] = torch.tensor((0.1 * np.random.default_rng(
-                i).standard_normal((P, L, PER_CLIENT, cfg.num_image_tokens,
-                                    cfg.d_model))).astype(np.float32))
+        batch.update({k: torch.tensor(v) for k, v in stub_inputs(
+            cfg, np.random.default_rng(i), (P, L, PER_CLIENT)).items()})
         alive = proc.client_alive(i, L) if run["run"] == "alive" else None
         w = np.asarray(WEIGHTS, np.float32) if run["run"] == "weights" \
             else None
@@ -275,6 +308,7 @@ def rank_work(rank, world, ckpt_dir):
     group = ModelGroup.of(mesh)
     out = {"group": (group.size, group.index),
            "grads": {name: grads_of(name, group) for name in CASES},
+           "raw": {name: raw_grads_of(name, group) for name in PART_CASES},
            "perm": ppermute_forms(rank, world)}
     if world == 4:
         mesh = make_test_mesh((2, 2), device="cpu", dist_backend="gloo")
@@ -337,6 +371,31 @@ def test_rank_gradient_is_its_block_of_the_whole(M, name, ranks, world1):
             err = float((grads[k] - blk).abs().max())
             assert grads[k].shape == blk.shape and err <= tol, \
                 (i, k, err, tol)
+
+
+@pytest.mark.parametrize("name", PART_CASES)
+@pytest.mark.parametrize("M", [2, 4])
+def test_read_in_part_leaves_are_the_partial_gradients(M, name, ranks,
+                                                       world1):
+    """Before the train step's sums, a rank's gradient is its block of the
+    whole exactly on the leaves outside ``sharding.READ_IN_PART``; on
+    each leaf of it, every rank's differs (its part's alone), and the sum
+    over the ranks is the whole."""
+    cfg = port_config(name)
+    want = world1["grads"][name][1]
+    table = {k for k in want if sharding.read_in_part(k, M)}
+    assert table == PART_LEAVES[name]
+    got = [r["raw"][name] for r in ranks["get"](M)]
+    for k, g in want.items():
+        tol = ATOL_GRAD * float(g.abs().max())
+        for i, raw in enumerate(got):
+            blk = sharding.shard_leaf(k, g, cfg, ModelGroup(M, i),
+                                      lead=sharding.stack_lead(k))
+            err = float((raw[k] - blk).abs().max())
+            assert (err > tol) == (k in table), (i, k, err, tol)
+        if k in table:
+            total = sum(raw[k] for raw in got)
+            assert float((total - g).abs().max()) <= tol, k
 
 
 # ----------------------------------------------------------- train steps

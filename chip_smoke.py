@@ -8,7 +8,8 @@ Phases, each printing JSON lines:
 1. device  — the card's name and power limit (nvidia-smi); no CUDA device
              or no port beside this script exits non-zero with no result.
 2. build   — compiles every kernel of the main path from
-             src/repro_torch/csrc (one nvcc per source, in parallel) and
+             src/repro_torch/csrc (one nvcc per source, in parallel,
+             with K8's loads-only build for the swa phase beside them) and
              prints ptxas' registers and spills, and the SASS of K5's pair
              loop (cuobjdump) counted per stream.
 3. kernels — holds each kernel against its plain torch version on the card
@@ -95,7 +96,7 @@ Phases, each printing JSON lines:
 8. profile — hybrid rounds under the round graph and the eager executor,
              at the main path's shape (kernels on and off) and the Fig. 2
              shape (L=10): steady wall ms a round (the difference of a
-             250- and a 50-round run), and from torch.profiler over 50
+             300- and a 50-round run), and from torch.profiler over 20
              rounds (for the graph, from its first replay on) device busy
              ms, the traced window's idle share (the tracer's host cost
              stretches it), busy over the untraced wall, device ops and
@@ -107,7 +108,7 @@ Phases, each printing JSON lines:
              may launch K1-K3 only in the warm-up round.
 9. population — the population engine's weighted path at the demo's full
              size (examples/population_demo.py: P=8, K=10^5 virtual
-             clients a server, L=20, N=100, M=2, 120 rounds, hypercube,
+             clients a server, L=20, N=100, M=2, hypercube,
              hybrid, a lazy synthetic:hetero population).  First one
              weighted fold (K1 + K2 through ops.round_fold) at (8, 20, 2)
              and (8, 20, 4096) in every mode, importance weights spread
@@ -117,21 +118,22 @@ Phases, each printing JSON lines:
              as a user calls it, its launch counts set to 0 just before:
              K1-K3 launched, from replays.  Then each of its three cohort
              specs (uniform; uniform + diurnal trace; importance + the
-             trace), kernels on and off, under the round graph and the
+             trace), kernels on and off, 60 rounds (the demo runs 120),
+             under the round graph and the
              eager executor: params, MSD, q, the IS state bitwise equal,
              the same launch counts (K1-K3 > 0 with kernels on, the
              wrappers launching only in the warm-up round), q in (0, 1],
              finite MSD, and the run's amplified epsilon equal to the one
              recomputed from its q trace.  The same for "everything on"
              (synthetic:mixture, importance + diurnal trace,
-             links:0.2+dropout:0.3) under hybrid and iid_dp, 60 rounds,
+             links:0.2+dropout:0.3) under hybrid and iid_dp, 30 rounds,
              every realized A_i mixing; a dirichlet:0.3 population built
              from the config (K=1000) under both trace specs, with and
              without that fault, and simulate.run_gfl_importance on the
              gfl-logreg problem, each graph against eager.  Then a
              weighted round's time
              (importance + trace, kernels on): steady wall ms a round (the
-             difference of a 130- and a 30-round run) and the profiler's
+             difference of a 65- and a 15-round run) and the profiler's
              busy, ops and launch calls, under both executors, and the
              host stage's ms a round with the availability realization's
              apart.  Last `python -m repro_torch.launch.population_scale`
@@ -144,7 +146,7 @@ Phases, each printing JSON lines:
              P=8, K=10^5 virtual synthetic:hetero clients a server, N=100,
              M=2, hypercube, hybrid,
              async:buffer=8,latency=lognorm:0.5,max_stale=4 (8 events a
-             server a tick), 500 ticks.  First the event fold: K1 + K2
+             server a tick), 250 ticks.  First the event fold: K1 + K2
              through ops.round_fold with per-event bases [P, E, D],
              staleness fold weights, a third of the events invalid and
              importance weights over 1e-3 .. 1e3, at (P, E, D) = (8, 8, 2),
@@ -166,7 +168,7 @@ Phases, each printing JSON lines:
              and the amplified epsilon equal to the one recomputed from
              (flushed, q).  Then the tick's time (the docs' run, kernels
              on): steady wall ms a tick under both executors (the
-             difference of a 600- and a 100-tick run) and the profiler's
+             difference of a 300- and a 50-tick run) and the profiler's
              busy, ops, launch calls and host share between replays;
              events a second.  Last `python -m
              repro_torch.launch.async_throughput` at its defaults (P=8,
@@ -220,7 +222,7 @@ Phases, each printing JSON lines:
              within rtol 1e-5), with K1 and K2 launched once a worker
              tick and K3 once a flushing tick, exactly, counted from 0
              just before: the demo's problem, the Section V size as a
-             fleet (P=10, K=50, n=100, dim 2, events = buffer = 50, 30
+             fleet (P=10, K=50, n=100, dim 2, events = buffer = 50, 10
              ticks) and the demo's problem at dim 2048 (K1's wide
              layout).  Last one worker alone on the card: host ms of a
              tick's fold and of its checkpoint.
@@ -238,22 +240,23 @@ Phases, each printing JSON lines:
              servers' params away from none's, and iid_dp's centroid
              away from it by over 100 times that limit.  The round's
              split: the gradients (8 forward and backward passes), K1 +
-             K2 and K3 (CUDA events), and one whole round under the
-             profiler (busy, idle share, device ops).  Then
-             federated_lm.run as a user calls it, 40 rounds, K1-K3
+             K2 and K3 (CUDA events), and one whole round's wall (its
+             profiler view, 39,133 device ops, took 35 s of the smoke's
+             time to read, and is not taken).  Then
+             federated_lm.run as a user calls it, 10 rounds, K1-K3
              counted from 0 just before and launched once a round, the
-             centroid eval loss and eps(i) every 10 rounds, finite and
-             falling.  Last K1-K3 at (4, 2, 134,515,008) against their
+             centroid eval loss and eps(i) at the first and last, finite
+             and falling.  Last K1-K3 at (4, 2, 134,515,008) against their
              plain versions and library calls, with their bounds.
 14. mesh   — the mesh trainer (repro_torch.launch.train, the port of
              launch/train.py) at smollm-135m's full width in bf16, as the
              reference trainer builds it, on mesh 4x1 in one process: 4
              servers, L = 2 clients of 2 x 64 tokens, hybrid at sigma
              0.01, mu 0.1, B 10.  First `python -m repro_torch.launch.train
-             --mesh 4x1 --steps 3 --combine dense --use-kernels` as a user
+             --mesh 4x1 --steps 2 --combine dense --use-kernels` as a user
              calls it, K3 counted from 0 just before: 11 launches a step
              (one a leaf of the reference's tree), K1 and K2 none, the loss
-             finite.  Then 2 steps each of dense through K3, dense plain,
+             finite.  Then 1 step each of dense through K3, dense plain,
              rotate and sparse from one init, each run twice: reruns
              bitwise, K3 launched 11 times a dense kernel step and never in
              the others, the embedding centroid of each within 5e-3 of
@@ -290,22 +293,25 @@ Phases, each printing JSON lines:
              finds them cold; a CUDA graph captured at nvalid = C/3 and
              replayed at C; and a stall probe at the phi3 shapes and
              mixtral's 4 x 4096 (the kernel beside its loads-only build,
-             built here).
+             built in the build phase).
 16. serve  — eight archs at full width, bf16, random weights from seed 0,
-             each freed before the next, through
-             repro_torch.launch.serve.generate: phi3-mini-3.8b (32 layers,
-             d 3072), request A, 4 x 4096-token prompts + 32 greedy tokens
-             (ring of 2047 slots, wrapped), and B, 4 x 1000 + 32 (1064
-             slots, nvalid partial); mixtral-8x7b at 16 of its 32 layers
-             (the cut printed: 32 do not fit the card), A (ring of 4096,
-             wrapped) and B; deepseek-v2-lite-16b (27 layers, MLA, a dense
-             first layer, 2 shared + 64 routed experts top-6), 4 x 4096 +
-             32; minicpm3-4b (62 layers, MLA with a compressed query), 4 x
-             1000 + 32; zamba2-1.2b and rwkv6-3b at full depth, A and B;
-             llava-next-mistral-7b (32 layers, the Mistral-7B backbone,
-             SWA 4096), A and B with 2880 image embeddings ahead of each
-             prompt (A: 6976 tokens into a ring of 4096, wrapped);
-             whisper-tiny (4 + 4 layers) with 1500 encoder frames (the
+             each freed before the next, at the depth SERVE_DEPTH_CUTS
+             gives (each cut printed), through
+             repro_torch.launch.serve.generate: phi3-mini-3.8b (4 of 32
+             layers, d 3072), request A, 4 x 4096-token prompts + 32
+             greedy tokens (ring of 2047 slots, wrapped), and B, 4 x 1000
+             + 32 (1064 slots, nvalid partial); mixtral-8x7b at 8 of its
+             32 layers (32 do not fit the card), A (ring of 4096,
+             wrapped) and B; deepseek-v2-lite-16b (9 of 27 layers, MLA, a
+             dense first layer, 2 shared + 64 routed experts top-6), 4 x
+             4096 + 32; minicpm3-4b (8 of 62 layers, MLA with a
+             compressed query), 4 x 1000 + 32; zamba2-1.2b (12 of 38
+             layers, two shared-block applications) and rwkv6-3b (8 of
+             32), A and B; llava-next-mistral-7b (4 of 32 layers, the
+             Mistral-7B backbone, SWA 4096), A and B with 2880 image
+             embeddings ahead of each prompt (A: 6976 tokens into a ring
+             of 4096, wrapped); whisper-tiny whole (4 + 4 layers) with
+             1500 encoder frames (the
              stub inputs 0.1 N(0, 1), as the serve entry draws them)
              within its 448-token decoder context: A, 4 x 416 + 32, fills
              it; B is 4 x 128 + 32.  Gates finite logits; K8 launches a layer and step
@@ -362,14 +368,13 @@ Phases, each printing JSON lines:
              one GPU; gloo takes CUDA tensors in all_reduce, the one
              collective the split forward runs) serve on mesh 1x4 through
              Model.init(group=) / prefill / decode_step, one arch after
-             another (TP_REQUESTS): mixtral-8x7b at 8 layers (cut from
-             the serve phase's 16 to keep the whole smoke under 1000 s;
-             its 1 x 1 run made here, in this process, on the same draws)
-             (the ff split, GQA: K8 on each rank's 8 query and 2 K/V
-             heads), request B; deepseek-v2-lite-16b at full depth (MLA,
-             64 experts expert-parallel, 16 a rank), request A;
-             zamba2-1.2b at 12 layers (TP_DEPTH_CUTS; 16 of the 64 Mamba2
-             heads a rank, B and C gathered, two shared-block
+             another (TP_REQUESTS), each at the serve phase's depth:
+             mixtral-8x7b at 8 layers (the ff split, GQA: K8 on each
+             rank's 8 query and 2 K/V heads), request B;
+             deepseek-v2-lite-16b at 9 layers (MLA, 64 experts
+             expert-parallel, 16 a rank), request A; zamba2-1.2b at 12
+             layers (16 of the 64 Mamba2 heads a rank, B and C gathered,
+             two shared-block
              applications with K8 on its 8 of 32 heads), request B;
              rwkv6-3b at 8 layers (10 of the 40 heads a rank), request B;
              whisper-tiny at full depth (the encoder and the decoder
@@ -379,9 +384,8 @@ Phases, each printing JSON lines:
              every leaf whole from seed 0 and keeps its block, draws the
              prompts as the serve phase draws them after its init
              (tp_prompt), and teacher-forces the 32 decode steps
-             on the tokens of the 1 x 1 run of the same request (the
-             serve phase's for deepseek), whose prefill and step logits
-             it recorded, and
+             on the tokens of the serve phase's 1 x 1 run of the same
+             request, whose prefill and step logits it recorded, and
              every MoE routing call on the experts that run chose
              (ForcedRoutes: a route is discrete, and the float order of
              the split sums flips near ties, each of which moves a
@@ -395,13 +399,14 @@ Phases, each printing JSON lines:
              Prints each rank's prefill ms, decode ms a step, weight
              bytes and peak bytes.
 19. tp_train — training under tensor parallelism: the mesh phase's GFL
-             step (smollm-135m at full width in bf16, L = 2 clients of 2 x
+             step (smollm-135m at full width in bf16, cut to 10 of its 30
+             layers (TPT_DEPTH_CUTS), L = 2 clients of 2 x
              64 tokens, hybrid sigma 0.01, mu 0.1, B 10) on mesh 2x2: four
              ranks sharing the card over gloo as in the tp phase, each
              holding one server and its half of the model (9 / 3 heads
              padded to 12 / 4: the second rank's fourth K/V head and its
-             three query heads are zeros).  3 steps of dense through K3
-             (once a leaf on the rank's [2, D_local] blocks), then 2 each
+             three query heads are zeros).  2 steps of dense through K3
+             (once a leaf on the rank's [2, D_local] blocks), then 1 each
              of rotate and sparse, whose permutes run as one sum
              all_reduce over the server group (gloo has no CUDA send or
              recv), each from Model.init(group=) and the same draws as a
@@ -417,7 +422,7 @@ Phases, each printing JSON lines:
              step, counted into the kernel line.  Prints ms a step split
              into the client gradients, the model group's collectives,
              the noise tree and the combine, and each rank's weight and
-             peak bytes.  Then, in the same spawn, 3 dense steps through
+             peak bytes.  Then, in the same spawn, 2 dense steps through
              K3 of each of the ssm, hybrid and audio families at full
              width (TPT_RUNS: zamba2-1.2b at 6 layers, rwkv6-3b at 2,
              whisper-tiny whole; TPT_DEPTH_CUTS) through ``launch.train
@@ -428,6 +433,25 @@ Phases, each printing JSON lines:
              step's blocks on every rank are held by the same 4-ulp gate
              (chained, a 1-ulp difference in its embedding rows grows
              6-8x a step); K3 launches one a leaf and step.
+20. dryrun — the dry run (repro_torch.launch.dryrun) on the card: one
+             rank of the 16x16 world traced on fake cuda:0 tensors over
+             the fake process group, smollm-135m's decode_32k (K8 on its
+             path) and train_4k through the dense combine and K3 (one
+             client), each record equal to the one traced on fake cpu
+             tensors (``run_one`` prints both).  Then smollm-135m at full
+             width on world 1 (mesh 1x1), a decode step of 8 sequences
+             over a 4096-slot cache and a GFL train step (one server, 2
+             clients of 128 tokens, dense combine through K3), each run
+             for real on the card under the op analysis after a warm-up
+             and traced on fake cuda:0 tensors: op counts (by op), FLOPs,
+             HBM and collective bytes (0) and the K3 / K8 launches
+             (kernels.LAUNCHES on the real run) equal; the predicted peak
+             of storage above the arguments within 10 % of the step's
+             max_memory_allocated() rise, plus cuBLAS's 32 MiB workspace.
+             Prints the roofline time beside the measured step times
+             (three), with the card's name and power limit; the real
+             steps' K3 and K8 launches go into the kernel line.  No fake
+             process group may outlive the phase.
 
 Tolerances: f32 outputs within atol 1e-5 of the plain version (the
 reference's parity contract, docs/kernels.md); fold_norms' f32 sums within
@@ -578,6 +602,7 @@ SWA_PROBE_SHAPES = [(SWA_SERVE_SHAPE, "bfloat16"),
                     ((32, 32, 32, 2047, 96), "bfloat16"),
                     (SWA_MIXTRAL_SHAPE, "bfloat16"),
                     (SWA_ZAMBA2_SHAPE, "bfloat16")]
+SWA_PROBE_DEFINES = ("SWA_PROBE_LOADS_ONLY",)   # the stall probe's build
 SWA_TP_SHAPE = (4, 8, 2, 1064, 128)          # mixtral at 1x4: a rank's heads
 SWA_SHAPES = [(SWA_SERVE_SHAPE, "bfloat16"), ((4, 32, 32, 1064, 96), "bfloat16"),
               (SWA_MIXTRAL_SHAPE, "bfloat16"),
@@ -609,18 +634,27 @@ SERVE_MODELS = (
 # the leaves the reference keeps in f32 in a bf16 model, (part, leaf):
 # Mamba2's A_log, RWKV-6's w0 and u; every other parameter is bf16
 SERVE_F32_LEAVES = {("ssm", "A_log"), ("att", "w0"), ("att", "u")}
-# archs served at fewer layers than their config's, and why
+# archs served at fewer layers than their config's, and why (the width
+# stays whole).  Mixtral's 32 layers do not fit the card; the others are
+# cut for the smoke's time: with phi3, deepseek, minicpm3, rwkv6 and llava
+# whole and mixtral at 16, the whole smoke ran 1019.6 s on one H100 and
+# past its 1200 s limit on another, the serve phase 184.0 s of it (rwkv6
+# and llava 40 s each: RWKV-6's S-step prefill loop, llava B's prefill in
+# chunks of 8), and the tp phase's deepseek 36 s a rank.  The tp phase
+# splits each arch at this depth and holds it against this phase's run.
+_TIME_CUT = "cut for the smoke's time limit (SERVE_DEPTH_CUTS' note)"
 SERVE_DEPTH_CUTS = {
-    "mixtral-8x7b": (16, "32 layers are about 46.7e9 parameters, 93.4 GB "
-                         "in bf16, more than the card's 80 GB; 16 are "
-                         "about 23.5e9, 47.0 GB")}
-# the step's bytes reckoned by hand (every expert read: capacity dispatch)
-SERVE_RECKONED_STEP_GB = {"mixtral-8x7b": 46.7, "deepseek-v2-lite-16b": 31.0,
-                          "minicpm3-4b": 8.15, "zamba2-1.2b": 3.7,
-                          "rwkv6-3b": 6.0, "llava-next-mistral-7b": 16.4,
-                          "whisper-tiny": 0.14}
+    "phi3-mini-3.8b": (4, _TIME_CUT),
+    "mixtral-8x7b": (8, "32 layers are about 46.7e9 parameters, 93.4 GB "
+                        "in bf16, more than the card's 80 GB; " + _TIME_CUT),
+    "deepseek-v2-lite-16b": (9, "the dense first layer and 8 MoE layers; "
+                                + _TIME_CUT),
+    "minicpm3-4b": (8, _TIME_CUT),
+    "zamba2-1.2b": (12, "two shared-block applications; " + _TIME_CUT),
+    "rwkv6-3b": (8, _TIME_CUT),
+    "llava-next-mistral-7b": (4, _TIME_CUT)}
 SERVE_NEW_TOKENS = 32
-SERVE_PROFILE_STEPS = 3
+SERVE_PROFILE_STEPS = 1    # cut from 3 for the smoke's time (SERVE_DEPTH_CUTS' note)
 TRACE_TRIES = 3       # traces of a launch count before it fails
 # Profiler windows.  torch.profiler keeps a device record only if its
 # times, moved onto the host's clock, fall inside the window, and that
@@ -636,7 +670,15 @@ TRACE_OFFSETS: list = []   # each trace's offset, µs (None: not measured)
 TRACE_COUNTS = {"traces": 0, "broken_fences": 0, "unfenced_broken": 0}
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Prints one JSON line; a phase record gains ``t``, the seconds since
+    the script started, so each step of a phase can be timed from the
+    log."""
+    if "phase" in obj:
+        obj = {**obj, "t": round(time.perf_counter() - T_START, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -671,10 +713,26 @@ def phase_device(torch):
 
 
 def phase_build():
+    import threading
+
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
+    # the swa phase's stall probe (K8's loads-only build) compiles beside
+    # the kernels, not on its first call there
+    probe_err = []
+
+    def build_probe():
+        try:
+            _build.build(["swa_decode"], SWA_PROBE_DEFINES)
+        except Exception as exc:        # reported after the join
+            probe_err.append(exc)
+    probe = threading.Thread(target=build_probe)
+    probe.start()
     paths = _build.build()
+    probe.join()
     secs = time.perf_counter() - t0
+    if probe_err:
+        raise probe_err[0]
     for name in _build.SOURCES:
         lines = [ln.strip() for ln in
                  _build.report_path(name).read_text().splitlines()
@@ -1026,7 +1084,7 @@ def time_shape(torch, P, L, D, gen, profile=True):
     A = A / A.sum(dim=0, keepdim=True)
     x, neg_g = psi + gn, -gn
     for variant, g_ in (("g", gn), ("none", None)):
-        nbytes = P * P * 4 + (3 if g_ is not None else 2) * P * D * 4
+        cost = gc.cost(P, D, 4, g=g_ is not None)
         lib = ((lambda: torch.addmm(neg_g, A.T, x)) if g_ is not None
                else (lambda: torch.mm(A.T, psi)))
         ms, lib_ms = paired_ms(
@@ -1044,8 +1102,8 @@ def time_shape(torch, P, L, D, gen, profile=True):
                 torch, f"graph_combine {variant} {P, D} timed",
                 gc.graph_combine(A, psi, g_),
                 gc.graph_combine_plain(A, psi, g_), f32),
-            "library_ms": lib_ms, "bytes": nbytes,
-            "flops": 2 * P * P * D + (2 * P * D if g_ is not None else 0)}
+            "library_ms": lib_ms, "bytes": cost["bytes"],
+            "flops": cost["flops"]}
     for rec in out.values():
         bound(rec)
     return out
@@ -1997,10 +2055,12 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
 ROUND_KERNEL_SYMBOLS = {"fold_norms": ("norms_rows", "norms_split"),
                         "fold_apply": ("fold_apply_kernel",),
                         "graph_combine": ("combine_kernel",)}
-PROFILE_ROUNDS = 50
+PROFILE_ROUNDS = 20    # cut from 50 for the smoke's time (SERVE_DEPTH_CUTS' note)
 TOP_KERNELS = 8       # device kernels a profile names, by time
-STEADY_ROUNDS = (100, 600)  # wall a round: the difference of two runs
-STEADY_REPEATS = 3
+# wall a round: the difference of two runs, the median of repeats (cut
+# from (100, 600) and 3 for the smoke's time (SERVE_DEPTH_CUTS' note))
+STEADY_ROUNDS = (50, 300)
+STEADY_REPEATS = 2
 
 
 def steady_ms(torch, run, executor, rounds=STEADY_ROUNDS) -> float:
@@ -2179,13 +2239,15 @@ def phase_profile(torch, prob):
 
 # ------------------------------------------------------------ population
 
-POP_ITERS = 120                 # examples/population_demo.py's rounds
+# examples/population_demo.py runs 120 rounds; this and the next are cut
+# by half for the smoke's time (SERVE_DEPTH_CUTS' note)
+POP_ITERS = 60
 POP_EVERYTHING = ("synthetic:mixture",
                   "importance,floor=0.2+trace:diurnal,period=24,min=0.2",
                   "links:0.2+dropout:0.3")
-POP_EVERYTHING_ITERS = 60
+POP_EVERYTHING_ITERS = 30
 POP_DIRICHLET = ("dirichlet:0.3", 1000)    # spec, K: the pool is P K 20
-POP_STEADY_ROUNDS = (30, 130)
+POP_STEADY_ROUNDS = (15, 65)
 POP_STAGE_ROUNDS = 100
 # (P, L, D, topology): the demo's weighted rounds (hypercube, L = 20), a
 # wide row at the demo's P and L, and the bench's rounds (ring, L = 10)
@@ -2580,7 +2642,7 @@ def phase_population(torch):
 # the reference docs' configuration (docs/async.md) at the population
 # demo's scale: P=8, K=10^5, N=100, M=2, hypercube, hybrid
 EV_P, EV_K = 8, 100_000
-EV_TICKS = 500
+EV_TICKS = 250     # cut from 500 for the smoke's time (SERVE_DEPTH_CUTS' note)
 EV_SPEC = "async:buffer=8,latency=lognorm:0.5,max_stale=4"
 EV_DIURNAL = "trace:diurnal,period=24,min=0.2"
 # (name, cohort, fault): the docs' run, importance sampling, link faults
@@ -2592,7 +2654,7 @@ EV_FOLD_SHAPES = [(8, 8, 2), (8, 6, 509), (8, 8, 4096)]   # (P, E, D)
 EV_FOLD_SIGMA = 0.2
 EV_ONOFF_TICKS = 10     # ticks whose MSD kernels on and off must share
 EV_SYNC = ("async:buffer=10", 10, 500)   # spec, clients_sampled, ticks
-EV_STEADY_TICKS = (100, 600)
+EV_STEADY_TICKS = (50, 300)
 
 
 def events_config(cohort, fault="none", use_kernels=True):
@@ -3195,10 +3257,11 @@ def phase_observe(torch, smi) -> dict:
 
 FLEET_TRANSPORTS = ("inproc", "filelog", "socket")
 # the Section V problem as a fleet: P=10, K=50 clients of N=100 samples,
-# M=2; every client arrives every tick (events = buffer = K), 30 ticks
+# M=2; every client arrives every tick (events = buffer = K), 10 ticks
+# (cut from 30 for the smoke's time (SERVE_DEPTH_CUTS' note))
 FLEET_SECTION_V = {"P": 10, "K": 50, "n": 100, "dim": 2, "buffer": 50,
                    "events": 50, "sigma_g": 0.2, "seed": 3}
-FLEET_SECTION_V_TICKS = 30
+FLEET_SECTION_V_TICKS = 10
 FLEET_WIDE_DIM = 2048           # K1's split-row layout under a worker
 FLEET_SAMPLE_S = 0.1            # card-process sampling period, seconds
 FLEET_TICK_SAMPLES = 20         # worker ticks timed alone
@@ -3442,7 +3505,11 @@ TRAIN_ARCH = "smollm-135m"
 TRAIN_D = 134_515_008           # embed 49152 x 576 + 30 x 3,540,096 + 576
 TRAIN_P, TRAIN_L = 4, 2         # servers on a ring, clients a round
 TRAIN_SEQ = 64
-TRAIN_ROUNDS = 40
+# cut from 40 for the smoke's time (SERVE_DEPTH_CUTS' note): a round took 1.33 s
+# on one host and 3.9 s on another.  At 10 the gate failed: the centroid
+# eval loss is noisy round to round (10.83 at round 0, 11.03 at round 9,
+# 10.52 at round 10), so the run ends at round 10, a logged round
+TRAIN_ROUNDS = 11
 TRAIN_LOG_EVERY = 10
 TRAIN_PRIVACY, TRAIN_SIGMA = "hybrid", 0.01     # the example's defaults
 TRAIN_SEED = 7                  # the gate rounds' draws
@@ -3580,7 +3647,7 @@ def phase_train(torch) -> dict:
              "combine_k3_ms": time_ms(lambda: kops.graph_combine(A, psi,
                                                                  noise),
                                       budget_s=0.5)}
-    # one whole round (gradients included) under the profiler: busy, idle
+    # one whole round (gradients included), after a warm-up round
     step = tr.step_fn()
 
     def one_round():
@@ -3589,11 +3656,7 @@ def phase_train(torch) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
     one_round()
-    t = traced(torch, one_round, "train: one round", fenced=False)
-    busy = sum(e.time_range.elapsed_us() for e in t["device"]) / 1e3
-    split.update(round_ms=t["value"] * 1e3, device_busy_ms=busy,
-                 device_idle_share=1.0 - busy / (t["value"] * 1e3),
-                 device_ops=len(t["device"]))
+    split.update(round_ms=one_round() * 1e3)
     emit({"phase": "train", "round_split": split})
     del psi, noise, grads, tr, state0, batch0
     torch.cuda.empty_cache()
@@ -3648,10 +3711,12 @@ def phase_train(torch) -> dict:
 
 MESH_ARCH, MESH_SPEC = "smollm-135m", "4x1"
 MESH_P, MESH_L, MESH_PER_CLIENT, MESH_SEQ = 4, 2, 2, 64
-MESH_STEPS = 3                  # the main path's steps (launch.train)
-# each variant's steps, run twice: cut from 3 when the whole smoke took
-# 953.8 s on one call's host (PERF.md, the mesh finding)
-MESH_VARIANT_STEPS = 2
+# the main path's steps (launch.train), and each variant's, run twice:
+# cut from 3 and 3 to 3 and 2 when the whole smoke took 953.8 s on one
+# call's host (PERF.md, the mesh finding), and to 2 and 1 for its time
+# limit (SERVE_DEPTH_CUTS' note)
+MESH_STEPS = 2
+MESH_VARIANT_STEPS = 1
 MESH_PRIVACY, MESH_SIGMA, MESH_MU, MESH_BOUND = "hybrid", 0.01, 0.1, 10.0
 MESH_SEED = 7
 MESH_LEAVES = 11                # the reference's stacked tree of smollm-135m
@@ -3750,10 +3815,7 @@ def k3_bf16_rows(torch, A, gen) -> dict:
                 "plain_ms": time_ms(lambda: gc.graph_combine_plain(
                     A, psi, g_), budget_s=0.3, max_reps=20),
                 "max_abs_err": err, "ulp": ulp,
-                "bytes": MESH_P * MESH_P * 4
-                + (3 if g_ is not None else 2) * MESH_P * N * 2,
-                "flops": 2 * MESH_P * MESH_P * N
-                + (2 * MESH_P * N if g_ is not None else 0)})
+                **gc.cost(MESH_P, N, 2, g=g_ is not None)})
             del plain, got
         del psi, gn, x, neg_g
         torch.cuda.empty_cache()
@@ -4005,12 +4067,14 @@ def cycling(fns):
 
 
 def swa_bound(B, H, KV, n_live, Dh, esize):
-    """Least time of one K8 call: each live K/V row, q and out moved once
-    (bytes), or 4 B H n Dh flops on the CUDA cores (f32 FMAs)."""
+    """Least time of one K8 call (``swa_decode.cost``): each live K/V row,
+    q and out moved once (bytes), or 4 B H n Dh flops on the CUDA cores
+    (f32 FMAs)."""
+    from repro_torch.kernels.swa_decode import cost
     from repro_torch.launch.roofline import kernel_bound_ms
-    nbytes = 2 * B * n_live * KV * Dh * esize + 2 * B * H * Dh * esize + 4
-    ms, by = kernel_bound_ms(nbytes, 4 * B * H * n_live * Dh)
-    return ms, by, nbytes
+    c = cost(B, H, KV, n_live, Dh, esize)
+    ms, by = kernel_bound_ms(c["bytes"], c["flops"])
+    return ms, by, c["bytes"]
 
 
 def planted_faults(torch, swa, ref, q, k, v, nv, want, tol, plan):
@@ -4090,13 +4154,13 @@ def stall_probe(torch, swa, q, kvs, C):
     or V sum) at nvalid = C, timed in turns: how much of the kernel's time
     the copies alone take, and so what is left to the math.  Both go
     through ``swa.launch``, which counts no launch; the probe's build
-    (``csrc/swa_decode.cu`` with ``SWA_PROBE_LOADS_ONLY``) is compiled on
-    its first call here."""
+    (``csrc/swa_decode.cu`` with ``SWA_PROBE_LOADS_ONLY``) is compiled in
+    the build phase."""
     from repro_torch.kernels import _build
 
     nvalid = torch.tensor([C], dtype=torch.int32, device="cuda")
     kernel = _build.function("swa_decode")
-    probe = _build.function("swa_decode", ("SWA_PROBE_LOADS_ONLY",))
+    probe = _build.function("swa_decode", SWA_PROBE_DEFINES)
 
     def run(fn):
         return cycling([lambda k_=k_, v_=v_: swa.launch(fn, q, k_, v_, nvalid)
@@ -4590,9 +4654,8 @@ def phase_serve(torch):
               "layers": cfg.num_layers, "d_model": cfg.d_model,
               "reduced": cut, "init_s": init_s})
         for name, B, S in requests:
-            # the tp phase's 1 x 1, where it splits the serve phase's depth
-            tp_ref = (TP_REQUESTS.get(arch) == name
-                      and arch not in TP_DEPTH_CUTS)
+            # the tp phase's 1 x 1 run, at the depth it splits
+            tp_ref = TP_REQUESTS.get(arch) == name
             with (LogitsTap(model, moe_mod) if tp_ref
                   else contextlib.nullcontext()) as logits_tap:
                 rec, prompt, inputs, out = serve_request(
@@ -4612,7 +4675,6 @@ def phase_serve(torch):
             active_bytes = 2 * n_active - table_bytes + reread_bytes + cache_b
             rec.update(step_bytes=step_bytes,
                        step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
-                       reckoned_step_gb=SERVE_RECKONED_STEP_GB.get(arch),
                        active_step_bytes=active_bytes,
                        active_bound_ms=active_bytes / HBM_BYTES_PER_S * 1e3)
             if attn_per_step(cfg):
@@ -4726,39 +4788,6 @@ TP_REQUESTS = {"mixtral-8x7b": "B", "deepseek-v2-lite-16b": "A",
                "zamba2-1.2b": "B", "rwkv6-3b": "B", "whisper-tiny": "B"}
 TP_JOIN_S = 700             # the ranks' join limit (every arch), seconds
 TP_LIVE_STEPS = (0, SERVE_NEW_TOKENS - 1)   # K8 held live at these steps
-# archs served split at fewer layers than the serve phase's, and why;
-# their 1 x 1 reference is made in the tp phase, at that depth
-TP_DEPTH_CUTS = {
-    "mixtral-8x7b": (8, "the whole smoke ran 1003.8 s with the tp phase's "
-                        "mixtral at 16 layers, past the 1000 s it keeps "
-                        "under its 1200 s limit"),
-    "zamba2-1.2b": (12, "the whole smoke ran 959.9 s with zamba2 at 12 "
-                        "layers here (8.5 s a rank, decode 229 ms a step: "
-                        "3 gloo all_reduces a Mamba2 layer); 38 would add "
-                        "about 19 s by the layer count, and with rwkv6's "
-                        "and tp_train's cuts undone pass 1000 s; 12 keep "
-                        "2 shared-block applications"),
-    "rwkv6-3b": (8, "the whole smoke ran 959.9 s with rwkv6 at 8 layers "
-                    "here (5.5 s a rank, decode 115 ms a step, prefill "
-                    "1.7 s); 32 would add about 17 s by the layer count, "
-                    "and with zamba2's and tp_train's cuts undone pass "
-                    "1000 s")}
-
-
-def tp_config(arch):
-    """The arch's config as the tp phase splits it: the serve phase's,
-    cut further by TP_DEPTH_CUTS; and the cuts' record."""
-    import dataclasses
-    from repro_torch.configs.registry import get_config
-    cfg, cut = serve_config(arch)
-    if arch not in TP_DEPTH_CUTS:
-        return cfg, cut
-    layers, why = TP_DEPTH_CUTS[arch]
-    return (dataclasses.replace(cfg, num_layers=layers),
-            {"num_layers": f"{get_config(arch).num_layers} -> {layers}",
-             "why": why})
-
-
 def tp_prompt(torch, cfg, arch, request, gen):
     """The serve phase's draws after the init: each request's prompt and
     stub inputs in turn, up to ``request``'s."""
@@ -4770,30 +4799,6 @@ def tp_prompt(torch, cfg, arch, request, gen):
         if name == request:
             return prompt, inputs
     raise SmokeFailure(f"tp: no request {request} of {arch}")
-
-
-def tp_reference(torch, arch, request) -> dict:
-    """The 1 x 1 run a tp rank is held against, at the tp phase's depth:
-    the whole model from seed 0, the request as the ranks draw it,
-    ``launch.serve.generate``'s tokens, the prefill and step logits and
-    the routing calls' experts (LogitsTap), on the host."""
-    from repro_torch import rng
-    from repro_torch.launch.serve import generate
-    from repro_torch.models import moe as moe_mod
-    from repro_torch.models.model import Model
-    cfg, _ = tp_config(arch)
-    gen = rng(0, "cuda")
-    model = Model.init(cfg, gen)
-    prompt, inputs = tp_prompt(torch, cfg, arch, request, gen)
-    with LogitsTap(model, moe_mod) as tap:
-        out = generate(model, prompt, SERVE_NEW_TOKENS, **inputs)
-    ref = {"request": request, "tokens": out["tokens"].cpu(),
-           "prefill": tap.prefill.cpu(),
-           "steps": torch.stack(tap.steps).cpu(),
-           "routes": [r.cpu() for r in tap.routes]}
-    del model, out, tap
-    torch.cuda.empty_cache()
-    return ref
 
 
 def tp_rank(rank, port, archs, root):
@@ -4836,7 +4841,7 @@ def tp_serve(torch, rank, arch, ref):
     t_arch = time.perf_counter()
     mesh = parse_mesh(TP_MESH, "cuda:0", "gloo")
     group = ModelGroup.of(mesh)
-    cfg, _ = tp_config(arch)
+    cfg, _ = serve_config(arch)
     gen = rng(0, "cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4932,28 +4937,23 @@ def tp_within(e, L, M) -> dict:
 
 def phase_tp(torch, refs) -> dict:
     """Tensor parallelism for serving (module docstring, phase 18).
-    ``refs``: the serve phase's 1 x 1 runs of the archs split at its
-    depth (the others' are made here, :func:`tp_reference`).  Returns the
-    K8 launches of the ranks' runs, each counted from 0."""
+    ``refs``: the serve phase's 1 x 1 runs of the requests split here,
+    at its depth.  Returns the K8 launches of the ranks' runs, each
+    counted from 0."""
     import multiprocessing as mp
     import socket
     import tempfile
 
     M = int(TP_MESH.split("x")[1])
-    from_serve = sorted(a for a in TP_REQUESTS if a not in TP_DEPTH_CUTS)
-    require(M == TP_RANKS and sorted(refs) == from_serve,
-            f"tp: references for {sorted(refs)}, expected {from_serve}")
+    require(M == TP_RANKS and sorted(refs) == sorted(TP_REQUESTS),
+            f"tp: references for {sorted(refs)}, expected "
+            f"{sorted(TP_REQUESTS)}")
     ctx = mp.get_context("spawn")
     launches = 0
     archs = list(TP_REQUESTS)
     with tempfile.TemporaryDirectory(prefix="tp_smoke_") as root:
-        t0 = time.perf_counter()
-        for arch, request in TP_REQUESTS.items():
-            ref = refs.pop(arch) if arch in refs else tp_reference(
-                torch, arch, request)
-            torch.save(ref, Path(root) / f"ref_{arch}.pt")
-            del ref
-        refs_s = time.perf_counter() - t0
+        for arch in archs:
+            torch.save(refs.pop(arch), Path(root) / f"ref_{arch}.pt")
         with socket.socket() as sock:
             sock.bind(("localhost", 0))
             port = sock.getsockname()[1]
@@ -4982,10 +4982,10 @@ def phase_tp(torch, refs) -> dict:
                 for r in range(TP_RANKS)]
         refs_by_arch = {arch: torch.load(Path(root) / f"ref_{arch}.pt")
                         for arch in archs}
-    emit({"phase": "tp", "references_s": refs_s,
+    emit({"phase": "tp",
           "ranks_s": time.perf_counter() - t_ranks})
     for arch, request in TP_REQUESTS.items():
-        cfg, cut = tp_config(arch)
+        cfg, cut = serve_config(arch)
         L = tp_layers(cfg)
         ref = refs_by_arch[arch]
         ranks = [rk[arch] for rk in recs]
@@ -5053,14 +5053,19 @@ TPT_RANKS, TPT_P, TPT_M = 4, 2, 2
 # the runs, in order: key -> (arch, layers (0: the config's), variant,
 # steps); smollm's three combines, then the ssm, hybrid and audio
 # families' dense steps through K3 (rwkv6's teacher-forced, TPT_FORCED)
-TPT_RUNS = {"dense_k": (MESH_ARCH, 0, "dense_k", 3),
-            "rotate": (MESH_ARCH, 0, "rotate", 2),
-            "sparse": (MESH_ARCH, 0, "sparse", 2),
-            "zamba2-1.2b": ("zamba2-1.2b", 6, "dense_k", 3),
-            "rwkv6-3b": ("rwkv6-3b", 2, "dense_k", 3),
-            "whisper-tiny": ("whisper-tiny", 0, "dense_k", 3)}
+TPT_RUNS = {"dense_k": (MESH_ARCH, 10, "dense_k", 2),
+            "rotate": (MESH_ARCH, 10, "rotate", 1),
+            "sparse": (MESH_ARCH, 10, "sparse", 1),
+            "zamba2-1.2b": ("zamba2-1.2b", 6, "dense_k", 2),
+            "rwkv6-3b": ("rwkv6-3b", 2, "dense_k", 2),
+            "whisper-tiny": ("whisper-tiny", 0, "dense_k", 2)}
 # why a run's arch is cut in depth (its width is whole)
+_TPT_SMOLLM_CUT = ("30 -> 10 layers for the smoke's time (SERVE_DEPTH_CUTS' "
+                   "note): at 30 its 2x2 steps took 2.1-2.6 s and the 2x1 "
+                   "steps 1.2-1.5 s, 7 of each")
 TPT_DEPTH_CUTS = {
+    "dense_k": _TPT_SMOLLM_CUT, "rotate": _TPT_SMOLLM_CUT,
+    "sparse": _TPT_SMOLLM_CUT,
     "zamba2-1.2b": "38 -> 6 layers (one shared-block application): the "
                    "whole smoke ran 959.9 s with a 2x2 step of 1.7 s at 6 "
                    "layers; 38 would add about 25 s by the layer count "
@@ -5726,6 +5731,160 @@ def phase_analysis(torch) -> dict:
     return out
 
 
+# --------------------------------------------------------------- dryrun
+
+DRY_ARCH = "smollm-135m"
+# (shape, combine, gfl_over, clients) of the fake cuda:0 / fake cpu pair:
+# K8 on decode_32k's path, K3 on the dense combine's; one client keeps
+# the train trace short (the trace's ops grow with the clients)
+DRY_COMBOS = (("decode_32k", "sparse", None, 4),
+              ("train_4k", "dense", {"use_kernels": True}, 1))
+DRY_DECODE = (8, 4096)     # B, cache slots of the real decode step
+DRY_TRAIN = (2, 128)       # L clients of one S-token sequence, one server
+DRY_PEAK_RTOL = 0.10
+CUBLAS_WORKSPACE_BYTES = 32 * 2 ** 20     # cuBLAS keeps one a stream
+
+
+def dry_pair(dryrun, shape, combine, over, clients) -> dict:
+    """One combo at 16x16 traced on fake cuda:0 and on fake cpu tensors
+    (``run_one`` prints each record); the records must be equal but for
+    the trace's time."""
+    recs = [{k: v for k, v in dryrun.run_one(
+        DRY_ARCH, shape, multi_pod=False, combine=combine, clients=clients,
+        gfl_over=over, device=dev).items() if k != "trace_s"}
+        for dev in ("cuda:0", "cpu")]
+    require(recs[0] == recs[1],
+            f"dryrun: {shape} on fake cuda:0 and fake cpu differ: "
+            + json.dumps({k: [recs[0].get(k), recs[1].get(k)]
+                          for k in recs[0] if recs[0].get(k)
+                          != recs[1].get(k)}))
+    return recs[0]
+
+
+def dry_real_step(torch, kind):
+    """(step, a function giving its current argument tree, InputShape,
+    cfg) of smollm-135m's real decode or GFL train step at world 1 on the
+    card, warmed up once (kernels built, workspaces and constants made)."""
+    from repro_torch import rng
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import Model
+
+    cfg = get_config(DRY_ARCH)
+    gen = rng(31, "cuda")
+    model = Model.init(cfg, gen)
+    if kind == "decode":
+        B, C = DRY_DECODE
+        cache = model.init_cache(B, C)
+        tokens = torch.randint(0, cfg.vocab_size, (B,), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        decode = steps.make_decode_step(model)
+        decode(None, tokens, cache)
+        return ((lambda: decode(None, tokens, cache)),
+                lambda: (dict(model.named_parameters()), tokens, cache),
+                InputShape("decode", C, B, "decode"), cfg)
+    L, S = DRY_TRAIN
+    gfl = dryrun.default_gfl("dense", use_kernels=True)
+    mesh = Mesh((1, 1), ("data", "model"), device="cuda:0")
+    train = steps.make_train_step(model, gfl, mesh, clients=L)
+    box = [steps.init_train_state(model, gfl, mesh, key=0)]
+    batch = {k: torch.randint(0, cfg.vocab_size, (1, L, 1, S),
+                              generator=gen, device="cuda",
+                              dtype=torch.int32)
+             for k in ("tokens", "labels")}
+
+    def step():
+        box[0], metrics = train(box[0], batch)
+        return box[0], metrics
+    step()
+    return (step, lambda: (box[0].params, batch),
+            InputShape("train", S, L, "train"), cfg)
+
+
+def dry_against_real(torch, kind, smi) -> dict:
+    """The op analysis over the real step on the card against the fake
+    trace of the same step: op counts, FLOPs, HBM and collective bytes,
+    the kernels' launches equal; the predicted live-storage peak within
+    DRY_PEAK_RTOL of the step's max_memory_allocated() rise plus cuBLAS's
+    workspace; the roofline time printed beside the measured step."""
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.op_analysis import OpCounter
+
+    step, args, shape, cfg = dry_real_step(torch, kind)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launched = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    counter = OpCounter(args())
+    with counter:
+        out = step()
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - m0
+    real = counter.finish(out)
+    ran = {k: kernels.LAUNCHES[k] - launched[k] for k in launched
+           if kernels.LAUNCHES[k] != launched[k]}
+    del out, step, args
+    torch.cuda.empty_cache()
+    over = {"use_kernels": True} if kind == "train" else None
+    fake, _ = dryrun.trace_step(cfg, shape, (1, 1), ("data", "model"),
+                                combine="dense", gfl_over=over,
+                                clients=shape.global_batch, device="cuda:0")
+    diff = {k: [fake.op_counts[k], real.op_counts[k]]
+            for k in set(fake.op_counts) | set(real.op_counts)
+            if fake.op_counts[k] != real.op_counts[k]}
+    require(fake.counts() == real.counts() and not diff,
+            f"dryrun: the {kind} step's real counts differ from its trace: "
+            f"{json.dumps({'real': real.counts(), 'trace': fake.counts(), 'ops': diff})}")
+    want = {"swa_decode"} if kind == "decode" else {"graph_combine"}
+    require(set(ran) == want and ran == fake.kernel_launches,
+            f"dryrun: {kind} launched {ran} on the card, the trace counts "
+            f"{fake.kernel_launches}")
+    allowed = DRY_PEAK_RTOL * rise + CUBLAS_WORKSPACE_BYTES
+    require(abs(fake.temp_bytes - rise) <= allowed,
+            f"dryrun: {kind} predicts a {fake.temp_bytes}-byte peak above "
+            f"its arguments, the card rose {rise} (allowed {allowed})")
+    roof = rl.Roofline(DRY_ARCH, kind, flops=fake.flops,
+                       hbm_bytes=fake.hbm_bytes, model_flops=0.0).finalize()
+    rec = {"phase": "dryrun", "step": kind, "counts": fake.counts(),
+           "launches": ran, "predicted_temp_bytes": fake.temp_bytes,
+           "max_memory_allocated_rise": rise,
+           "predicted_peak_bytes": fake.peak_bytes,
+           "argument_bytes": fake.argument_bytes,
+           "real_argument_bytes": real.argument_bytes,
+           "roofline_ms": max(roof.compute_s, roof.memory_s) * 1e3,
+           "bottleneck": roof.bottleneck,
+           "step_ms": [t * 1e3 for t in times], "power": smi}
+    emit(rec)
+    return rec
+
+
+def phase_dryrun(torch, smi) -> dict:
+    """The dry run on the card (module docstring, phase 20)."""
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+
+    for combo in DRY_COMBOS:
+        dry_pair(dryrun, *combo)
+    launches = {}
+    for kind in ("decode", "train"):
+        for k, n in dry_against_real(torch, kind, smi)["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    require(not dist.is_initialized(),
+            "dryrun: a fake process group outlived the phase")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5766,6 +5925,7 @@ def main() -> int:
         tp = timed("tp", phase_tp, torch, tp_refs)
         del tp_refs
         tpt = timed("tp_train", phase_tp_train, torch)
+        dry = timed("dryrun", phase_dryrun, torch, smi)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -5782,6 +5942,8 @@ def main() -> int:
         launches[name] += n
     launches["swa_decode"] += tp["launches"]   # the tp ranks' K8
     launches["graph_combine"] += tpt["launches"]   # the tp_train ranks' K3
+    for name, n in dry["launches"].items():    # the dryrun phase's real steps
+        launches[name] += n
     table = []
     main_t = timings[MAIN_SHAPE]
     for name, (source, replaces, key) in KERNELS.items():

@@ -13,9 +13,12 @@ back to the CPU.
 """
 from __future__ import annotations
 
+import functools
 import os
+import weakref
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 #: environment override for the package-wide base seed (see rng)
 SEED_ENV = "REPRO_SEED"
@@ -42,3 +45,30 @@ def rng(seed=None, device=None) -> torch.Generator:
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(int(seed))
     return gen
+
+
+def constant_cache(fn):
+    """``functools.lru_cache`` for a function that makes a constant tensor
+    its callers only read, kept apart under a ``FakeTensorMode`` (the dry
+    run, :mod:`repro_torch.launch.dryrun`): there each mode gets its own
+    fake copy, made from the real constant outside every dispatch mode,
+    so no fake tensor reaches a real run, no real one a fake trace, and
+    neither trace counts the constant's making (a real run makes it once,
+    before the steps it times)."""
+    real = functools.lru_cache(maxsize=None)(fn)
+    fakes = weakref.WeakKeyDictionary()
+
+    @functools.wraps(fn)
+    def get(*args):
+        mode = torch._C._get_dispatch_mode(
+            torch._C._TorchDispatchModeKey.FAKE)
+        if mode is None:
+            return real(*args)
+        memo = fakes.setdefault(mode, {})
+        if args not in memo:
+            with _disable_current_modes():
+                memo[args] = fn(*args)
+            memo[args] = mode.from_tensor(memo[args])
+        return memo[args]
+
+    return get

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import constant_cache
+
 LAPLACE_U_LO = -0.5 + 1e-7
 LAPLACE_U_HI = 0.5 - 1e-7
 
@@ -23,35 +25,30 @@ def laplace_from_uniform(u: torch.Tensor, scale) -> torch.Tensor:
     return -scale * torch.sign(u) * torch.log1p(-2.0 * torch.abs(u))
 
 
-_CONSTANTS: dict = {}
-
-
 def f32_scalar(x, device) -> torch.Tensor:
     """``x`` as a 0-d f32 tensor on ``device``.  A tensor (a round's
     staged sigma) passes through; a Python number is made once per
-    (device, value) and kept.  It is made by a fill on the device, not
-    copied from the host: a copy from pageable memory waits for the
-    device, which a round body may not do (gflint GFL003; an eager round
-    under ``torch.cuda.set_sync_debug_mode("error")`` raises on it), and
-    which a CUDA graph cannot capture."""
+    (device, value) and kept (:func:`repro_torch.constant_cache`).  It is
+    made by a fill on the device, not copied from the host: a copy from
+    pageable memory waits for the device, which a round body may not do
+    (gflint GFL003; an eager round under
+    ``torch.cuda.set_sync_debug_mode("error")`` raises on it), and which a
+    CUDA graph cannot capture."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
-    key = (torch.device(device), float(x))
-    t = _CONSTANTS.get(key)
-    if t is None:
-        t = _CONSTANTS[key] = torch.full((), float(x), dtype=torch.float32,
-                                         device=device)
-    return t
+    return _f32_constant(torch.device(device), float(x))
 
 
-def _sqrt2(device) -> torch.Tensor:
+@constant_cache
+def _f32_constant(device: torch.device, x: float) -> torch.Tensor:
+    return torch.full((), x, dtype=torch.float32, device=device)
+
+
+@constant_cache
+def _sqrt2(device: torch.device) -> torch.Tensor:
     """f32 sqrt(2) as the reference computes it: the square root of an f32
     2, on the device, kept per device."""
-    key = (torch.device(device), "sqrt2")
-    t = _CONSTANTS.get(key)
-    if t is None:
-        t = _CONSTANTS[key] = f32_scalar(2.0, device).sqrt()
-    return t
+    return _f32_constant(device, 2.0).sqrt()
 
 
 def sample_laplace(shape, sigma, *, generator: torch.Generator | None = None,

@@ -11,6 +11,12 @@ and adds them at every replay (:func:`count_replay`), so ``LAUNCHES``
 counts real launches either way, and ``REPLAYED`` the share of them that
 replays made.  Wrappers count through :func:`count`, under a lock, since
 the fleet's in-process workers launch from several threads.
+
+K3 and K8 also report each call's modelled bytes and FLOPs (their ``cost``
+functions) to the op analyses listening in :data:`LISTENERS`
+(:class:`repro_torch.launch.op_analysis.OpCounter`), on real tensors where
+they launch and on fake ones, where the wrapper returns the output's shape
+and launches nothing (the dry run).
 """
 from __future__ import annotations
 
@@ -21,12 +27,22 @@ LAUNCHES = {"fold_norms": 0, "fold_apply": 0, "graph_combine": 0,
             "clip_accum": 0, "laplace_transform": 0}
 REPLAYED = dict.fromkeys(LAUNCHES, 0)
 _COUNT_LOCK = threading.Lock()
+#: callables ``(name, cost)`` told of each K3 / K8 call; empty unless an
+#: op analysis is running
+LISTENERS: list = []
 
 
 def count(name: str) -> None:
     """Count one launch of kernel ``name`` (a wrapper, where it launches)."""
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+
+
+def report(name: str, cost: dict) -> None:
+    """Tell the listening op analyses of one call of kernel ``name`` and
+    its ``cost`` (``{"bytes", "flops", "dot_flops"}``)."""
+    for listen in LISTENERS:
+        listen(name, cost)
 
 
 def reset_launches() -> None:

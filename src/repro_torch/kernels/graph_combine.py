@@ -12,6 +12,7 @@ as the engines store it, so nothing is transposed or copied.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch import kernels as _k
 from repro_torch.kernels import _build
@@ -35,6 +36,28 @@ def graph_combine_plain(A, psi, g=None, *, cache=None, gate=None
     return (matmul_f32(a32, x + g32) - g32).to(psi.dtype)
 
 
+def cost(P: int, D: int, esize: int, *, g: bool = False,
+         gated: bool = False) -> dict:
+    """Bytes and FLOPs of one call at [P, D] (``esize`` bytes an element of
+    psi): A read as stored (f32), psi (and g, and cache) read and the
+    output written once in psi's dtype, gate (f32) read; the product's 2 P
+    P D FLOPs (``dot_flops``), g's add and subtract 2 P D, the gate's blend
+    3 P D.  The bound of the smoke's K3 rows and K3's count in the op
+    analysis (``launch/op_analysis.py``)."""
+    dot = 2 * P * P * D
+    return {"bytes": P * P * 4 + (2 + g + gated) * P * D * esize
+            + (P * 4 if gated else 0),
+            "flops": dot + (2 * P * D if g else 0)
+            + (3 * P * D if gated else 0),
+            "dot_flops": dot}
+
+
+def _cost_of(psi, g, gate) -> dict:
+    P, D = psi.shape
+    return cost(P, D, psi.element_size(), g=g is not None,
+                gated=gate is not None)
+
+
 def graph_combine(A: torch.Tensor, psi: torch.Tensor,
                   g: torch.Tensor | None = None, *,
                   cache: torch.Tensor | None = None,
@@ -44,7 +67,10 @@ def graph_combine(A: torch.Tensor, psi: torch.Tensor,
     psi, 0 = re-announce cache).  Returns [P, D] in psi's dtype.
 
     The checks are a fixed number of attribute reads, since the main path
-    calls this once a round at D = 2, where host time is the cost."""
+    calls this once a round at D = 2, where host time is the cost.  On
+    fake tensors (the dry run) it returns the output's shape, launches
+    nothing and reports its :func:`cost` to ``kernels.LISTENERS``: a fake
+    tensor holds no data for any kernel to read."""
     if psi.dim() != 2 or psi.dtype not in FLOAT_TYPES:
         raise TypeError(f"psi: {psi.dim()}-D {psi.dtype}, expected 2-D "
                         f"f32 or bf16")
@@ -63,12 +89,15 @@ def graph_combine(A: torch.Tensor, psi: torch.Tensor,
     if gate is not None:
         operand(cache, "cache", (P, D), (psi.dtype,), dev)
         operand(gate, "gate", (P,), (torch.float32,), dev)
+    if dev.type == "cuda" and P > MAX_P:
+        raise ValueError(f"graph_combine: P={P} exceeds {MAX_P}")
+    if isinstance(psi, FakeTensor):
+        _k.report("graph_combine", _cost_of(psi, g, gate))
+        return torch.empty_like(psi)
     if dev.type != "cuda":
         if dev.type != "cpu":
             raise ValueError(f"no kernel for device {dev}")
         return graph_combine_plain(A, psi, g, cache=cache, gate=gate)
-    if P > MAX_P:
-        raise ValueError(f"graph_combine: P={P} exceeds {MAX_P}")
     A = A.contiguous()                          # a no-op on the main path
     out = torch.empty_like(psi)
     # ctypes converts every argument on every call: P and the dtype go as one
@@ -79,4 +108,6 @@ def graph_combine(A: torch.Tensor, psi: torch.Tensor,
         P | (psi.dtype is torch.bfloat16) << 8, D, raw_stream(dev.index)),
         "graph_combine")
     _k.count("graph_combine")
+    if _k.LISTENERS:
+        _k.report("graph_combine", _cost_of(psi, g, gate))
     return out

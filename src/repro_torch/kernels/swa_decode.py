@@ -19,6 +19,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch import kernels as _k
 from repro_torch.kernels import _build
@@ -37,7 +38,25 @@ SPLIT_TILES = 4        # tiles a split, at least, so its copies pipeline
 TILES = (64, 32, 16, 8)
 
 __all__ = ["swa_decode", "swa_decode_attention_plain", "plan",
-           "split_count", "tile_slots", "smem_row"]
+           "split_count", "tile_slots", "smem_row", "cost"]
+
+
+def cost(B: int, H: int, KV: int, n_live: int, Dh: int, esize: int) -> dict:
+    """Bytes and FLOPs of one call over ``n_live`` live slots: each live K
+    and V row read once, q read and the output written once, nvalid's 4
+    bytes; 4 B H n_live Dh FLOPs (q.k and the weighted sum, all
+    ``dot_flops``).  The bound of the smoke's K8 rows, and K8's count in
+    the op analysis (``launch/op_analysis.py``), which cannot read nvalid
+    and counts every slot live (n_live = C, a full cache)."""
+    flops = 4 * B * H * n_live * Dh
+    return {"bytes": 2 * B * n_live * KV * Dh * esize
+            + 2 * B * H * Dh * esize + 4,
+            "flops": flops, "dot_flops": flops}
+
+
+def _full_cost(q, k) -> dict:
+    B, H, Dh = q.shape
+    return cost(B, H, k.shape[2], k.shape[1], Dh, q.element_size())
 
 
 def smem_row(Dh: int, esize: int, tile: int) -> int:
@@ -153,13 +172,19 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if H % KV:
         raise ValueError(f"KV heads {KV} do not divide query heads {H}")
     check(nvalid, "nvalid", (1,), (torch.int32,))
-    if not on_cuda(q, k, v, nvalid):
-        return swa_decode_attention_plain(q, k, v, nvalid)
-    if H // KV > MAX_GROUP or Dh > MAX_HEAD_DIM:
+    cuda = on_cuda(q, k, v, nvalid)
+    if cuda and (H // KV > MAX_GROUP or Dh > MAX_HEAD_DIM):
         raise ValueError(f"swa_decode: G={H // KV} > {MAX_GROUP} or "
                          f"Dh={Dh} > {MAX_HEAD_DIM}")
+    if isinstance(q, FakeTensor):
+        _k.report("swa_decode", _full_cost(q, k))
+        return torch.empty_like(q)
+    if not cuda:
+        return swa_decode_attention_plain(q, k, v, nvalid)
     out = launch(_build.function("swa_decode"), q, k, v, nvalid)
     _k.count("swa_decode")
+    if _k.LISTENERS:
+        _k.report("swa_decode", _full_cost(q, k))
     return out
 
 

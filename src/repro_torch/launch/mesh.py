@@ -29,10 +29,15 @@ and the dense combine run, but none in ``send`` / ``recv``: there
 :meth:`Mesh.ppermute` runs as one sum ``all_reduce``, chosen by the
 backend and the device.  A group whose backend is not the one asked for,
 or not the device's default when none is, raises; nothing falls back to
-another backend.
+another backend.  The dry run (:mod:`repro_torch.launch.dryrun`) asks for
+``"fake"``: torch's fake c10d backend, on cuda or cpu tensors, whose
+collectives move nothing (:func:`fake_world` starts its group and always
+ends it); it models NCCL across cards, so a ppermute is one
+``batch_isend_irecv``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from typing import Optional
@@ -40,7 +45,8 @@ from typing import Optional
 import torch
 
 _BACKEND = {"cuda": "nccl", "cpu": "gloo"}
-_BACKENDS = {"nccl": ("cuda",), "gloo": ("cuda", "cpu")}
+_BACKENDS = {"nccl": ("cuda",), "gloo": ("cuda", "cpu"),
+             "fake": ("cuda", "cpu")}
 
 
 def _dist():
@@ -58,8 +64,8 @@ class Mesh:
     layout is checked when a collective or a rank's servers are first
     asked for, so a mesh of any shape can describe specs
     (:mod:`repro_torch.launch.sharding`) on a machine without a card.
-    ``backend`` (``"nccl"`` or ``"gloo"``) is the process group's backend
-    the caller asks for; None takes the device's default (NCCL for cuda,
+    ``backend`` (``"nccl"``, ``"gloo"`` or ``"fake"``) is the process
+    group's backend the caller asks for; None takes the device's default (NCCL for cuda,
     gloo for cpu)."""
 
     def __init__(self, shape, axis_names, *, device=None,
@@ -133,7 +139,8 @@ class Mesh:
                     f"the process group's backend is {have!r}; tensors on "
                     f"{self.device} were asked to go over {want!r} (no "
                     "other backend is taken in its place)")
-            # gloo sends and receives host tensors only
+            # gloo sends and receives host tensors only; NCCL, and the
+            # fake backend that models it in the dry run, take any
             lay["p2p"] = not (want == "gloo" and self.device.type == "cuda")
             # every rank makes every group, in one order
             for m in range(m_ranks):
@@ -274,6 +281,27 @@ def _device_for(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     return dev
+
+
+@contextlib.contextmanager
+def fake_world(world: int, rank: int = 0):
+    """A ``world``-rank process group over torch's ``"fake"`` backend, this
+    process as rank ``rank``: every collective returns at once and moves
+    nothing (the dry run, :mod:`repro_torch.launch.dryrun`, traces one
+    rank of a production mesh this way).  The group is destroyed on exit,
+    also when the block raises, so no later :class:`Mesh` sees its world.
+    """
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist = _dist()
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already up: the fake world "
+                           "would replace its world")
+    dist.init_process_group("fake", store=FakeStore(), rank=int(rank),
+                            world_size=int(world))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def init_world(device=None, dist_backend: Optional[str] = None

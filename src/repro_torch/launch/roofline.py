@@ -6,19 +6,23 @@ limit (dense, no sparsity).  A card set below that limit runs slower under
 load, so every time measured against these roofs is reported beside the
 card's ``nvidia-smi`` name and power limit.
 
-Left out of the port: ``shape_bytes``, ``parse_collectives`` and
-``parse_collectives_scaled``, which read XLA's HLO text; torch has no HLO,
-so there is nothing for them to parse.
+The reference reads a step's FLOPs, bytes and collectives out of XLA's
+HLO text (``shape_bytes``, ``parse_collectives``,
+``parse_collectives_scaled``); the port counts them from the step's
+dispatched op stream instead (:mod:`repro_torch.launch.op_analysis`, used
+by the dry run, :mod:`repro_torch.launch.dryrun`), so those parsers have
+no counterpart here.
 """
 from __future__ import annotations
 
 import json
-from dataclasses import asdict, dataclass
+from dataclasses import asdict, dataclass, field
 
 HBM_BYTES_PER_S = 3.35e12        # HBM3, 80 GB (data sheet)
 F32_OPS_PER_S = 67e12            # fp32 outside the tensor cores, FMA = 2
 BF16_OPS_PER_S = 989e12          # bf16 tensor cores, dense
 L2_BYTES = 50 * 2 ** 20          # L2 cache (data sheet: 50 MB)
+HBM_CAPACITY_BYTES = 80e9        # HBM3 (data sheet: 80 GB)
 SM_COUNT = 132
 FP32_LANES_PER_SM = 128          # Hopper white paper
 INT32_LANES_PER_SM = 64          # Hopper white paper
@@ -31,6 +35,9 @@ SM_CLOCK_HZ = F32_OPS_PER_S / (2 * FP32_LANES_PER_SM * SM_COUNT)
 #: programming guide, compute capability 9.0), so a bound that counts them
 #: here is a lower bound.
 INT32_OPS_PER_S = INT32_LANES_PER_SM * SM_COUNT * SM_CLOCK_HZ
+#: NVLink 4, a card's total bandwidth (data sheet: 900 GB/s): the roof of
+#: a collective's bytes on a card
+NVLINK_BYTES_PER_S = 900e9
 
 
 def kernel_bound_ms(nbytes: float, flops: float = 0.0,
@@ -47,24 +54,36 @@ def kernel_bound_ms(nbytes: float, flops: float = 0.0,
 
 @dataclass
 class Roofline:
-    """One card's roofline of a step: ``flops`` and ``hbm_bytes`` are
-    counted by the caller from the step's shapes (there is no compiled
-    program to ask), ``model_flops`` from :func:`model_flops_estimate`."""
+    """The roofline of a step over ``chips`` cards (the reference's record
+    of a mesh): ``flops``, ``hbm_bytes`` and ``collective_bytes`` summed
+    over the cards (one card's times ``chips`` for an SPMD step, counted
+    by :mod:`repro_torch.launch.op_analysis`; a kernel bench's call on one
+    card), ``model_flops`` from :func:`model_flops_estimate`.  Each time
+    is a card's share over its roof, and ``bottleneck`` the largest."""
     arch: str
     shape: str
     flops: float
     hbm_bytes: float
     model_flops: float
+    mesh: str = ""
+    chips: int = 1
+    collective_bytes: float = 0.0
     compute_s: float = 0.0
     memory_s: float = 0.0
+    collective_s: float = 0.0
     bottleneck: str = ""
     useful_flop_frac: float = 0.0
+    collective_detail: dict = field(default_factory=dict)
+    memory_per_device: dict = field(default_factory=dict)
 
     def finalize(self) -> "Roofline":
-        self.compute_s = self.flops / BF16_OPS_PER_S
-        self.memory_s = self.hbm_bytes / HBM_BYTES_PER_S
-        self.bottleneck = ("compute" if self.compute_s >= self.memory_s
-                           else "memory")
+        self.compute_s = self.flops / (self.chips * BF16_OPS_PER_S)
+        self.memory_s = self.hbm_bytes / (self.chips * HBM_BYTES_PER_S)
+        self.collective_s = self.collective_bytes / (self.chips
+                                                     * NVLINK_BYTES_PER_S)
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        self.bottleneck = max(terms, key=terms.get)
         self.useful_flop_frac = (self.model_flops / self.flops
                                  if self.flops else 0.0)
         return self

@@ -377,13 +377,18 @@ def make_train_step(model: Model, gfl: GFLConfig, mesh: Mesh,
         return client_grads(model, w_p, client_batch, remat_policy, view,
                             shared, partial)
 
+    # every rank runs the same ops (SPMD): a block another rank counts is
+    # squared and summed, then selected away
+    counts = ({k: torch.tensor(c, device=dev) for k, c in counted.items()}
+              if group is not None else None)
+
     def group_sq(tree) -> torch.Tensor:
         """The sum of squares of the whole leaves whose blocks ``tree``
         holds, f32, on every rank of the group."""
         sq = torch.zeros((), dtype=torch.float32, device=dev)
         for k, g in tree.items():
-            if counted[k]:
-                sq = sq + torch.sum(torch.square(g.to(torch.float32)))
+            sq = sq + torch.where(
+                counts[k], torch.sum(torch.square(g.to(torch.float32))), 0.0)
         return group.all_reduce(sq)
 
     def clip(grads):

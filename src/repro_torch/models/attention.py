@@ -39,6 +39,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels import ops
@@ -151,8 +152,11 @@ def _full_attention(q: torch.Tensor, k: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _sqrt_f32(n: int) -> float:
-    """sqrt(n) as the reference's f32 gives it."""
-    return float(torch.sqrt(torch.tensor(n, dtype=torch.float32)))
+    """sqrt(n) as the reference's f32 gives it: a host constant, made
+    outside every dispatch mode (a fake one, the dry run's, holds no
+    value to read)."""
+    with _disable_current_modes():
+        return float(torch.sqrt(torch.tensor(n, dtype=torch.float32)))
 
 
 # --- KV cache -----------------------------------------------------------
@@ -298,11 +302,15 @@ def _mla_qkr(params, x: torch.Tensor, positions: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _mla_sqrt(m: MLAConfig) -> torch.Tensor:
-    """sqrt(dn + dr) as the reference's f32 gives it, a host scalar (read
-    only)."""
-    return torch.sqrt(torch.tensor(m.qk_nope_head_dim + m.qk_rope_head_dim,
-                                   dtype=torch.float32))
+def _mla_scales(m: MLAConfig) -> tuple:
+    """(sqrt(dn + dr), 1 / sqrt(dn + dr)) as the reference's f32 gives
+    them: host constants, made outside every dispatch mode (a fake one
+    holds no value to read)."""
+    r = _sqrt_f32(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    with _disable_current_modes():
+        # a CPU tensor: the float() reads host memory and syncs nothing
+        inv = float(1.0 / torch.tensor(r, dtype=torch.float32))  # gflint: disable=GFL003
+    return r, inv
 
 
 def mla_forward(params, x: torch.Tensor, positions: torch.Tensor,
@@ -321,7 +329,7 @@ def mla_forward(params, x: torch.Tensor, positions: torch.Tensor,
                                             group)
     k_nope = (c_kv @ params["w_uk"]).reshape(B, S, h, dn)
     v = (c_kv @ params["w_uv"]).reshape(B, S, h, dv)
-    scale = float(1.0 / _mla_sqrt(m))
+    scale = _mla_scales(m)[1]
 
     chunk = min(chunk, S)
     while S % chunk:
@@ -388,7 +396,7 @@ def mla_decode(params, x: torch.Tensor, cache_ckv: torch.Tensor,
     s = torch.einsum("bqhr,bsr->bhqs", q_eff, ckv32)
     s = s + torch.einsum("bqhd,bsd->bhqs", q_rope.to(torch.float32),
                          cache_kr.to(torch.float32))
-    s = s / float(_mla_sqrt(m))
+    s = s / _mla_scales(m)[0]
     valid = torch.arange(C, device=x.device) <= pos
     s = s.masked_fill(~valid, NEG_INF)
     w = torch.softmax(s, dim=-1)                                # [B,h,1,C]

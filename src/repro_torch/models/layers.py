@@ -21,12 +21,12 @@ is held at a time.
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import constant_cache
 from repro_torch.models.parallel import (copy_to_group, gather_from_group,
                                          reduce_from_group)
 
@@ -81,7 +81,7 @@ def layer_norm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def rope_frequencies(head_dim: int, theta: float,
                      device: torch.device = torch.device("cpu")
                      ) -> torch.Tensor:

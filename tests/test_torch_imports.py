@@ -186,6 +186,28 @@ def test_import_check_covers_the_analysis_slice():
             PORT / "analysis" / "rules" / "__init__.py"} <= walked
 
 
+def test_import_check_covers_the_dry_run_slice():
+    """Every module of the reference now has a counterpart: the dry run
+    and its op analysis (the counterpart of ``hlo_analysis.py``)."""
+    slice_ = {"repro_torch.launch.dryrun", "repro_torch.launch.op_analysis",
+              "repro_torch.launch.roofline", "repro_torch.launch.mesh"}
+    assert slice_ <= set(_port_modules())
+    ref = ROOT / "src" / "repro"
+    names = {p.relative_to(ref).with_suffix("") for p in ref.rglob("*.py")}
+    renamed = {Path("launch/hlo_analysis"): Path("launch/op_analysis")}
+    missing = [str(n) for n in names
+               if not (PORT / renamed.get(n, n)).with_suffix(".py").exists()]
+    assert not missing, missing
+
+
+def test_dry_run_without_card_raises(monkeypatch):
+    """The dry run's fake tensors lie on cuda:0 unless --device cpu."""
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.run_one("smollm-135m", "decode_32k", multi_pod=False)
+
+
 def test_federated_lm_without_card_raises(monkeypatch):
     from repro_torch.launch import federated_lm
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -363,7 +363,8 @@ Phases, each printing JSON lines:
              outside it: none may raise.  A toy body calling .item() on a
              CUDA tensor under the same mode must raise.
 18. tp     — tensor parallelism for serving: four ranks spawned once
-             (the fleet phase's spawn context, joined within TP_JOIN_S)
+             (the fleet phase's spawn context, joined within TP_JOIN_S,
+             one intra-op thread each: the ranks share the host's cores)
              that share the card over gloo (NCCL takes no two ranks on
              one GPU; gloo takes CUDA tensors in all_reduce, the one
              collective the split forward runs) serve on mesh 1x4 through
@@ -452,6 +453,36 @@ Phases, each printing JSON lines:
              (three), with the card's name and power limit; the real
              steps' K3 and K8 launches go into the kernel line.  No fake
              process group may outlive the phase.
+21. tp16   — RWKV-6 over a model group that divides its width but not its
+             heads: rwkv6-3b at full width (d_model 2560, 40 heads,
+             vocab 65536) at the serve phase's depth of 8 layers on mesh
+             1x16, sixteen gloo ranks spawned once on the card (as the tp
+             phase's four), the 40 heads padded to 48 with zero heads, 3
+             a rank (rank 13 holds head 39 and two zero heads, ranks 14
+             and 15 zero heads only).  Serve: request B as the tp phase
+             serves it, teacher-forced on the serve phase's 1 x 1 run
+             (kept from before the tp phase), the prefill and every
+             step's logits within the tp bound below at M = 16, every
+             sequence's first greedy token equal to the 1 x 1 run's and
+             each step's too but at a tie: where the two tokens' 1 x 1
+             bf16 logits lie within one bf16 ulp (TP16_TIE_ULPS; a
+             rounding of either swaps them, and bf16 logits tie exactly
+             too), every such flip printed; the group's all_reduces
+             counted in the prefill and a step.  Train: one gradient of
+             the train step's (launch.steps.client_grads) on a client's
+             batch of the mesh phase's size (2 x 64 tokens, TP16_SEED),
+             of the same model in f32 (TP16_GRAD_DTYPE: in bf16 the
+             rounding alone moves a full-width gradient past the gate,
+             at any M), each rank's from the same params as the whole
+             model's gradient, which this process takes first: every
+             leaf within 4 bf16 ulps of its largest |value| (tp_train's
+             bound) of its block of the whole gradient, the loss within
+             the tp_train loss bound.  Padding: every zero head's params
+             (bf16 and f32), decode state and gradient exactly zero on
+             every rank.  Prints decode ms a step, the
+             collectives a step, weight and peak bytes a rank and the
+             gradient's worst leaf in bf16 ulps, with the card's name and
+             power limit.
 
 Tolerances: f32 outputs within atol 1e-5 of the plain version (the
 reference's parity contract, docs/kernels.md); fold_norms' f32 sums within
@@ -4811,6 +4842,7 @@ def tp_rank(rank, port, archs, root):
 
     import torch
     import torch.distributed as dist
+    torch.set_num_threads(1)        # the ranks share the host's cores
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=TP_RANKS,
@@ -4826,9 +4858,35 @@ def tp_rank(rank, port, archs, root):
     (Path(root) / f"rank{rank}.json").write_text(json.dumps(recs))
 
 
-def tp_serve(torch, rank, arch, ref):
+class Collectives:
+    """Counts the model group's sum all_reduces (``Mesh.all_reduce_model``,
+    every collective of a split model) inside the ``with``."""
+
+    def __init__(self):
+        self.n = 0
+
+    def __enter__(self):
+        from repro_torch.launch.mesh import Mesh
+        self.orig = orig = Mesh.all_reduce_model
+
+        def counted(mesh, x):
+            self.n += 1
+            return orig(mesh, x)
+        Mesh.all_reduce_model = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch.mesh import Mesh
+        Mesh.all_reduce_model = self.orig
+
+
+def tp_serve(torch, rank, arch, ref, mesh_spec=TP_MESH, after=None):
     """The body of :func:`tp_rank`: init, prefill, the teacher-forced
-    steps, their errors against ``ref`` and the live K8 checks."""
+    steps, their errors against ``ref``, the model group's all_reduces in
+    the prefill and a step, and the live K8 checks; on mesh
+    ``mesh_spec``.  ``after(model, cache, group)``, where given, runs last
+    (the model and the cache still alive), its dict merged into the
+    record."""
     from repro_torch import kernels as K
     from repro_torch import rng
     from repro_torch.kernels import ops
@@ -4839,7 +4897,7 @@ def tp_serve(torch, rank, arch, ref):
     from repro_torch.models.parallel import ModelGroup
 
     t_arch = time.perf_counter()
-    mesh = parse_mesh(TP_MESH, "cuda:0", "gloo")
+    mesh = parse_mesh(mesh_spec, "cuda:0", "gloo")
     group = ModelGroup.of(mesh)
     cfg, _ = serve_config(arch)
     gen = rng(0, "cuda")
@@ -4858,12 +4916,14 @@ def tp_serve(torch, rank, arch, ref):
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     with DecodeTap(ops, n_attn, keep) as tap, \
-            ForcedRoutes(torch, moe_mod, ref["routes"]) as routes:
+            ForcedRoutes(torch, moe_mod, ref["routes"]) as routes, \
+            Collectives() as coll:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = model.prefill(prompt, **inputs)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        n_prefill = coll.n
         steps = []
         for t in range(SERVE_NEW_TOKENS):
             step_logits, cache = model.decode_step(toks[:, t], cache)
@@ -4872,6 +4932,7 @@ def tp_serve(torch, rank, arch, ref):
         t2 = time.perf_counter()
     launches = K.LAUNCHES["swa_decode"]
     peak = torch.cuda.max_memory_allocated()
+    extra = {} if after is None else after(model, cache, group)
 
     def errs(got, want):
         got, want = got.float().cpu(), want.float()
@@ -4900,6 +4961,8 @@ def tp_serve(torch, rank, arch, ref):
             "weight_bytes": weight_bytes, "peak_memory_bytes": peak,
             "prefill_ms": (t1 - t0) * 1e3,
             "decode_ms_per_step": (t2 - t1) * 1e3 / SERVE_NEW_TOKENS,
+            "collectives_prefill": n_prefill,
+            "collectives_per_step": (coll.n - n_prefill) / SERVE_NEW_TOKENS,
             "k8_launches": launches, "k8_calls": tap.calls,
             "route_calls": [routes.calls, len(ref["routes"])],
             "route_rows_flipped": int(sum(routes.flips)) if routes.flips
@@ -4912,7 +4975,20 @@ def tp_serve(torch, rank, arch, ref):
             "step_argmax_agree": sum(
                 bool(torch.equal(g.argmax(-1).cpu(), w.argmax(-1)))
                 for g, w in zip(steps, ref["steps"])),
-            "live_k8": live}
+            "step_flips": greedy_flips(torch, steps, ref["steps"]),
+            "logits_dtype": str(logits.dtype),
+            "live_k8": live, **extra}
+
+
+def greedy_flips(torch, steps, want) -> list:
+    """Each (step, row) whose greedy token differs from the 1 x 1 run's:
+    [step, row, the 1 x 1 logit of its token, of the rank's token]."""
+    out = []
+    for t, (g, w) in enumerate(zip(steps, want)):
+        got, top = g.argmax(-1).cpu(), w.argmax(-1)
+        for b in (got != top).nonzero().flatten().tolist():
+            out.append([t, b, float(w[b, top[b]]), float(w[b, got[b]])])
+    return out
 
 
 def tp_layers(cfg) -> int:
@@ -5247,16 +5323,18 @@ def tpt_whole_runs(torch, root) -> dict:
     return out
 
 
-def tpt_padding_zero(params, cfg, index) -> bool:
-    """Whether every padding head's rows of the rank's blocks are zero."""
+def tpt_padding_zero(params, cfg, index, M=TPT_M, lead=1) -> bool:
+    """Whether every padding head's rows of the rank's blocks (``params``,
+    {key: block} behind ``lead`` dims: a train state's server dim) are
+    zero, at a model group of M."""
     from repro_torch.launch import sharding
     ok = True
     for k, x in params.items():
-        hs = sharding._head_set(k, cfg, TPT_M)
+        hs = sharding._head_set(k, cfg, M)
         if hs is None:
             continue
         mine = hs[0][index]
-        d = 1 + sharding.stack_lead(k) + \
+        d = lead + sharding.stack_lead(k) + \
             sharding.param_spec(k, cfg).index("model")
         width = x.shape[d] // len(mine)
         for h, j in enumerate(mine):
@@ -5310,6 +5388,7 @@ def tp_train_rank(rank, port, root):
 
     import torch
     import torch.distributed as dist
+    torch.set_num_threads(1)        # the ranks share the host's cores
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=TPT_RANKS,
@@ -5574,6 +5653,304 @@ def phase_tp_train(torch) -> dict:
     emit({"phase": "tp_train", "ranks_seconds": ranks_s,
           "seconds": time.perf_counter() - t_phase})
     return {"launches": launches}
+
+
+# ----------------------------------------------------------------- tp16
+
+TP16_ARCH, TP16_MESH, TP16_RANKS = "rwkv6-3b", "1x16", 16
+TP16_JOIN_S = 400           # the ranks' join limit, seconds
+TP16_SEED = MESH_SEED + 2   # the gradient batch's tokens
+TP16_BATCH = (MESH_PER_CLIENT, MESH_SEQ)    # a client's batch of the mesh
+# the gradient's param dtype: in bf16 the split moves a full-width
+# rwkv6-3b's gradient by rounding alone past the 4-ulp gate (at 2 layers
+# 3.9-4.5 bf16 ulps of a leaf's largest |value| at M = 2, 4 and 16 alike,
+# at 8 layers 850 at M = 16; chip_tp16_probe.py), while in f32 a wrong
+# split still moves it by its own size
+TP16_GRAD_DTYPE = "float32"
+# greedy tokens may differ from the 1 x 1 run's only where the two tokens'
+# 1 x 1 bf16 logits lie within this many bf16 ulps of the top one: a
+# rounding of either can swap them (or they tie, and argmax takes the
+# first)
+TP16_TIE_ULPS = 1
+
+
+def tp16_batch(torch, cfg) -> dict:
+    """The gradient's batch: a client's tokens of the mesh phase's size,
+    drawn on the host from TP16_SEED, on the card."""
+    import numpy as np
+    B, S = TP16_BATCH
+    toks = np.random.default_rng(TP16_SEED).integers(0, cfg.vocab_size,
+                                                     (B, S + 1))
+    toks = torch.tensor(toks, dtype=torch.int64, device="cuda")
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def tp16_grads(torch, model):
+    """(loss, {key: gradient}, ms, all_reduces) of the train step's
+    gradient function (``steps.client_grads``) on :func:`tp16_batch`."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models.flat import FlatView
+    batch = tp16_batch(torch, model.cfg)
+    with Collectives() as coll:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = S.client_grads(model, FlatView(model).tree(model),
+                                     batch)
+        torch.cuda.synchronize()
+    return (float(loss), grads, (time.perf_counter() - t0) * 1e3, coll.n)
+
+
+def tp16_grad_config(cfg):
+    """The gradient's config: ``cfg`` in TP16_GRAD_DTYPE."""
+    import dataclasses
+    return dataclasses.replace(cfg, param_dtype=TP16_GRAD_DTYPE)
+
+
+def bf16_ulp(v: float) -> float:
+    """One bf16 ulp at |v| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(v))) - 7) if v else 2.0 ** -133
+
+
+def tp16_whole_grads(torch, cfg, root) -> dict:
+    """The 1 x 1 gradient of ``cfg``'s whole model from seed 0: each
+    rank's blocks of its split leaves to ``root/grad_<m>.pt``; the
+    replicated leaves, every leaf's largest |gradient| and the loss to
+    ``root/grad_whole.pt``."""
+    from repro_torch import rng
+    from repro_torch.launch import sharding
+    from repro_torch.models.model import Model
+    from repro_torch.models.parallel import ModelGroup
+    M = TP16_RANKS
+    model = Model.init(cfg, rng(0, "cuda"))
+    loss, grads, ms, _ = tp16_grads(torch, model)
+    del model
+    torch.save({"loss": loss,
+                "top": {k: float(g.float().abs().max())
+                        for k, g in grads.items()},
+                "leaves": {k: g.cpu() for k, g in grads.items()
+                           if not sharding.is_split(k, cfg, M)}},
+               Path(root) / "grad_whole.pt")
+    for m in range(M):
+        torch.save({k: sharding.shard_leaf(k, g, cfg, ModelGroup(M, m),
+                                           lead=sharding.stack_lead(k)).cpu()
+                    for k, g in grads.items()
+                    if sharding.is_split(k, cfg, M)},
+                   Path(root) / f"grad_{m}.pt")
+    del grads
+    torch.cuda.empty_cache()
+    return {"loss": loss, "grad_ms": ms}
+
+
+def tp16_rank(rank, port, root):
+    """One rank of the tp16 phase (a spawned process) on cuda:0 in a gloo
+    world of TP16_RANKS: the split rwkv6-3b's request through
+    :func:`tp_serve`, then its gradient and the padding checks
+    (:func:`tp16_after`); writes its record to ``root/rank<r>.json``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    torch.set_num_threads(1)        # the ranks share the host's cores
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=TP16_RANKS,
+                            timeout=timedelta(seconds=TP16_JOIN_S))
+    t_group = time.perf_counter() - t0
+    try:
+        rec = tp_serve(torch, rank, TP16_ARCH,
+                       torch.load(Path(root) / "ref.pt"), TP16_MESH,
+                       after=lambda model, cache, group: tp16_after(
+                           torch, model, cache, group, root))
+    finally:
+        dist.destroy_process_group()
+    rec.update(group_s=t_group, rank_s=time.perf_counter() - t0)
+    (Path(root) / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def tp16_after(torch, model, cache, group, root) -> dict:
+    """A tp16 rank's checks after its request: its zero heads' params and
+    decode state exactly zero; the gradient of the same model in
+    TP16_GRAD_DTYPE (drawn from seed 0 over the group) against its blocks
+    of the 1 x 1 gradient (max abs err and the whole leaf's largest
+    |value| a leaf), its zero heads' params and gradient exactly zero."""
+    from repro_torch import rng
+    from repro_torch.launch import sharding
+    from repro_torch.models.flat import FlatView
+    from repro_torch.models.model import Model
+    cfg, M, m = model.cfg, group.size, group.index
+    mine = sharding.heads(cfg, M).q[m]
+    state_zero = all(not bool(cache["wkv"][:, :, i].any())
+                     for i, j in enumerate(mine) if j < 0)
+    params_zero = tpt_padding_zero(FlatView(model).tree(model), cfg, m,
+                                   M=M, lead=0)
+    t0 = time.perf_counter()
+    model = Model.init(tp16_grad_config(cfg), rng(0, "cuda"), group=group)
+    params_zero = params_zero and tpt_padding_zero(
+        FlatView(model).tree(model), cfg, m, M=M, lead=0)
+    loss, grads, ms, n = tp16_grads(torch, model)
+    t1 = time.perf_counter()
+    want = torch.load(Path(root) / f"grad_{m}.pt", map_location="cuda")
+    whole = torch.load(Path(root) / "grad_whole.pt", map_location="cuda")
+    want.update(whole["leaves"])
+    leaves = {k: [max_err(torch, g, want[k])
+                  if g.shape == want[k].shape else math.inf,
+                  whole["top"][k]] for k, g in grads.items()}
+    return {"grad_part_s": t1 - t0, "compare_s": time.perf_counter() - t1,
+            "heads_held": list(mine), "state_pads_zero": state_zero,
+            "param_pads_zero": params_zero,
+            "grad_pads_zero": tpt_padding_zero(grads, cfg, m, M=M, lead=0),
+            "grad_loss": loss, "grad_ms": ms, "grad_collectives": n,
+            "grad_leaves": leaves}
+
+
+def phase_tp16(torch, ref, smi) -> None:
+    """RWKV-6 over a model group that divides its width but not its heads
+    (module docstring, phase 21): rwkv6-3b at the serve phase's depth on
+    mesh 1x16, 16 gloo ranks on the card, against ``ref``, the serve
+    phase's 1 x 1 run of request B."""
+    import multiprocessing as mp
+    import socket
+    import statistics
+    import tempfile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import sharding
+
+    t_phase = time.perf_counter()
+    M = int(TP16_MESH.split("x")[1])
+    cfg, cut = serve_config(TP16_ARCH)
+    full = get_config(TP16_ARCH)
+    H = sharding.rwkv_heads(cfg)
+    q = sharding.heads(cfg, M).q
+    require(M == TP16_RANKS and cfg.d_model == full.d_model == 2560
+            and (H, cfg.vocab_size) == (40, 65536) and H % M
+            and cfg.d_model % M == 0 and q[13] == (39, -1, -1)
+            and q[15] == (-1, -1, -1),
+            f"tp16: {cfg.name} at M = {M}: {H} heads, d_model "
+            f"{cfg.d_model}, heads of ranks 13 and 15 {q[13]}, {q[15]}")
+    require(ref["request"] == TP_REQUESTS[TP16_ARCH],
+            f"tp16: reference of request {ref['request']}")
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="tp16_") as root:
+        torch.save(ref, Path(root) / "ref.pt")
+        t_whole = time.perf_counter()
+        whole = tp16_whole_grads(torch, tp16_grad_config(cfg), root)
+        whole["files_s"] = time.perf_counter() - t_whole
+        t_spawn = time.perf_counter()
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        procs = [ctx.Process(target=tp16_rank, args=(r, port, root))
+                 for r in range(TP16_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + TP16_JOIN_S
+        try:
+            for p in procs:
+                p.join(max(1.0, deadline - time.perf_counter()))
+        finally:
+            hung = [p.pid for p in procs if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        require(not hung and codes == [0] * TP16_RANKS,
+                f"tp16: rank exit codes {codes}, still running after "
+                f"{TP16_JOIN_S} s: {hung}")
+        ranks = [json.loads((Path(root) / f"rank{r}.json").read_text())
+                 for r in range(TP16_RANKS)]
+        ranks_s = time.perf_counter() - t_spawn
+    L = tp_layers(cfg)
+    want_tokens = ref["tokens"]
+    loss_tol = math.sqrt(2 * L) * M * 2.0 ** -9
+    worst = {k: max(rk["grad_leaves"][k][0] for rk in ranks)
+             / (2.0 ** -7 * ranks[0]["grad_leaves"][k][1] or 1.0)
+             for k in ranks[0]["grad_leaves"]}
+    steps = [e for rk in ranks for e in rk["steps"]]
+    worst_step = max(steps, key=lambda e: e["max_abs_err"] / e["max_abs"])
+    emit({"phase": "tp16", "arch": TP16_ARCH, "mesh": TP16_MESH,
+          "backend": "gloo", "device": "cuda:0 (one card, 16 ranks)",
+          "power": smi, "layers": cfg.num_layers, "reduced": cut,
+          "heads": H, "heads_a_rank": len(q[0]), "gate_layers": L,
+          "decode_ms_per_step": [rk["decode_ms_per_step"] for rk in ranks],
+          "decode_ms_per_step_median": statistics.median(
+              rk["decode_ms_per_step"] for rk in ranks),
+          "prefill_ms_max": max(rk["prefill_ms"] for rk in ranks),
+          "collectives_per_step": ranks[0]["collectives_per_step"],
+          "collectives_prefill": ranks[0]["collectives_prefill"],
+          "weight_bytes": [rk["weight_bytes"] for rk in ranks],
+          "peak_memory_bytes": [rk["peak_memory_bytes"] for rk in ranks],
+          "init_s_max": max(rk["init_s"] for rk in ranks),
+          "rank_s": [round(rk["rank_s"], 1) for rk in ranks],
+          "group_s_max": max(rk["group_s"] for rk in ranks),
+          "serve_s_max": max(rk["seconds"] for rk in ranks),
+          "grad_part_s_max": max(rk["grad_part_s"] for rk in ranks),
+          "compare_s_max": max(rk["compare_s"] for rk in ranks),
+          "whole_grad_and_files_s": whole["files_s"],
+          "prefill_gate_rank0": tp_within(ranks[0]["prefill"], L, M),
+          "worst_step": worst_step,
+          "worst_step_gate": tp_within(worst_step, L, M),
+          "step_argmax_agree": [rk["step_argmax_agree"] for rk in ranks],
+          "tie_ulps": TP16_TIE_ULPS,
+          "logits_dtype": ranks[0]["logits_dtype"],
+          "prefill_rank0": ranks[0]["prefill"],
+          "steps_max_abs_err_max": max(e["max_abs_err"] for e in steps),
+          "steps_rms_err_max": max(e["rms_err"] for e in steps),
+          "step_flips_rank0": ranks[0]["step_flips"],
+          "step_flips_alike_on_every_rank": all(
+              rk["step_flips"] == ranks[0]["step_flips"] for rk in ranks),
+          "pads_zero_params_state_grad": [
+              all(rk[k] for rk in ranks) for k in
+              ("param_pads_zero", "state_pads_zero", "grad_pads_zero")]})
+    emit({"phase": "tp16", "power": smi, "grad_dtype": TP16_GRAD_DTYPE,
+          "whole_loss": whole["loss"],
+          "whole_grad_ms": whole["grad_ms"],
+          "grad_ms": [rk["grad_ms"] for rk in ranks],
+          "grad_collectives": ranks[0]["grad_collectives"],
+          "grad_loss": [rk["grad_loss"] for rk in ranks],
+          "loss_tol_rel": loss_tol, "ulps_allowed": MESH_COMBINE_ULPS,
+          "grad_worst_ulps": worst,
+          "pads_zero": "every rank's params, decode state and gradient",
+          "ranks_s": ranks_s,
+          "seconds": time.perf_counter() - t_phase})
+    for rk in ranks:
+        r = rk["rank"]
+        require(rk["group"] == [M, r] and rk["heads_held"] == list(q[r]),
+                f"tp16 rank {r}: model group {rk['group']}, heads "
+                f"{rk['heads_held']}")
+        require(rk["k8_launches"] == 0 == rk["k8_calls"],
+                f"tp16 rank {r}: {rk['k8_launches']} K8 launches")
+        ties = [f for f in rk["step_flips"]
+                if f[2] - f[3] > TP16_TIE_ULPS * bf16_ulp(f[2])]
+        require(rk["first_tokens"] == want_tokens[:, 0].tolist()
+                and not ties,
+                f"tp16 rank {r}: greedy tokens differ from the 1 x 1 run's "
+                f"(first {rk['first_tokens']}; [step, row, 1 x 1 logit of "
+                f"its token, of the rank's] past {TP16_TIE_ULPS} bf16 ulp: "
+                f"{ties})")
+        for what, e in [("prefill", rk["prefill"])] + [
+                (f"step {t}", e) for t, e in enumerate(rk["steps"])]:
+            gate = tp_within(e, L, M)
+            require(gate["ok"],
+                    f"tp16 rank {r} {what}: logits max abs err "
+                    f"{e['max_abs_err']} (limit {gate['atol']}), rms err "
+                    f"{e['rms_err']} (limit {gate['rms_tol']}), scale "
+                    f"{e['max_abs']}")
+        require(rk["state_pads_zero"] and rk["param_pads_zero"]
+                and rk["grad_pads_zero"],
+                f"tp16 rank {r}: a zero head is not zero: state "
+                f"{rk['state_pads_zero']}, params {rk['param_pads_zero']}, "
+                f"gradient {rk['grad_pads_zero']}")
+        require(abs(rk["grad_loss"] - whole["loss"])
+                <= loss_tol * whole["loss"],
+                f"tp16 rank {r}: loss {rk['grad_loss']}, the 1 x 1 "
+                f"model's {whole['loss']} (limit {loss_tol} of it)")
+        for k, (err, top) in rk["grad_leaves"].items():
+            ulps = MESH_COMBINE_ULPS * 2.0 ** -7 * top
+            require(err <= ulps, f"tp16 rank {r}: gradient {k} max abs err "
+                    f"{err} from its block of the 1 x 1 gradient, over "
+                    f"{MESH_COMBINE_ULPS} bf16 ulps {ulps}")
 
 
 # ----------------------------------------------------------------- main
@@ -5922,10 +6299,13 @@ def main() -> int:
         swa_row = timed("swa", phase_swa, torch)
         launches["swa_decode"], tp_refs = timed("serve", phase_serve, torch)
         timed("analysis", phase_analysis, torch)
+        tp16_ref = tp_refs[TP16_ARCH]       # phase_tp takes its refs
         tp = timed("tp", phase_tp, torch, tp_refs)
         del tp_refs
         tpt = timed("tp_train", phase_tp_train, torch)
         dry = timed("dryrun", phase_dryrun, torch, smi)
+        timed("tp16", phase_tp16, torch, tp16_ref, smi)
+        del tp16_ref
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

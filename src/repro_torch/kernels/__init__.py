@@ -16,7 +16,9 @@ K3 and K8 also report each call's modelled bytes and FLOPs (their ``cost``
 functions) to the op analyses listening in :data:`LISTENERS`
 (:class:`repro_torch.launch.op_analysis.OpCounter`), on real tensors where
 they launch and on fake ones, where the wrapper returns the output's shape
-and launches nothing (the dry run).
+and launches nothing (the dry run).  RWKV-6's time loop reports there too
+on fake tensors (``models.rwkv.time_loop_cost``), a modelled unit and no
+kernel.
 """
 from __future__ import annotations
 
@@ -27,8 +29,8 @@ LAUNCHES = {"fold_norms": 0, "fold_apply": 0, "graph_combine": 0,
             "clip_accum": 0, "laplace_transform": 0}
 REPLAYED = dict.fromkeys(LAUNCHES, 0)
 _COUNT_LOCK = threading.Lock()
-#: callables ``(name, cost)`` told of each K3 / K8 call; empty unless an
-#: op analysis is running
+#: callables ``(name, cost)`` told of each K3 / K8 call (and of each
+#: modelled unit); empty unless an op analysis is running
 LISTENERS: list = []
 
 
@@ -40,7 +42,8 @@ def count(name: str) -> None:
 
 def report(name: str, cost: dict) -> None:
     """Tell the listening op analyses of one call of kernel ``name`` and
-    its ``cost`` (``{"bytes", "flops", "dot_flops"}``)."""
+    its ``cost`` (``{"bytes", "flops", "dot_flops"}``, and ``"ops"`` for
+    a modelled unit that is no kernel)."""
     for listen in LISTENERS:
         listen(name, cost)
 

@@ -225,6 +225,7 @@ def analyze(stats, meta, *, arch, shape_name, combine) -> dict:
         "dot_flops_per_device": stats.dot_flops,
         "ops_per_device": stats.ops,
         "kernel_launches": dict(stats.kernel_launches),
+        "modelled": dict(stats.modelled),
         "n_params": n_params, "n_active_params": n_active,
         "fits_hbm": stats.peak_bytes <= rl.HBM_CAPACITY_BYTES,
         "combine": combine if shape.kind == "train" else None,

@@ -66,7 +66,11 @@ count as one op each (``kernel_launches``), with the bytes and FLOPs of
 their own cost models (``graph_combine.cost``, ``swa_decode.cost``, the
 functions ``chip_smoke.py`` bounds them with), reported by the wrappers
 through :data:`repro_torch.kernels.LISTENERS`, never recounted from their
-plain versions.
+plain versions.  RWKV-6's time loop on fake tensors reports its cost the
+same way (``models.rwkv.time_loop_cost``: the eager loop's op stream,
+exact for its forward, the backward's leading terms), counted under
+``modelled``: tracing its S steps op by op takes hours at S = 4096 (the
+reference's ``lax.scan`` compiles its body once).
 """
 from __future__ import annotations
 
@@ -112,6 +116,7 @@ class OpStats:
     ops: int = 0
     op_counts: Counter = field(default_factory=Counter)
     kernel_launches: dict = field(default_factory=dict)
+    modelled: dict = field(default_factory=dict)
     argument_bytes: int = 0
     output_bytes: int = 0
     temp_bytes: int = 0
@@ -126,7 +131,8 @@ class OpStats:
                 "dot_flops": self.dot_flops, "hbm_bytes": self.hbm_bytes,
                 "collective_bytes": self.collective_bytes,
                 "collective_counts": dict(self.collective_counts),
-                "kernel_launches": dict(self.kernel_launches)}
+                "kernel_launches": dict(self.kernel_launches),
+                "modelled": dict(self.modelled)}
 
 
 def _tensors(tree) -> list:
@@ -219,10 +225,17 @@ class OpCounter(TorchDispatchMode):
     # --------------------------------------------------------------- ops
 
     def _kernel(self, name: str, cost: dict) -> None:
+        """One reported call: a kernel's launch (one op), or a modelled
+        unit (its ``ops``)."""
         s = self.stats
-        s.ops += 1
-        s.op_counts[f"kernel.{name}"] += 1
-        s.kernel_launches[name] = s.kernel_launches.get(name, 0) + 1
+        if name in _k.LAUNCHES:
+            s.ops += 1
+            s.op_counts[f"kernel.{name}"] += 1
+            s.kernel_launches[name] = s.kernel_launches.get(name, 0) + 1
+        else:
+            s.ops += cost["ops"]
+            s.op_counts[f"modelled.{name}"] += 1
+            s.modelled[name] = s.modelled.get(name, 0) + 1
         s.hbm_bytes += cost["bytes"]
         s.flops += cost["flops"]
         s.dot_flops += cost["dot_flops"]

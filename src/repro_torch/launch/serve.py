@@ -23,8 +23,9 @@ has no kernel for them).  Prints the prefill time and the decode rate.
 ``--mesh DxM`` (the reference's flag) splits the requests over the D
 data ranks of a ``torch.distributed`` world (``torchrun``) and the model
 over the M ranks of each data block (tensor parallelism, every family:
-GQA or MLA heads, experts or their ff dim, Mamba2's and RWKV-6's heads,
-whisper's encoder and decoder; :mod:`repro_torch.models.parallel`), and
+GQA or MLA heads, experts or their ff dim, Mamba2's and RWKV-6's heads
+(RWKV-6's padded with zero heads where M divides its width but not its
+heads), whisper's encoder and decoder; :mod:`repro_torch.models.parallel`), and
 gathers the tokens at the end; rank 0 prints.  ``1x1``, the default, is
 the one-process path, and a world of 1 holds every data position and the
 whole model at any mesh.  ``--backend`` names the

@@ -25,16 +25,20 @@ pads the dims it cannot split evenly, so a padded head adds exactly 0.
 Mamba2's packed in-projection ``ssm/w_in`` (z, x, B, C and dt side by
 side) is held a segment at a time (:func:`mamba_ranges`): z and x by
 whole heads, B and C by N / M state columns of each group, dt by heads;
-its ``ssm/w_out`` and RWKV-6's time-mixing products split by whole heads,
-and a head count (or a state width) the group does not divide raises,
-naming the leaf.  The reference's ``cache_specs`` split the K/V cache's
+its ``ssm/w_out`` splits by whole heads, and a head count (or a state
+width) the group does not divide raises, naming the leaf.  RWKV-6's
+time-mixing products split by whole heads padded as MLA's
+(:func:`padded_heads`: ceil(H / M) heads a rank, zero heads last), so a
+group that divides its width but not its heads (rwkv6-3b's 40 at 16)
+runs.  The reference's ``cache_specs`` split the K/V cache's
 head_dim over ``"model"``; the port's caches hold the rank's whole K/V
 heads (and MLA's latent cache whole on every rank), and the Mamba2 and
-RWKV-6 states the rank's heads (the token-shift carries whole): a
-run-time layout, the specs stay the reference's.  :func:`unshard_leaf`
-puts the ranks' blocks back together, and :func:`multiplicity` says how
-many ranks hold each block (what a sum over the group counts once: the
-train step's clip and telemetry norms).  :data:`READ_IN_PART` lists the
+RWKV-6 states the rank's heads, pads included (the token-shift carries
+whole): a run-time layout, the specs stay the reference's.
+:func:`unshard_leaf` puts the ranks' blocks back together (pads
+dropped), and :func:`multiplicity` says how many ranks hold each block
+(what a sum over the group counts once: the train step's clip and
+telemetry norms).  :data:`READ_IN_PART` lists the
 whole leaves a rank reads only in part (its heads' or channels'
 entries), whose gradients the train step sums over the group.
 """
@@ -170,16 +174,32 @@ def gqa_heads(h: int, kv: int, M: int) -> Heads:
                        for run in runs))
 
 
+def padded_heads(h: int, M: int) -> tuple:
+    """h heads over M ranks, ceil(h / M) consecutive heads a rank, padded
+    with zero heads (-1) to a multiple of M: the pads follow the last real
+    head, so a rank holds a run of real heads and then its pads."""
+    per = -(-h // M)
+    return tuple(tuple(j if j < h else -1
+                       for j in range(m * per, (m + 1) * per))
+                 for m in range(M))
+
+
 def mla_heads(h: int, M: int) -> Heads:
     """MLA's h heads over M ranks, padded with zero heads to a multiple of
     M; its latent cache is every rank's whole (``kv`` names no head)."""
-    per = -(-h // M)
-    q = tuple(tuple(j if j < h else -1 for j in range(m * per, (m + 1) * per))
-              for m in range(M))
-    return Heads(q, ())
+    return Heads(padded_heads(h, M), ())
+
+
+def rwkv_heads(cfg: ModelConfig) -> int:
+    """RWKV-6's head count, d_model / head_size."""
+    return cfg.d_model // cfg.rwkv.head_size
 
 
 def heads(cfg: ModelConfig, M: int) -> Heads:
+    """Each rank's heads at a model group of M: attention's, or RWKV-6's
+    time-mixing heads (padded as MLA's, :func:`padded_heads`)."""
+    if cfg.rwkv is not None:
+        return Heads(padded_heads(rwkv_heads(cfg), M), ())
     if cfg.attention == "mla":
         return mla_heads(cfg.num_heads, M)
     return gqa_heads(cfg.num_heads, cfg.num_kv_heads, M)
@@ -202,11 +222,13 @@ def local_config(cfg: ModelConfig, M: int) -> ModelConfig:
 _HEAD_LEAVES = ((r"attn/w_(k|v)$", "kv"),
                 (r"attn/w_(q|o|uq|uk|uv)$", "q"))
 
+# RWKV-6's time-mixing products, split by its heads (:func:`heads`)
+_RWKV_HEAD_LEAVES = r"att/w_(r|k|v|g|o)$"
+
 
 # the split leaves whose split dim is a run of heads of a fixed width
 # (not padded): (regex, the width from the config)
-_UNIT_LEAVES = ((r"ssm/w_out$", lambda cfg: cfg.ssm.headdim),
-                (r"att/w_(r|k|v|g|o)$", lambda cfg: cfg.rwkv.head_size))
+_UNIT_LEAVES = ((r"ssm/w_out$", lambda cfg: cfg.ssm.headdim),)
 
 # whole leaves a split model reads in part (its heads' or channels'
 # entries of a per-channel leaf), so that a rank's gradient of each is
@@ -269,8 +291,10 @@ def _model_dim(path: str, cfg: ModelConfig) -> Optional[int]:
 
 
 def _head_set(path: str, cfg: ModelConfig, M: int):
-    """(the rank's heads, heads in the leaf) of an attention leaf split
-    by heads, or None."""
+    """(the rank's heads, heads in the leaf) of an attention or RWKV-6
+    leaf split by heads, or None."""
+    if cfg.rwkv is not None and re.search(_RWKV_HEAD_LEAVES, path):
+        return heads(cfg, M).q, rwkv_heads(cfg)
     for pat, which in _HEAD_LEAVES:
         if re.search(pat, path) and cfg.attention in ("gqa", "mla"):
             hd = heads(cfg, M)

@@ -9,8 +9,9 @@ ranks at M = 4), smollm with 3 heads (K/V heads padded with zero heads),
 llava (vlm), mixtral (4 experts: the ff split), deepseek-v2-lite (MLA, a
 dense first layer, 4 experts: the ff split; and with 16 experts:
 expert-parallel), minicpm3 (MLA with query compression; and with 3
-heads: padded), zamba2 (Mamba2 and its shared block), rwkv6 (RWKV-6)
-and whisper (the encoder-decoder; and with 3 heads: padded, all of rank
+heads: padded), zamba2 (Mamba2 and its shared block), rwkv6 (RWKV-6;
+and with 3 heads of 32 at d_model 96: a width 2 and 4 divide, heads they
+do not, padded with zero heads, all of rank 3's zero at M = 4) and whisper (the encoder-decoder; and with 3 heads: padded, all of rank
 3's heads zero at M = 4).  Every bias and norm scale is drawn nonzero
 (:func:`nonzero_biases`, numpy, the same values on both sides), so a
 bias added once a rank, or a norm read in part, shows.  What they hold:
@@ -36,8 +37,12 @@ the ssm, hybrid and audio families init over a group and take a rank's
 blocks as params; the vocab-parallel embedding and logits are bitwise
 the whole ones; a world of 1 at ``1x4`` is bitwise ``1x1``; the head
 layouts; one train step at ``2x2`` in a world of 1 (the whole model)
-bitwise the ``2x1`` one; and the refusals (a split the vocab, heads,
-state or ff do not allow).  Training split over a model group:
+bitwise the ``2x1`` one; RWKV-6's heads padded with zero heads (the
+split round trip, a reference train state cut to the padded blocks, and
+every rwkv6-3b leaf's block at the reference's model axis of 16 from its
+shapes alone); and the refusals (a split the vocab, Mamba2's heads or
+state, or the ff do not allow).  The spawns also hold each rank's RWKV-6
+decode state: its real heads the world-1 state's, its zero heads 0.  Training split over a model group:
 ``tests/test_torch_tp_train.py``.
 """
 import dataclasses
@@ -88,11 +93,15 @@ CASES = {
                         {}, 24),
     "zamba2": ("zamba2-1.2b", {}, {}, 24),
     "rwkv6": ("rwkv6-3b", {}, {}, 24),
+    "rwkv6-3heads": ("rwkv6-3b", {"d_model": 96, "num_heads": 3,
+                                  "num_kv_heads": 3, "head_dim": 32}, {}, 24),
     "whisper": ("whisper-tiny", {}, {}, 24),
     "whisper-3heads": ("whisper-tiny", {"num_heads": 3, "num_kv_heads": 3,
                                         "head_dim": 64}, {}, 24),
 }
 SPAWNS = {"1x2": 2, "1x4": 4, "2x2": 4}
+# the cases whose ranks' RWKV-6 decode state is checked, head by head
+STATE_CASES = ("rwkv6-3heads",)
 SERVE_ARCHS = ("phi3-mini-3.8b", "deepseek-v2-lite-16b", "zamba2-1.2b",
                "rwkv6-3b", "whisper-tiny")
 # the biases and norm scales every case draws nonzero (a scale about 1)
@@ -200,6 +209,11 @@ def nested_params(model) -> dict:
 def run_model(model, name) -> torch.Tensor:
     """The prefill logits and N_DEC teacher-forced decode steps' logits,
     [1 + N_DEC, B, V]."""
+    return run_case(model, name)[0]
+
+
+def run_case(model, name):
+    """:func:`run_model`'s logits and the decode cache after them."""
     S = CASES[name][3]
     toks, extra = case_inputs(name, model.cfg)
     toks = torch.tensor(toks, dtype=torch.int64)
@@ -209,7 +223,7 @@ def run_model(model, name) -> torch.Tensor:
     for t in range(N_DEC):
         logits, cache = model.decode_step(toks[:, S + t], cache)
         out.append(logits)
-    return torch.stack(out)
+    return torch.stack(out), cache
 
 
 def serve_args(arch):
@@ -251,7 +265,9 @@ def _worker(rank, world, port, out_dir, spec, tree_path):
             cfg = port_config(name)
             model = with_biases(Model.init(cfg, rng(SEED, "cpu"),
                                            group=group))
-            out[("init", name)] = run_model(model, name)
+            out[("init", name)], cache = run_case(model, name)
+            if name in STATE_CASES:
+                out[("wkv", name)] = cache["wkv"]
             params = model_params_from_numpy(trees[name], cfg, "cpu", group)
             out[("ref", name)] = run_model(Model(cfg, params, group), name)
         for arch in SERVE_ARCHS:
@@ -354,9 +370,12 @@ def reference(tmp_path_factory):
 def world1():
     """Per case: the whole model's logits (a world of 1), and the 1x1
     serve tokens."""
-    out = {name: run_model(with_biases(Model.init(port_config(name),
-                                                  rng(SEED, "cpu"))), name)
-           for name in CASES}
+    out = {}
+    for name in CASES:
+        out[name], cache = run_case(with_biases(Model.init(
+            port_config(name), rng(SEED, "cpu"))), name)
+        if name in STATE_CASES:
+            out[("wkv", name)] = cache["wkv"]
     out.update({("serve", arch): serve.main(serve_args(arch))["tokens"]
                 for arch in SERVE_ARCHS})
     return out
@@ -399,6 +418,32 @@ def test_tp_rank_matches_reference(spec, name, ranks, reference):
         np.testing.assert_allclose(r[("ref", name)].numpy(), want,
                                    atol=ATOL_REF, rtol=ATOL_REF,
                                    err_msg=f"{spec} {name}")
+
+
+@pytest.mark.parametrize("name", STATE_CASES)
+@pytest.mark.parametrize("spec", list(SPAWNS))
+def test_rwkv_state_holds_the_ranks_heads_and_zero_pads(spec, name, ranks,
+                                                        world1):
+    """The decode state [L, B, heads, hs, hs] after the prefill and N_DEC
+    steps: a rank's real heads hold the world-1 state's within 1e-5, its
+    zero heads exactly 0."""
+    cfg = port_config(name)
+    want = world1[("wkv", name)]
+    for r in ranks(spec):
+        M, m = r["group"]
+        mine = sharding.heads(cfg, M).q[m]
+        got = r[("wkv", name)]
+        assert got.shape[2] == len(mine), spec
+        for i, j in enumerate(mine):
+            if j < 0:
+                assert not got[:, :, i].any(), (spec, m, i)
+            else:
+                torch.testing.assert_close(got[:, :, i], want[:, :, j],
+                                           atol=ATOL_WORLD1,
+                                           rtol=ATOL_WORLD1)
+    if spec == "1x4":
+        assert any(all(j < 0 for j in sharding.heads(cfg, 4).q[m])
+                   for m in range(4))            # a rank of zero heads
 
 
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
@@ -624,6 +669,81 @@ def test_mla_head_layouts():
         q = sharding.mla_heads(h, M).q
         assert len({len(r) for r in q}) == 1
         assert sorted(j for r in q for j in r if j >= 0) == list(range(h))
+
+
+@pytest.mark.parametrize("M", [2, 4, 16])
+@pytest.mark.parametrize("path", ["blocks/att/w_r", "blocks/att/w_g",
+                                  "blocks/att/w_o"])
+def test_rwkv_head_split_round_trips(path, M):
+    """RWKV-6's time-mixing products split by whole heads padded with zero
+    heads (3 heads over 2, 4 and 16 ranks): each block holds its real
+    heads bitwise and zeros for its pads, and ``unshard_leaf`` drops the
+    pads and puts the whole leaf back bitwise, behind a server and a layer
+    dim too."""
+    cfg = port_config("rwkv6-3heads")
+    d = cfg.d_model
+    full = torch.randn((2, 3, d, d),
+                       generator=torch.Generator().manual_seed(M))
+    blocks = [sharding.shard_leaf(path, full, cfg, ModelGroup(M, m), lead=2)
+              for m in range(M)]
+    want = sharding.local_shape(path, (d, d), cfg, M)
+    assert all(b.shape == (2, 3) + want for b in blocks)
+    assert sharding.multiplicity(path, cfg, M) == 1
+    assert torch.equal(sharding.unshard_leaf(path, blocks, cfg, M, lead=2),
+                       full)
+    _assembled(path, full[1, 2], cfg, M, [b[1, 2] for b in blocks])
+
+
+def test_rwkv6_3b_splits_over_the_references_model_axis():
+    """rwkv6-3b at a model group of 16, from its shapes alone (nothing
+    allocated): 40 heads padded to 48, 3 a rank (rank 13 holds head 39
+    and two zero heads, ranks 14 and 15 zero heads only), the time-mixing
+    products 192 columns (rows of ``w_o``) a rank, the channel mix's ff
+    and the vocab a flat 1/16, every other leaf whole."""
+    from repro_torch.convert import tree_shapes
+    from repro_torch.models.model import check_supported
+    from repro_torch.models.rwkv import rwkv_dims
+    cfg = get_config("rwkv6-3b")
+    check_supported(cfg, 16)
+    q = sharding.heads(cfg, 16).q
+    assert q[0] == (0, 1, 2) and q[13] == (39, -1, -1)
+    assert q[14] == q[15] == (-1, -1, -1)
+    assert rwkv_dims(cfg, ModelGroup(16, 13)) == (3, 64)
+    top, stacks = tree_shapes(cfg)
+    leaves = {"/".join(("blocks",) + p): s
+              for p, s in stacks["blocks"][1].items()}
+    leaves.update({"/".join(p): s for p, s in top.items()})
+    want = {"blocks/att/w_r": (2560, 192), "blocks/att/w_k": (2560, 192),
+            "blocks/att/w_v": (2560, 192), "blocks/att/w_g": (2560, 192),
+            "blocks/att/w_o": (192, 2560), "blocks/ffn/w_k": (2560, 560),
+            "blocks/ffn/w_v": (560, 2560), "embed/table": (4096, 2560),
+            "lm_head/w": (2560, 4096)}
+    assert want.keys() <= leaves.keys()
+    for path, shape in leaves.items():
+        assert sharding.local_shape(path, shape, cfg, 16) == want.get(
+            path, tuple(shape)), path
+
+
+@pytest.mark.parametrize("M", [2, 4])
+def test_rwkv_train_state_cuts_to_the_padded_layout(M):
+    """``convert.train_params_from_numpy`` cuts a reference train state
+    ([P, ...] leaves) of the 3-head RWKV-6 to a rank's padded blocks: each
+    the rank's server row of ``shard_leaf``'s block, zero heads 0."""
+    from repro_torch.convert import train_params_from_numpy
+    cfg = port_config("rwkv6-3heads")
+    model = with_biases(Model.init(cfg, rng(SEED, "cpu")))
+    whole = FlatView(model).tree(model)
+    tree = {k: np.stack([v.numpy(), 2 * v.numpy()]) for k, v in
+            whole.items()}
+    for m in range(M):
+        group = ModelGroup(M, m)
+        got = train_params_from_numpy(tree, cfg, range(1, 2), "cpu",
+                                      group=group)
+        assert got.keys() == whole.keys()
+        for k, v in whole.items():
+            want = sharding.shard_leaf(k, 2 * v, cfg, group,
+                                       lead=sharding.stack_lead(k))
+            assert torch.equal(got[k][0], want), (m, k)
 
 
 def test_uneven_split_raises_naming_the_leaf():

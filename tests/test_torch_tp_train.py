@@ -7,13 +7,14 @@ intra-op thread a rank, each spawn joined within its own timeout; one
 - **Gradients.**  Every ``tests/test_torch_tp.py::CASES`` entry at M = 2
   (mesh 1x2) and M = 4 (1x4): each rank's gradient of ``Model.loss``
   (``launch.steps.client_grads``, the train step's) against its block of
-  the world-1 gradient within 1e-5 of the leaf's largest, the
-  vocab-parallel loss within 1e-6 of the world-1 loss.  That covers the
-  router and MLA's whole leaves, shared K/V heads (smollm at M = 4),
-  padding heads (the 3-head cases), the norms, Mamba2's gathered B and C
-  and its gated norm's sum, RWKV-6's decay and whisper's cross K/V, with
-  every bias and norm scale nonzero (``test_torch_tp.with_biases``).
-  RWKV-6's case runs with f64 params: its recurrence runs in f32 whatever
+  the world-1 gradient within 1e-5 of the leaf's largest (a zero head's
+  block exactly 0), the vocab-parallel loss within 1e-6 of the world-1
+  loss.  That covers the router and MLA's whole leaves, shared K/V heads
+  (smollm at M = 4), padding heads (the 3-head cases, RWKV-6's among
+  them), the norms, Mamba2's gathered B and C and its gated norm's sum,
+  RWKV-6's decay and whisper's cross K/V, with every bias and norm scale
+  nonzero (``test_torch_tp.with_biases``).
+  RWKV-6's cases run with f64 params: its recurrence runs in f32 whatever
   they are, and with f32 params the whole model's ``u`` gradient is
   itself about 4e-5 of its largest value from an f64 run's.
 - **Leaves read in part.**  Before the train step's sum, a rank's
@@ -31,9 +32,10 @@ intra-op thread a rank, each spawn joined within its own timeout; one
   ``Mesh.ppermute`` (bitwise the point-to-point run); then dense through
   K3 under hybrid for each other split family: llava (vlm), mixtral (MoE,
   the ff split), deepseek-v2-lite (MLA, MoE), minicpm3 (MLA with a
-  compressed query) and zamba2 (Mamba2 and the shared block).  Padding
-  heads stay exactly zero, and leaves the ranks of a server replicate
-  stay bitwise equal.
+  compressed query), zamba2 (Mamba2 and the shared block) and RWKV-6
+  with 3 heads (a zero head on the second rank).  Padding heads stay
+  exactly zero, and leaves the ranks of a server replicate stay bitwise
+  equal.
 - **ppermute.**  The all_reduce form bitwise the point-to-point form for
   the rotate and sparse permutations of P = 2 and P = 4 (meshes 2x1, 4x1
   and the pod mesh 2x2x1 in world 2, 2x2 in world 4).
@@ -81,12 +83,13 @@ BOUND = 1.0          # under the clients' gradient norms: every step clips
 ATOL_GRAD, ATOL_LOSS, ATOL_STEP = 1e-5, 1e-6, 1e-5
 WEIGHTS = [[2.0, 0.5], [1.5, 1.0]]
 # the gradient cases run with f64 params (the module note)
-GRAD_F64 = ("rwkv6",)
+GRAD_F64 = ("rwkv6", "rwkv6-3heads")
 # the cases whose leaves read in part are checked, and those leaves
 PART_LEAVES = {"zamba2": {f"blocks/ssm/{k}" for k in (
                    "conv_w", "conv_b", "dt_bias", "A_log", "D",
                    "norm_scale")},
                "rwkv6": {"blocks/att/u", "blocks/att/ln_scale"},
+               "rwkv6-3heads": {"blocks/att/u", "blocks/att/ln_scale"},
                "whisper": set()}
 PART_CASES = tuple(PART_LEAVES)
 # smollm with 3 heads (padded at M = 2), and with one K/V head (shared)
@@ -117,7 +120,9 @@ RUNS = ([_run(f"{c}{'_k' if k else ''}-{p}", c, p, kernels=k)
         + [_run(f"{name}-dense_k-hybrid", "dense", "hybrid", arch=name,
                 kernels=True)
            for name in ("llava", "mixtral", "deepseek", "minicpm3",
-                        "zamba2")])
+                        "zamba2", "rwkv6-3heads")])
+# the train runs whose model has zero heads at M = 2
+PADDED_ARCHS = ("3heads", "rwkv6-3heads")
 PERM_MESHES = {2: [((2, 1), ("data", "model")), ((4, 1), ("data", "model")),
                    ((2, 2, 1), ("pod", "data", "model"))],
                4: [((2, 2), ("data", "model"))]}
@@ -371,6 +376,8 @@ def test_rank_gradient_is_its_block_of_the_whole(M, name, ranks, world1):
             err = float((grads[k] - blk).abs().max())
             assert grads[k].shape == blk.shape and err <= tol, \
                 (i, k, err, tol)
+            for pad in pad_blocks(k, grads[k], cfg, M, i):
+                assert not pad.any(), (i, k)
 
 
 @pytest.mark.parametrize("name", PART_CASES)
@@ -396,6 +403,20 @@ def test_read_in_part_leaves_are_the_partial_gradients(M, name, ranks,
         if k in table:
             total = sum(raw[k] for raw in got)
             assert float((total - g).abs().max()) <= tol, k
+
+
+def pad_blocks(k, x, cfg, M, m, lead=0) -> list:
+    """Rank m's blocks of ``x`` (its block of the leaf ``k``, behind
+    ``lead`` dims and the leaf's layer dim) that belong to a zero head."""
+    hs = sharding._head_set(k, cfg, M)
+    if hs is None:
+        return []
+    mine = hs[0][m]
+    dim = lead + sharding.stack_lead(k) + \
+        sharding.param_spec(k, cfg).index("model")
+    width = x.shape[dim] // len(mine)
+    return [x.narrow(dim, h * width, width)
+            for h, j in enumerate(mine) if j < 0]
 
 
 # ----------------------------------------------------------- train steps
@@ -439,24 +460,15 @@ def test_padding_heads_stay_zero_and_replicas_equal(run, ranks):
     got = ranks["get"](4)
     cfg = train_config(run["arch"])
     lay = sharding.heads(cfg, 2)
-    padded = run["arch"] == "3heads"
+    padded = run["arch"] in PADDED_ARCHS
     assert any(j < 0 for j in lay.q[1]) == padded
     for i in range(STEPS):
         for rank, r in enumerate(got):
             m = rank % 2
             params = r[run["name"]][i][0]
             for k, x in params.items():
-                hs = sharding._head_set(k, cfg, 2)
-                if hs is None:
-                    continue
-                mine = hs[0][m]
-                dim = 1 + sharding.stack_lead(k) + \
-                    sharding.param_spec(k, cfg).index("model")
-                width = x.shape[dim] // len(mine)
-                for h, j in enumerate(mine):
-                    if j < 0:
-                        assert not x.narrow(dim, h * width, width).any(), \
-                            (i, rank, k)
+                for pad in pad_blocks(k, x, cfg, 2, m, lead=1):
+                    assert not pad.any(), (i, rank, k)
         for b in range(2):
             a, c = (got[2 * b + m][run["name"]][i][0] for m in range(2))
             for k in a:
